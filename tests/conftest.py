@@ -51,3 +51,10 @@ def golden_dir(request):
 @pytest.fixture(scope="session")
 def rng():
     return np.random.RandomState(12345)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "slow: long test, deselected by -m 'not slow'")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (skips without one)")
