@@ -3,14 +3,16 @@
 
 Reads the two PNGs (INTER_AREA resize, BGR -> RGB, /255), runs the model
 on the card (``--cpu`` for the CPU), writes the disparity as `.bin`
-(rank/dims/fp32) and as a 16-bit PNG scaled by the image width (the
-correlation model's sigmoid output, `main.cpp:317-330`), and prints one
-JSON summary line. Weights come from an .npz bundle (``--weights``) or
-random init from ``--seed``.
+(rank/dims/fp32: pixels for the 3D models, [0, 1] for ``resnet18_2d``)
+and as a 16-bit PNG (`main.cpp:317-330`: the 3D models' pixels x 256, the
+correlation model's sigmoid output x the image width), and prints one JSON
+summary line. Weights come from an .npz bundle (``--weights``; the golden
+bundles' bundled ``disp`` is skipped) or random init from ``--seed``.
 
 Usage:
-  python -m redtail_tpu_torch.apps.stereo_app resnet18_2d \
-      --weights model.npz --left left.png --right right.png --out disp
+  python -m redtail_tpu_torch.apps.stereo_app nvsmall \
+      --weights tests/data/nvsmall_golden.npz --left left.png \
+      --right right.png --out disp --dtype bf16
 """
 
 from __future__ import annotations

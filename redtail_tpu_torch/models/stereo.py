@@ -1,21 +1,33 @@
 """The stereo model zoo in PyTorch (`redtail_tpu/models/stereo.py`).
 
-All four `STEREO_SPECS` are here as data; the ResNet18-2D network is
-ported: siamese ResNet-18 encoder -> correlation cost volume (D = max_disp,
-fp32, the CUDA kernel on the card) -> fp32 soft-argmax -> concat with the
-left conv1 features -> 2D bottleneck encoder/decoder -> sigmoid, disparity
-normalized to [0, 1] (multiply by the image width for pixels).
+All four `STEREO_SPECS` are ported:
+
+- **NVTiny / NVSmall** (plain 2D encoder) and **ResNet-18 3D** (ResNet-18
+  encoder): siamese encoder -> concat cost volume at half resolution
+  (D = max_disp) and conv3D_1 -> 3D encoder/decoder with skips ->
+  soft-argmin over the full-resolution disparity axis (2 * max_disp).
+  The output is the expected disparity **in pixels**. By default the
+  volume and conv3D_1 are fused (`ops/fused_cost_volume_conv.py`: two
+  cuDNN convs and the CUDA assembly kernel on the card); under
+  `plain_lowering()` the volume is built explicitly (the CUDA concat
+  kernel) and conv3D_1 is a dense conv3d, as the JAX package trains.
+- **ResNet18-2D**: siamese ResNet-18 encoder -> correlation cost volume
+  (fp32, the CUDA kernel on the card) -> fp32 soft-argmax -> concat with
+  the left conv1 features -> 2D bottleneck encoder/decoder -> sigmoid: the
+  output is disparity **normalized to [0, 1]** (multiply by the image
+  width for pixels).
 
 `StereoNet` is the `nn.Module`; `stereo_forward(spec, params, left, right)`
 is the JAX function's counterpart. Weights arrive as the JAX package's
-nested param dict of numpy arrays (HWIO, keys as in `_spec_layer_shapes`)
-and are moved to PyTorch's layouts once, at load (`params_from_numpy`),
-including the space-to-depth form of the stem. Activations are NHWC at the
-public functions and NCHW in `torch.channels_last` memory inside.
+nested param dict of numpy arrays (HWIO / DHWIO, keys as in
+`_spec_layer_shapes`) and are moved to PyTorch's layouts once, at load
+(`params_from_numpy`), including the space-to-depth form of the stem.
+Activations are NHWC at the public functions and NCHW / NCDHW in
+`torch.channels_last` / `torch.channels_last_3d` memory inside.
 
-This is the JAX package's plain path (its CPU defaults): per-tower
-encoders, no H-packing, no block-diagonal towers. The two towers run as
-one batch-2 chain of convs, which is exact.
+This is the JAX package's unpacked path (its CPU defaults): per-tower
+encoders, no H-packing, no block-diagonal towers, no packed 3D layouts.
+The two towers run as one batch-2 chain of convs, which is exact.
 """
 
 from __future__ import annotations
@@ -33,9 +45,19 @@ from redtail_tpu_torch.ops.activations import elu, sigmoid
 from redtail_tpu_torch.ops.convolution import (
     conv2d_nchw,
     conv2d_transpose_nchw,
+    conv3d_ncdhw,
+    conv3d_transpose_ncdhw,
+    use_plain_lowering,
 )
-from redtail_tpu_torch.ops.cost_volume import corr_cost_volume_dlast
-from redtail_tpu_torch.ops.softargmax import softargmax
+from redtail_tpu_torch.ops.cost_volume import (
+    corr_cost_volume_dlast,
+    cost_volume,
+)
+from redtail_tpu_torch.ops.fused_cost_volume_conv import (
+    cost_volume_conv3d_nchw,
+    split_kernels,
+)
+from redtail_tpu_torch.ops.softargmax import softargmax, softargmin
 from redtail_tpu_torch.ops.space_to_depth import conv5s2_kernel_to_s2d, s2d_hw
 from redtail_tpu_torch.utils.checkpoint import load_npz_flat
 
@@ -66,6 +88,10 @@ class StereoSpec:
     corr: bool = False
     bneck_channels: Tuple[Tuple[str, int, int], ...] = ()   # (name, out_ch, stride)
     bneck_dec: Tuple[Tuple[str, int, Optional[str]], ...] = ()
+
+    @property
+    def full_max_disp(self) -> int:
+        return 2 * self.max_disp
 
 
 def _nvsmall_enc3d(f: int) -> Tuple[Conv3dLayer, ...]:
@@ -242,56 +268,95 @@ def _has_quantized(node) -> bool:
     return False
 
 
-def _param(a, device, dtype) -> nn.Parameter:
+def _tensor(a, device, dtype) -> torch.Tensor:
     t = torch.from_numpy(np.asarray(a, np.float32)).to(device=device,
                                                          dtype=dtype)
     if t.dim() == 4:
-        t = t.contiguous(memory_format=torch.channels_last)
-    return nn.Parameter(t, requires_grad=False)
+        return t.contiguous(memory_format=torch.channels_last)
+    if t.dim() == 5:
+        return t.contiguous(memory_format=torch.channels_last_3d)
+    return t
+
+
+def _param(a, device, dtype) -> nn.Parameter:
+    return nn.Parameter(_tensor(a, device, dtype), requires_grad=False)
+
+
+def _torch_layout(w: np.ndarray) -> np.ndarray:
+    """HWIO / DHWIO -> PyTorch's (O, I, *k); for a transposed conv, whose
+    I is its output, that is PyTorch's (in, out, *k)."""
+    nd = w.ndim
+    return np.transpose(w, (nd - 1, nd - 2, *range(nd - 2)))
 
 
 class _Conv(nn.Module):
-    """TF-SAME conv layer: the HWIO kernel held as OIHW."""
+    """TF-SAME conv layer, 2D or 3D: the HWIO / DHWIO kernel held as
+    OIHW / OIDHW."""
 
-    def __init__(self, w_hwio, b, stride: int, device, dtype):
+    def __init__(self, w, b, stride: int, device, dtype):
         super().__init__()
         self.stride = stride
-        self.weight = _param(np.transpose(w_hwio, (3, 2, 0, 1)), device, dtype)
+        self.weight = _param(_torch_layout(w), device, dtype)
         self.bias = _param(b, device, dtype)
 
     def forward(self, x):
-        return conv2d_nchw(x, self.weight, self.bias, self.stride)
+        conv = conv3d_ncdhw if self.weight.dim() == 5 else conv2d_nchw
+        return conv(x, self.weight, self.bias, self.stride)
+
+
+class _FusedConv3D1(_Conv):
+    """conv3D_1 over the concat cost volume. ``forward`` is the dense
+    conv3d (the plain lowering); ``fused`` computes the same layer from the
+    two feature maps (`ops/fused_cost_volume_conv.py`) with the
+    `split_kernels` pair, derived at load and held as OIHW buffers."""
+
+    def __init__(self, w, b, device, dtype):
+        super().__init__(w, b, 1, device, dtype)
+        for name, k in zip(("k_left", "k_right"),
+                           split_kernels(torch.from_numpy(
+                               np.asarray(w, np.float32)))):
+            self.register_buffer(
+                name, _tensor(_torch_layout(k.numpy()), device, dtype),
+                persistent=False)
+
+    def fused(self, left, right, max_disp: int):
+        """(N, C, H, W) maps -> ELU'd output as an (N, K, D, H, W) view of
+        (N, D, H, W, K) memory (`torch.channels_last_3d`)."""
+        out = cost_volume_conv3d_nchw(left, right, self.k_left,
+                                      self.k_right, self.bias, max_disp,
+                                      apply_elu=True)
+        return out.permute(0, 4, 1, 2, 3)
 
 
 class _ConvTranspose(nn.Module):
-    """TF conv2d_transpose layer, stride 2: the HWIO kernel (I = output
-    channels) held as PyTorch's (in, out, kh, kw)."""
+    """TF conv{2,3}d_transpose layer, stride 2: the HWIO / DHWIO kernel
+    (I = output channels) held as PyTorch's (in, out, *k)."""
 
-    def __init__(self, w_hwio, b, device, dtype):
+    def __init__(self, w, b, device, dtype):
         super().__init__()
-        self.weight = _param(np.transpose(w_hwio, (3, 2, 0, 1)), device, dtype)
+        self.weight = _param(_torch_layout(w), device, dtype)
         self.bias = _param(b, device, dtype)
 
     def forward(self, x, out_spatial):
-        return conv2d_transpose_nchw(x, self.weight, self.bias,
-                                     out_spatial=out_spatial, stride=2)
+        conv = (conv3d_transpose_ncdhw if self.weight.dim() == 5
+                else conv2d_transpose_nchw)
+        return conv(x, self.weight, self.bias, out_spatial=out_spatial,
+                    stride=2)
 
 
 class StereoNet(nn.Module):
-    """ResNet18-2D: NHWC image pair (values in [0, 1]) -> (N, H, W)
-    sigmoid-normalized disparity.
+    """One stereo network: NHWC image pair (values in [0, 1]) -> (N, H, W)
+    disparity, in pixels for the 3D models and normalized to [0, 1] for
+    ``resnet18_2d``.
 
     Submodules follow the JAX param paths (`encoder2D.resblock1.res_conv1`,
-    `bneck_encoder2D.conv2D_1`, ...); `conv1_s2d` is the stem's exact 3x3
-    stride-1 form for space-to-depth packed input at ``spec.input_hw``."""
+    `encoder3D.conv3D_1`, `decoder3D.deconv3D_1`, ...); `conv1_s2d` is the
+    stem's exact 3x3 stride-1 form for space-to-depth packed input at
+    ``spec.input_hw``."""
 
     def __init__(self, spec: StereoSpec, params: Params, *,
                  device: torch.device, dtype: torch.dtype):
         super().__init__()
-        if not spec.corr:
-            raise NotImplementedError(
-                f"{spec.name}: the 3D concat-volume models are not ported "
-                "yet (ROADMAP.md, module queue item 4)")
         if _has_quantized(params):
             raise NotImplementedError(
                 "int8 'weights_q' leaves are not ported yet (ROADMAP.md, "
@@ -300,6 +365,9 @@ class StereoNet(nn.Module):
         strides = {f"bneck_encoder2D/{name}": s
                    for name, _, s in spec.bneck_channels}
         strides["encoder2D/conv1"] = 2
+        strides.update({f"encoder3D/{layer.name}": layer.stride
+                        for layer in spec.enc3d})
+        fused = {f"encoder3D/{spec.enc3d[0].name}"} if spec.enc3d else set()
         for path, kshape, _ in _spec_layer_shapes(spec):
             leaf = params
             for p in path.split("/"):
@@ -308,8 +376,10 @@ class StereoNet(nn.Module):
             if tuple(w.shape) != kshape:
                 raise ValueError(f"{path}: kernel shape {tuple(w.shape)}, "
                                  f"spec wants {kshape}")
-            if path.startswith("bneck_decoder2D/"):
+            if path.startswith(("bneck_decoder2D/", "decoder3D/")):
                 layer = _ConvTranspose(w, b, device, dtype)
+            elif path in fused and strides[path] == 1:
+                layer = _FusedConv3D1(w, b, device, dtype)
             else:
                 layer = _Conv(w, b, strides.get(path, 1), device, dtype)
             self._add(path, layer)
@@ -337,6 +407,15 @@ class StereoNet(nn.Module):
         arrives space-to-depth packed (12 channels)."""
         stem = self.conv1_s2d if x.shape[1] == 12 else self.encoder2D.conv1
         return elu(stem(x))
+
+    def _plain_encoder(self, x):
+        """NVTiny/NVSmall tower: conv1 5x5 s2 + conv2..4 + conv5 (no
+        activation on conv5)."""
+        enc = self.encoder2D
+        x = self._conv1(x)
+        for name in ("conv2", "conv3", "conv4"):
+            x = elu(enc[name](x))
+        return enc.conv5(x)
 
     def _resnet_encoder(self, x):
         """conv1 + 8 residual blocks + encoder2D_out (no final act);
@@ -368,6 +447,32 @@ class StereoNet(nn.Module):
                 x = elu(x + acts[skip])
         return sigmoid(x)[:, 0]
 
+    def _volume_head(self, fl, fr, full_hw):
+        """Cost volume + conv3D_1 (fused, or explicit under
+        `plain_lowering()`), the 3D encoder/decoder and the soft-argmin:
+        (N, C, H', W') feature maps -> (N, H, W) disparity in pixels."""
+        spec = self.spec
+        enc, first = self.encoder3D, spec.enc3d[0]
+        if isinstance(enc[first.name], _FusedConv3D1) \
+                and not use_plain_lowering():
+            x = enc[first.name].fused(fl, fr, spec.max_disp)
+        else:
+            vol = cost_volume(fl.permute(0, 2, 3, 1).contiguous(),
+                              fr.permute(0, 2, 3, 1).contiguous(),
+                              spec.max_disp)
+            x = elu(enc[first.name](vol.permute(0, 4, 1, 2, 3)))
+        acts = {first.name: x}
+        for layer in spec.enc3d[1:]:
+            x = elu(enc[layer.name](x))
+            acts[layer.name] = x
+        for name, _out_ch, skip in spec.dec3d:
+            target = (acts[skip].shape[2:] if skip is not None
+                      else (spec.full_max_disp, *full_hw))
+            x = self.decoder3D[name](x, tuple(target))
+            if skip is not None:
+                x = elu(x + acts[skip])
+        return softargmin(x[:, 0], axis=1)
+
     def forward(self, left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
         """``left``/``right``: (N, H, W, 3) RGB in [0, 1], or s2d-packed
         (N, ceil(H/2), ceil(W/2), 12) with (H, W) = ``spec.input_hw``."""
@@ -383,7 +488,12 @@ class StereoNet(nn.Module):
             full_hw = tuple(left.shape[1:3])
         n = left.shape[0]
         x = torch.cat([left, right]).to(self.dtype).permute(0, 3, 1, 2)
-        feats, conv1_act = self._resnet_encoder(x)
+        if spec.encoder2d == "plain":
+            feats = self._plain_encoder(x)
+        else:
+            feats, conv1_act = self._resnet_encoder(x)
+        if not spec.corr:
+            return self._volume_head(feats[:n], feats[n:], full_hw)
         feats = feats.permute(0, 2, 3, 1).contiguous()  # NHWC for the kernel
         vol = corr_cost_volume_dlast(feats[:n], feats[n:], spec.max_disp)
         d = softargmax(vol, axis=-1)
@@ -398,8 +508,8 @@ def params_from_numpy(spec: StereoSpec, params: Params, *, device=None,
 
 
 def params_to_numpy(net: StereoNet) -> Params:
-    """The inverse of `params_from_numpy`: the nested HWIO param dict as
-    float32 numpy."""
+    """The inverse of `params_from_numpy`: the nested HWIO / DHWIO param
+    dict as float32 numpy."""
     params: Params = {}
     for path, _, _ in _spec_layer_shapes(net.spec):
         layer = net.get_submodule(path.replace("/", "."))
@@ -407,8 +517,10 @@ def params_to_numpy(net: StereoNet) -> Params:
         node = params
         for s in scopes:
             node = node.setdefault(s, {})
+        nd = layer.weight.dim()
         node[name] = {
-            "weights": layer.weight.permute(2, 3, 1, 0).float().cpu().numpy(),
+            "weights": layer.weight.permute(*range(2, nd), 1, 0)
+            .float().cpu().numpy(),
             "biases": layer.bias.float().cpu().numpy()}
     return params
 
@@ -416,7 +528,8 @@ def params_to_numpy(net: StereoNet) -> Params:
 def stereo_forward(spec: StereoSpec, params, left: torch.Tensor,
                    right: torch.Tensor) -> torch.Tensor:
     """Counterpart of the JAX `stereo_forward`: NHWC pair -> (N, H, W)
-    sigmoid-normalized disparity. ``params`` is a `StereoNet` built for
+    disparity, in pixels for the 3D models and normalized to [0, 1] for
+    ``resnet18_2d``. ``params`` is a `StereoNet` built for
     ``spec``, or a nested numpy param dict, built here on ``left``'s
     device in ``left``'s dtype."""
     if isinstance(params, StereoNet):

@@ -5,9 +5,10 @@ equivalent, serving subset.
 host only when the frame size differs from the model's (`cv2`, imported
 then), space-to-depth pack with BGR -> RGB folded in on the host, upload
 the uint8 frames to the node's device, normalize there, run the model
-(stem in its 3x3 s2d form, correlation volume in the CUDA kernel on the
-card) and return the (H, W) float32 disparity, in pixels for the
-correlation model (sigmoid output x width, `stereo_dnn_ros_node.cpp:77-95`).
+(stem in its 3x3 s2d form, cost volumes in the CUDA kernels on the card)
+and return the (H, W) float32 disparity in pixels: the 3D models return
+pixels already, the correlation model's sigmoid output is multiplied by
+the width (`stereo_dnn_ros_node.cpp:77-95`).
 
 Frames in flight (``overlap``/``microbatch``), the uint16 wire, quantized
 weights and pinning to another card are later slices and raise
@@ -116,5 +117,6 @@ class StereoNode:
             right_p = self._host_prep(right_u8)
         with self.profiler.stage(name):
             disp = self.net(self._upload(left_p), self._upload(right_p))
-            # the correlation model is sigmoid-normalized: x width -> pixels
-            return (disp * self._hw[1]).float().cpu().numpy()[0]
+            if self.spec.corr:  # sigmoid-normalized: x width -> pixels
+                disp = disp * self._hw[1]
+            return disp.float().cpu().numpy()[0]

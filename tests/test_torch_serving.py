@@ -64,6 +64,27 @@ def test_stereo_node_matches_jax_node(monkeypatch):
                                           "stereo/resnet18_2d/pack"}
 
 
+def test_stereo_node_3d_model_serves_pixels(monkeypatch):
+    """The 3D models return pixels already: the node must not scale them
+    by the width as it does the correlation model's sigmoid output."""
+    monkeypatch.delenv("REDTAIL_TPU_S2D", raising=False)  # JAX: raw stem
+    monkeypatch.setenv("REDTAIL_TPU_PACKED3D", "0")       # JAX: unpacked 3D
+    spec = dataclasses.replace(STEREO_SPECS["nvtiny"], input_hw=HW,
+                               max_disp=8)
+    jspec = dataclasses.replace(JSPECS["nvtiny"], input_hw=HW, max_disp=8)
+    params = conditioned(init_stereo_params(spec, seed=1))
+    left, right = _frames()
+    want = JStereoNode(jspec, jax.tree.map(jnp.asarray, params),
+                       dtype=jnp.float32)(left, right)
+    got = StereoNode(spec, params, dtype=torch.float32, device="cpu")(
+        left, right)
+    assert got.shape == HW and got.dtype == np.float32
+    assert 0 <= got.min() and got.max() <= spec.full_max_disp
+    # raw 5x5 stem (JAX) against the s2d 3x3 stem (port): reassociated fp32
+    # sums through the net and the soft-argmin, in pixels
+    np.testing.assert_allclose(got, want, atol=1e-3)
+
+
 @pytest.mark.parametrize("kwargs", [
     {"overlap": 1}, {"microbatch": 2}, {"wire": "u16"}, {"quantize": "w8"},
     {"quantize": "int8"}, {"device": "cuda:1"}], ids=str)
@@ -114,6 +135,40 @@ def test_stereo_app_matches_jax_app(tmp_path, capsys):
     np.testing.assert_allclose(got, want, atol=1e-4)
     assert cv2.imread(str(tmp_path / "port.png"),
                       cv2.IMREAD_UNCHANGED).dtype == np.uint16
+
+
+def test_stereo_app_3d_model_matches_jax_app(tmp_path, capsys,
+                                             monkeypatch):
+    cv2 = pytest.importorskip("cv2")
+    from redtail_tpu.apps import stereo_app as japp
+
+    from redtail_tpu_torch.apps import stereo_app
+
+    monkeypatch.setenv("REDTAIL_TPU_PACKED3D", "0")
+    spec = STEREO_SPECS["nvtiny"]
+    save_params(jax.tree.map(jnp.asarray,
+                             conditioned(init_stereo_params(spec, seed=2))),
+                tmp_path / "w.npz")
+    big = np.random.RandomState(5).randint(0, 256, (100, 200, 3)).astype(
+        np.uint8)
+    cv2.imwrite(str(tmp_path / "l.png"), big)
+    cv2.imwrite(str(tmp_path / "r.png"), np.roll(big, 3, axis=1))
+    common = ["nvtiny", "--cpu", "--hw", *map(str, HW), "--weights",
+              str(tmp_path / "w.npz"), "--left", str(tmp_path / "l.png"),
+              "--right", str(tmp_path / "r.png")]
+    japp.main(common + ["--out", str(tmp_path / "jax"), "--no-cache"])
+    stereo_app.main(common + ["--out", str(tmp_path / "port")])
+    capsys.readouterr()
+    want = read_bin(tmp_path / "jax.bin")
+    got = read_bin(tmp_path / "port.bin")
+    assert got.shape == want.shape == HW
+    # same preprocessing and raw stem on both sides: fp32 summation order,
+    # in pixels (as tests/test_torch_stereo3d.py)
+    np.testing.assert_allclose(got, want, atol=1e-3)
+    png = cv2.imread(str(tmp_path / "port.png"), cv2.IMREAD_UNCHANGED)
+    # the 3D models' PNG is pixels x 256 (`main.cpp:325-327`)
+    np.testing.assert_array_equal(
+        png, np.clip(got * 256.0, 0, 65535).astype(np.uint16))
 
 
 def test_params_from_npz_bf16_round_trip(tmp_path):

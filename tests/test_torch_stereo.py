@@ -144,13 +144,6 @@ def test_params_round_trip():
     jax.tree.map(np.testing.assert_array_equal, back, params)
 
 
-@pytest.mark.parametrize("name", ["nvtiny", "nvsmall", "resnet18"])
-def test_3d_models_not_ported(name):
-    spec = STEREO_SPECS[name]
-    with pytest.raises(NotImplementedError, match="module queue item 4"):
-        params_from_numpy(spec, init_stereo_params(spec), device="cpu")
-
-
 def test_int8_leaves_not_ported():
     spec = STEREO_SPECS["resnet18_2d"]
     params = init_stereo_params(spec)
