@@ -14,14 +14,18 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
    one nvcc per source, all at once;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card at the main paths' shapes and at edge cases (ragged W, D >= W,
-   odd D, C not a multiple of 8), fp32 and bf16; each kernel and its
-   plain version timed at the main path's shape with CUDA events (device
-   time: the host enqueues each call while the stream is held busy, L2
-   evicted before each call);
+   odd D, C not a multiple of 8, batch 2, W < 8, C = K = 16), fp32 and
+   bf16, the fused cost-volume assembly in both its layouts; each kernel
+   and its plain version timed at the main path's shape with CUDA events
+   (device time: the host enqueues each call while the stream is held
+   busy, L2 evicted before each call), conv223 also beside cuDNN's
+   `F.conv3d` of the same dense conv (its library yardstick);
 4. slice, card vs CPU: ResNet18-2D at 129x257 (max_disp 16) and NVTiny,
-   NVSmall, ResNet-18 3D at 65x129 (max_disp 8, both lowerings), seeded
-   weights: card fp32 (TF32 off) against the CPU within a stated
-   tolerance, card bf16 against CPU fp32 under a stated mean;
+   NVSmall, ResNet-18 3D at 65x129 (max_disp 8; the fused, plain and
+   packed lowerings, the packed one with the D-folded final deconv on the
+   card and the unpack branch on the CPU), seeded weights: card fp32
+   (TF32 off) against the CPU within a stated tolerance, card bf16
+   against CPU fp32 under a stated mean;
 5. serving, the main paths at full 321x1025 width in bf16, each driven
    with every launch count set to 0 just before and read just after:
    a. `StereoNode` ResNet18-2D, random weights, 10 frames: the corr
@@ -31,10 +35,15 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
       assembly kernel once per frame, disparity finite and in [0, 96] px;
    c. one NVSmall frame under `plain_lowering()`: the concat kernel once,
       and the disparity within a stated tolerance of the fused path's on
-      the same frame (the two lowerings are the same function).
+      the same frame (the two lowerings are the same function);
+   d. `StereoNode` NVSmall, the same weights, under `packed3d_lowering()`,
+      10 frames: conv223 and the packed emission once per frame, the concat
+      kernel never, and the disparity within a stated gate of the fused
+      path's on the same frames.
    Each prints its median latency, the `StageProfiler` report, peak
    device memory and a `torch.profiler` table; NVSmall also a per-layer
-   device-time breakdown.
+   device-time breakdown (5d's covers the packed layers and the D-folded
+   deconv3D_3).
 
 Then one JSON line describing every ported kernel, and last the line
 `{"ok": true, "device": {...}}`.
@@ -75,6 +84,15 @@ EMIT_CASES = (("nvsmall", (1, 161, 513, 32), 48),
               ("odd D", (1, 5, 70, 4), 7),
               ("D>W", (1, 3, 5, 4), 9),
               ("D=1", (1, 3, 9, 3), 1))
+# conv223 (name, xp (N, Dp, Hp, W, C), K): NVSmall's conv3D_2 first (the
+# main path's call), ResNet-18 3D's conv3D_1b, NVTiny's conv3D_2, edges.
+CONV223_CASES = (("nvsmall", (1, 25, 82, 513, 128), 128),
+                 ("resnet18", (1, 35, 82, 513, 128), 128),
+                 ("nvtiny", (1, 13, 42, 257, 64), 64),
+                 ("batch 2", (2, 4, 6, 20, 32), 32),
+                 ("odd Hp, Dp", (1, 5, 7, 9, 16), 16),
+                 ("W<8", (1, 3, 4, 5, 16), 16),
+                 ("C=K=16", (1, 4, 5, 33, 16), 16))
 FULL_HW = (321, 1025)
 SLICE_3D_HW, SLICE_3D_DISP = (65, 129), 8
 SLICE_3D_FP32_ATOL = 1e-3   # px: card fp32 vs CPU fp32, summation order
@@ -85,6 +103,14 @@ SLICE_3D_BF16_MEAN = 0.1    # px: bf16 weights and activations through the
 # is flat at a few pixels, where that rounding moves the soft-argmin by up
 # to 1.5 px (H100, two frames: max 0.656 and 1.5, mean 0.0055 and 0.0037)
 LOWERINGS_MEAN, LOWERINGS_MAX = 0.02, 4.0
+# px, packed vs fused head on the same 10 bf16 frames: the two heads are
+# one function and differ in where bf16 rounds (conv223 rounds once where
+# cuDNN rounds twice; dfold sums deconv3D_3 in another order), which moves
+# the soft-argmin of the flat random-texture costs as the plain lowering
+# does (NVIDIA H100 80GB HBM3 at 700 W, one run: per-frame mean
+# 0.0020-0.0072 px, max 0.19-2.0 px, mean over the frames 0.0039 px); the
+# same gates as the plain lowering's, about 2x the measured maximum
+PACKED_MEAN, PACKED_MAX = 0.02, 4.0
 # H100 SXM data sheet: HBM bytes/s, fp32 (non-tensor-core) and dense bf16
 # tensor-core FLOP/s. The card's name and power limit are printed beside
 # every number.
@@ -177,56 +203,43 @@ def conditioned_params(np, tree, seed):
     return walk(tree, "")
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak_flops=PEAK_FP32_FLOPS):
     """(bound ms, what bounds it) for ``nbytes`` of HBM traffic and
-    ``flops`` fp32 operations."""
+    ``flops`` operations at ``peak_flops``."""
     bytes_ms = 1e3 * nbytes / PEAK_BYTES
-    flops_ms = 1e3 * flops / PEAK_FP32_FLOPS
+    flops_ms = 1e3 * flops / peak_flops
     return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms
                                      else "operations")
 
 
-def time_kernel(torch, name, kernel, plain, nbytes, flops):
-    """Kernel and plain version timed at the main path's call; returns the
-    timing keys of the kernel's entry of the `kernels` line."""
+def time_kernel(torch, name, kernel, plain, nbytes, flops, *, library=None,
+                peak_flops=PEAK_FP32_FLOPS):
+    """Kernel, plain version and (where one PyTorch call computes the same
+    function) ``library`` timed at the main path's call; returns the timing
+    keys of the kernel's entry of the `kernels` line."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     kernel_ms = cuda_ms(torch, kernel, flush)
     call_ms = cuda_ms(torch, kernel, flush, hold=0)
     plain_ms = cuda_ms(torch, plain, flush, hold=PLAIN_HOLD_CYCLES)
+    library_ms = None if library is None else cuda_ms(torch, library, flush)
     print_clocks(f"the {name} timing")
-    bound_ms, bound_by = bound(nbytes, flops)
+    bound_ms, bound_by = bound(nbytes, flops, peak_flops)
+    kind = "fp32" if peak_flops == PEAK_FP32_FLOPS else "bf16 tensor-core"
+    lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
     print(f"{name} timing, L2 evicted, device time: kernel {kernel_ms:.4f} ms "
           f"(from an idle stream, host enqueue included: {call_ms:.4f} ms), "
-          f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-          f"({nbytes / 1e6:.2f} MB at {PEAK_BYTES / 1e12} TB/s, "
-          f"{flops / 1e9:.3f} GFLOP fp32 at {PEAK_FP32_FLOPS / 1e12} TFLOP/s)")
+          f"plain {plain_ms:.4f} ms{lib}; bound {bound_ms:.4f} ms by "
+          f"{bound_by} ({nbytes / 1e6:.2f} MB at {PEAK_BYTES / 1e12} TB/s = "
+          f"{1e3 * nbytes / PEAK_BYTES:.4f} ms, {flops / 1e9:.3f} GFLOP "
+          f"{kind} at {peak_flops / 1e12} TFLOP/s = "
+          f"{1e3 * flops / peak_flops:.4f} ms)")
     return {"ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def _randn(torch, gen, shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
-
-
-def print_conv223_bound():
-    """The one TPU kernel not ported yet, `_conv223_kernel`
-    (`redtail_tpu/kernels/conv223_pallas.py:60`), has no time here; its
-    bound at the call it would take on NVSmall's packed path (conv3D_2,
-    `ops/packed3d.py:314-321`, once per frame), worked out from shapes:
-    xp (1, 25, 82, 513, 128) x k (2, 2, 3, 128, 128) -> (1, 24, 81, 513,
-    128), bf16, dense bf16 multiply-adds on the tensor cores."""
-    x, out = 25 * 82 * 513 * 128, 24 * 81 * 513 * 128
-    taps = 2 * 2 * 3 * 128
-    nbytes = 2 * (x + taps * 128 + out) + 4 * 128
-    flops = 2 * out * taps
-    bytes_ms = 1e3 * nbytes / PEAK_BYTES
-    flops_ms = 1e3 * flops / PEAK_BF16_FLOPS
-    print(f"conv223 (not ported) at NVSmall conv3D_2, 1 call per frame on "
-          f"the packed path: bound {max(bytes_ms, flops_ms):.4f} ms by "
-          f"{'bytes' if bytes_ms >= flops_ms else 'operations'} "
-          f"({nbytes / 1e6:.2f} MB at {PEAK_BYTES / 1e12} TB/s = "
-          f"{bytes_ms:.4f} ms; {flops / 1e9:.1f} GFLOP bf16 at "
-          f"{PEAK_BF16_FLOPS / 1e12} TFLOP/s = {flops_ms:.4f} ms)")
 
 
 def phase_corr(torch, corr, gen):
@@ -312,60 +325,156 @@ def phase_concat(torch, concat, gen):
 
 
 def phase_emit(torch, emit, gen):
-    """The fused cost-volume assembly kernel against its plain version,
-    then timed at NVSmall's serving call."""
+    """The fused cost-volume assembly kernel against its plain version in
+    both layouts, then each layout timed at NVSmall's serving call."""
     max_err = 0.0
-    for name, (n, h, w, k), d in EMIT_CASES:
-        for dtype in (torch.bfloat16, torch.float32):
-            la = _randn(torch, gen, (n, h, w, 3 * k), dtype)
-            rb = _randn(torch, gen, (n, h, w, 6 * k), dtype)
-            bias = _randn(torch, gen, (k,), torch.float32)
-            got = emit.fused_cv_emit(la, rb, bias, d)
-            torch.cuda.synchronize()
-            want = emit.fused_cv_emit_plain(la, rb, bias, d)
-            check(got.shape == want.shape and got.dtype == want.dtype,
-                  f"emit {name}: {got.shape} {got.dtype} vs "
-                  f"{want.shape} {want.dtype}")
-            err = (got.float() - want.float()).abs().max().item()
-            if dtype == torch.float32:
-                check(err <= FP32_ATOL, f"emit {name} fp32: max abs err "
-                      f"{err} > {FP32_ATOL}")
-                max_err = max(max_err, err)
-                tol = f"{FP32_ATOL}"
-            else:
-                check(bf16_ulp_ok(torch, got, want, FP32_ATOL),
-                      f"emit {name} bf16: more than one bf16 ulp + "
-                      f"{FP32_ATOL} off (max abs err {err})")
-                tol = f"1 bf16 ulp + {FP32_ATOL}"
-            print(f"emit {name:8s} {str((n, h, w, k)):18s} D={d:<3d} "
-                  f"{str(dtype):15s} max_abs_err={err:.3e} (tol {tol})")
-            del got, want
+    for layout in ("full", "dh_shifted"):
+        for name, (n, h, w, k), d in EMIT_CASES:
+            for dtype in (torch.bfloat16, torch.float32):
+                la = _randn(torch, gen, (n, h, w, 3 * k), dtype)
+                rb = _randn(torch, gen, (n, h, w, 6 * k), dtype)
+                bias = _randn(torch, gen, (k,), torch.float32)
+                got = emit.fused_cv_emit(la, rb, bias, d, layout=layout)
+                torch.cuda.synchronize()
+                want = emit.fused_cv_emit_plain(la, rb, bias, d,
+                                                layout=layout)
+                check(got.shape == want.shape and got.dtype == want.dtype,
+                      f"emit {layout} {name}: {got.shape} {got.dtype} vs "
+                      f"{want.shape} {want.dtype}")
+                err = (got.float() - want.float()).abs().max().item()
+                if dtype == torch.float32:
+                    check(err <= FP32_ATOL, f"emit {layout} {name} fp32: "
+                          f"max abs err {err} > {FP32_ATOL}")
+                    max_err = max(max_err, err)
+                    tol = f"{FP32_ATOL}"
+                else:
+                    check(bf16_ulp_ok(torch, got, want, FP32_ATOL),
+                          f"emit {layout} {name} bf16: more than one bf16 "
+                          f"ulp + {FP32_ATOL} off (max abs err {err})")
+                    tol = f"1 bf16 ulp + {FP32_ATOL}"
+                print(f"emit {layout:10s} {name:8s} {str((n, h, w, k)):18s} "
+                      f"D={d:<3d} {str(dtype):15s} max_abs_err={err:.3e} "
+                      f"(tol {tol})")
+                del got, want
 
     _, (n, h, w, k), d = EMIT_CASES[0]
     la = _randn(torch, gen, (n, h, w, 3 * k), torch.bfloat16)
     rb = _randn(torch, gen, (n, h, w, 6 * k), torch.bfloat16)
     bias = _randn(torch, gen, (k,), torch.float32)
-    out = n * d * h * w * k
     entry = {"name": "fused_cv_emit", "route": "cuda",
              "source": "redtail_tpu_torch/csrc/fused_cv_emit.cu",
              "replaces": "redtail_tpu/kernels/fused_cv_emit_pallas.py:65",
              "launches": None, "max_abs_err": max_err}
+    maps = (la.numel() + rb.numel()) * 2 + k * 4
+    full = n * d * h * w * k
+    packed = n * ((d + 1) // 2 + 1) * ((h + 1) // 2 + 1) * w * 4 * k
     # per output: the S add, the bias add and the ELU (exp, select)
     entry.update(time_kernel(
-        torch, f"emit at {(n, h, w, k)} D={d} bf16",
+        torch, f"emit full at {(n, h, w, k)} D={d} bf16",
         lambda: emit.fused_cv_emit(la, rb, bias, d),
         lambda: emit.fused_cv_emit_plain(la, rb, bias, d),
-        (la.numel() + rb.numel()) * 2 + k * 4 + out * 2, 4 * out))
+        maps + full * 2, 4 * full))
+    timed = time_kernel(
+        torch, f"emit dh_shifted at {(n, h, w, k)} D={d} bf16",
+        lambda: emit.fused_cv_emit(la, rb, bias, d, layout="dh_shifted"),
+        lambda: emit.fused_cv_emit_plain(la, rb, bias, d,
+                                         layout="dh_shifted"),
+        maps + packed * 2, 4 * full)
+    entry.update({f"packed_{key}": timed[key]
+                  for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
     return entry
 
 
-def phase_slice(np, torch, models, s2d, plain_lowering):
-    """The models on the card against the same models on the CPU."""
+def _conv223_inputs(torch, gen, xshape, k_out, dtype):
+    c = xshape[-1]
+    xp = _randn(torch, gen, xshape, dtype)
+    # He-scaled weights: O(1) outputs, as the head's are
+    k = (torch.randn((2, 2, 3, c, k_out), generator=gen, device="cuda")
+         * (12 * c) ** -0.5).to(dtype)
+    return xp, k, _randn(torch, gen, (k_out,), torch.float32)
+
+
+def _conv223_library(torch, xp, k, bias):
+    """cuDNN's `F.conv3d` of the same dense (2, 2, 3) conv, W padded
+    (1, 1), bias in the call, in xp's dtype: the library yardstick."""
+    x = xp.permute(0, 4, 1, 2, 3)            # channels_last_3d view
+    wt = k.permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    b = bias.to(xp.dtype)
+    return lambda: torch.nn.functional.conv3d(x, wt, b, padding=(0, 0, 1))
+
+
+def phase_conv223(torch, c223, gen):
+    """The packed head's dense conv kernel against its plain version, then
+    timed at NVSmall's conv3D_2 call beside its plain version and cuDNN,
+    and at ResNet-18 3D's conv3D_1b beside cuDNN."""
+    max_err = 0.0
+    for name, xshape, k_out in CONV223_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            xp, k, bias = _conv223_inputs(torch, gen, xshape, k_out, dtype)
+            got = c223.conv223(xp, k, bias)
+            torch.cuda.synchronize()
+            want = c223.conv223_plain(xp, k, bias)
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"conv223 {name}: {got.shape} {got.dtype} vs "
+                  f"{want.shape} {want.dtype}")
+            err = (got.float() - want.float()).abs().max().item()
+            if dtype == torch.float32:
+                check(err <= FP32_ATOL, f"conv223 {name} fp32: max abs err "
+                      f"{err} > {FP32_ATOL}")
+                max_err = max(max_err, err)
+                tol = f"{FP32_ATOL}"
+            else:
+                check(bf16_ulp_ok(torch, got, want, FP32_ATOL),
+                      f"conv223 {name} bf16: more than one bf16 ulp + "
+                      f"{FP32_ATOL} off (max abs err {err})")
+                tol = f"1 bf16 ulp + {FP32_ATOL}"
+            print(f"conv223 {name:10s} {str(xshape):22s} K={k_out:<3d} "
+                  f"{str(dtype):15s} max_abs_err={err:.3e} (tol {tol})")
+            del got, want, xp, k
+
+    entry = {"name": "conv223", "route": "cuda",
+             "source": "redtail_tpu_torch/csrc/conv223.cu",
+             "replaces": "redtail_tpu/kernels/conv223_pallas.py:60",
+             "launches": None, "max_abs_err": max_err}
+    for name, xshape, k_out in CONV223_CASES[:2]:
+        xp, k, bias = _conv223_inputs(torch, gen, xshape, k_out,
+                                      torch.bfloat16)
+        n, dp, hp, w, c = xshape
+        out = n * (dp - 1) * (hp - 1) * w * k_out
+        library = _conv223_library(torch, xp, k, bias)
+        got, want = c223.conv223(xp, k, bias), library()
+        lib_err = (got.float() - want.permute(0, 2, 3, 4, 1).float()
+                   ).abs().max().item()
+        print(f"conv223 {name} bf16 vs cuDNN F.conv3d of the same conv: max "
+              f"abs err {lib_err:.3e} (informational: cuDNN rounds in its "
+              f"own order)")
+        del got, want
+        timed = time_kernel(
+            torch, f"conv223 {name} at {xshape} K={k_out} bf16",
+            lambda: c223.conv223(xp, k, bias),
+            lambda: c223.conv223_plain(xp, k, bias),
+            2 * (xp.numel() + k.numel() + out) + 4 * k_out,
+            2 * out * 12 * c, library=library, peak_flops=PEAK_BF16_FLOPS)
+        if name == "nvsmall":
+            entry.update(timed)
+        else:
+            entry.update({f"{name}_{key}": timed[key] for key in
+                          ("ms", "plain_ms", "library_ms", "bound_ms")})
+        del xp, k, library
+    return entry
+
+
+def phase_slice(np, torch, models, s2d, lowerings):
+    """The models on the card against the same models on the CPU, under
+    each lowering (``lowerings``: name -> context manager). Under the
+    packed lowering the card takes the D-folded final deconv and the CPU
+    the unpack branch, so the two final-deconv forms meet here."""
     cases = [("resnet18_2d", (129, 257), 16, "fused", 1e-3, 1e-2, "")]
     cases += [(name, SLICE_3D_HW, SLICE_3D_DISP, lowering,
                SLICE_3D_FP32_ATOL, SLICE_3D_BF16_MEAN, " px")
               for name in ("nvtiny", "nvsmall", "resnet18")
-              for lowering in ("fused", "plain")]
+              for lowering in ("fused", "plain", "packed")]
     for name, hw, max_disp, lowering, atol, mean_gate, unit in cases:
         spec = dataclasses.replace(models.STEREO_SPECS[name], input_hw=hw,
                                    max_disp=max_disp)
@@ -376,8 +485,7 @@ def phase_slice(np, torch, models, s2d, plain_lowering):
                                             .astype(np.float32)))
                        for _ in range(2))
         got = {}
-        with torch.inference_mode(), (plain_lowering() if lowering == "plain"
-                                      else contextlib.nullcontext()):
+        with torch.inference_mode(), lowerings[lowering]():
             ref = models.stereo_forward(spec, tree, left, right).numpy()
             for dtype in (torch.float32, torch.bfloat16):
                 net = models.params_from_numpy(spec, tree, dtype=dtype)
@@ -418,6 +526,8 @@ def serve(np, torch, node, frames, counters, max_disp_px, label):
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
+        if hasattr(c, "packed_launches"):
+            c.packed_launches = 0
     lat, outs = [], []
     for left, right in frames:
         t0 = time.perf_counter()
@@ -425,6 +535,8 @@ def serve(np, torch, node, frames, counters, max_disp_px, label):
         lat.append(1e3 * (time.perf_counter() - t0))
         outs.append(disp)
     counts = {c.__name__: c.launches for c in counters}
+    counts.update({f"{c.__name__}.packed": c.packed_launches
+                   for c in counters if hasattr(c, "packed_launches")})
     for disp in outs:
         check(disp.shape == FULL_HW and disp.dtype == np.float32,
               f"{label}: served {disp.shape} {disp.dtype}")
@@ -460,9 +572,11 @@ def phase_serve_2d(np, torch, models, nodes, counters):
     return counts["corr_cost_volume"]
 
 
-def phase_serve_3d(np, torch, models, nodes, counters, plain_lowering):
+def phase_serve_3d(np, torch, models, nodes, counters, plain_lowering,
+                   packed3d_lowering):
     """StereoNode NVSmall at the full width, bf16, the repo's real weights;
-    then one frame under `plain_lowering()`."""
+    then one frame under `plain_lowering()`, then the same frames under
+    `packed3d_lowering()`. Returns each kernel's launches per path."""
     spec = models.STEREO_SPECS["nvsmall"]
     check(spec.input_hw == FULL_HW, f"nvsmall spec is {spec.input_hw}")
     tree = models.params_from_npz(ROOT / "tests/data/nvsmall_golden.npz")
@@ -479,7 +593,7 @@ def phase_serve_3d(np, torch, models, nodes, counters, plain_lowering):
     check(counts["cost_volume_concat"] == 0,
           "the fused path launched the concat kernel")
     trace_frames(torch, node, frames[:3], med)
-    layer_breakdown(torch, node, frames[0])
+    layer_breakdown(torch, node, frames[0], "nvsmall fused")
 
     with plain_lowering():
         plain_out, plain_counts, _ = serve(
@@ -496,14 +610,44 @@ def phase_serve_3d(np, torch, models, nodes, counters, plain_lowering):
           f"{diff.max():.4e} px (gate {LOWERINGS_MAX})")
     check(diff.mean() < LOWERINGS_MEAN and diff.max() < LOWERINGS_MAX,
           "the two lowerings disagree past the gate")
-    return counts["fused_cv_emit"], plain_counts["cost_volume_concat"]
+
+    with packed3d_lowering():
+        packed_out, packed_counts, packed_med = serve(
+            np, torch, node, frames, counters, spec.full_max_disp,
+            f"{label} under packed3d_lowering()")
+        print_clocks("serving nvsmall packed")
+        print(node.profiler.report())
+        for kernel in ("conv223", "fused_cv_emit", "fused_cv_emit.packed"):
+            check(packed_counts[kernel] == SERVE_FRAMES,
+                  f"the packed head launched {kernel} "
+                  f"{packed_counts[kernel]} times for {SERVE_FRAMES} frames")
+        check(packed_counts["cost_volume_concat"] == 0,
+              "the packed head launched the concat kernel")
+        trace_frames(torch, node, frames[:3], packed_med)
+        layer_breakdown(torch, node, frames[0], "nvsmall packed")
+    diff = np.abs(np.stack(packed_out) - np.stack(fused_out))
+    print(f"nvsmall packed vs fused head, the same {SERVE_FRAMES} frames, "
+          f"bf16: mean abs diff {diff.mean():.4e} px (gate {PACKED_MEAN}), "
+          f"max {diff.max():.4e} px (gate {PACKED_MAX}); per frame mean "
+          f"{[round(float(d.mean()), 5) for d in diff]}, max "
+          f"{[round(float(d.max()), 3) for d in diff]}")
+    check(diff.mean() < PACKED_MEAN and diff.max() < PACKED_MAX,
+          "the packed and fused heads disagree past the gate")
+    return {"fused_cv_emit": {"5b nvsmall fused": counts["fused_cv_emit"],
+                              "5d nvsmall packed":
+                                  packed_counts["fused_cv_emit.packed"]},
+            "cost_volume_concat": {"5c nvsmall plain":
+                                   plain_counts["cost_volume_concat"]},
+            "conv223": {"5d nvsmall packed": packed_counts["conv223"]}}
 
 
-def layer_breakdown(torch, node, frame):
+def layer_breakdown(torch, node, frame, label):
     """Informational: device time of each conv layer of one served frame
     (CUDA events around each layer's forward: its TF-SAME pad, the cuDNN
-    call and the fp32 bias add; not the ELU after it); "rest" is the rest
-    of the frame's span: the cost volume and conv3D_1 assembly, ELU,
+    call or the conv223 kernel, the fp32 bias add and, in the packed head,
+    the boundary-slot masks; not the ELU after it; the packed head's
+    D-folded deconv3D_3 includes its fused soft-argmin); "rest" is the
+    rest of the frame's span: the cost volume and conv3D_1 assembly, ELU,
     soft-argmin, casts, uploads, and the device's idle time."""
     net = node.net
     spans = []
@@ -522,7 +666,11 @@ def layer_breakdown(torch, node, frame):
 
     handles = []
     for name, mod in net.named_modules():
-        if hasattr(mod, "weight") and not list(mod.children()):
+        # leaf layers: the spec's convs, and the packed head's layers,
+        # which hold only buffers
+        if not list(mod.children()) and (
+                list(mod.parameters(recurse=False))
+                or list(mod.buffers(recurse=False))):
             handles.append(mod.register_forward_pre_hook(pre(name)))
             handles.append(mod.register_forward_hook(post))
     start = torch.cuda.Event(enable_timing=True)
@@ -537,7 +685,7 @@ def layer_breakdown(torch, node, frame):
             h.remove()
     total = start.elapsed_time(end)
     rows = [(name, s.elapsed_time(e)) for name, s, e in spans]
-    print(f"per-layer device time, one nvsmall frame ({total:.3f} ms from "
+    print(f"per-layer device time, one {label} frame ({total:.3f} ms from "
           f"the first upload to the last copy):")
     for name, ms in rows:
         print(f"  {name:32s} {ms:8.3f} ms")
@@ -582,8 +730,10 @@ def main() -> int:
         from redtail_tpu_torch import kernels, models, seeded_generator
         from redtail_tpu_torch.kernels import corr_cost_volume as corr
         from redtail_tpu_torch.kernels import cost_volume_concat as concat
+        from redtail_tpu_torch.kernels import conv223 as c223
         from redtail_tpu_torch.kernels import fused_cv_emit as emit
-        from redtail_tpu_torch.ops.convolution import plain_lowering
+        from redtail_tpu_torch.ops.convolution import (packed3d_lowering,
+                                                       plain_lowering)
         from redtail_tpu_torch.ops.space_to_depth import space_to_depth2_np
         from redtail_tpu_torch.runtime import nodes
     except ImportError as e:
@@ -608,16 +758,21 @@ def main() -> int:
     gen = seeded_generator(0)
     entries = {"corr_cost_volume": phase_corr(torch, corr, gen),
                "cost_volume_concat": phase_concat(torch, concat, gen),
-               "fused_cv_emit": phase_emit(torch, emit, gen)}
-    print_conv223_bound()
-    phase_slice(np, torch, models, space_to_depth2_np, plain_lowering)
+               "fused_cv_emit": phase_emit(torch, emit, gen),
+               "conv223": phase_conv223(torch, c223, gen)}
+    phase_slice(np, torch, models, space_to_depth2_np,
+                {"fused": contextlib.nullcontext, "plain": plain_lowering,
+                 "packed": packed3d_lowering})
     counters = (corr.corr_cost_volume, concat.cost_volume_concat,
-                emit.fused_cv_emit)
-    entries["corr_cost_volume"]["launches"] = phase_serve_2d(
-        np, torch, models, nodes, counters)
-    (entries["fused_cv_emit"]["launches"],
-     entries["cost_volume_concat"]["launches"]) = phase_serve_3d(
-        np, torch, models, nodes, counters, plain_lowering)
+                emit.fused_cv_emit, c223.conv223)
+    by_path = {"corr_cost_volume": {"5a resnet18_2d": phase_serve_2d(
+        np, torch, models, nodes, counters)}}
+    by_path.update(phase_serve_3d(np, torch, models, nodes, counters,
+                                  plain_lowering, packed3d_lowering))
+    for name, paths in by_path.items():
+        check(all(paths.values()), f"{name} was not launched on {paths}")
+        entries[name]["launches"] = sum(paths.values())
+        entries[name]["launches_by_path"] = paths
 
     print(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({"ok": True, "device": {

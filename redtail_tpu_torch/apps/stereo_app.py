@@ -7,7 +7,9 @@ on the card (``--cpu`` for the CPU), writes the disparity as `.bin`
 and as a 16-bit PNG (`main.cpp:317-330`: the 3D models' pixels x 256, the
 correlation model's sigmoid output x the image width), and prints one JSON
 summary line. Weights come from an .npz bundle (``--weights``; the golden
-bundles' bundled ``disp`` is skipped) or random init from ``--seed``.
+bundles' bundled ``disp`` is skipped) or random init from ``--seed``. The
+3D models run their packed head with ``REDTAIL_TPU_PACKED3D=1`` in the
+environment, as the JAX app does.
 
 Usage:
   python -m redtail_tpu_torch.apps.stereo_app nvsmall \

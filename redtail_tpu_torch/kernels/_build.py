@@ -22,7 +22,8 @@ from typing import Dict, Iterable
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
-KERNELS = ("corr_cost_volume", "cost_volume_concat", "fused_cv_emit")
+KERNELS = ("corr_cost_volume", "cost_volume_concat", "fused_cv_emit",
+           "conv223")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -7,10 +7,12 @@ From the six 2D conv maps of `ops/fused_cost_volume_conv.py`
     la (N, H, W, 3K) = [a0 | a1 | a2],  rb (N, H, W, 6K) = [bk0 | bk1 | bk2 | cc0 | cc1 | cc2]
 
 it assembles conv3D_1's output over the concat cost volume,
-(N, D, H, W, K) in the maps' dtype, with the bias and (``elu=True``) the
-ELU fused, accumulated in fp32 and rounded once. It replaces the TPU kernel
-`redtail_tpu/kernels/fused_cv_emit_pallas.py:65` (`_emit_kernel`) in the
-unpacked layout; the formula and the design notes are in
+(N, D, H, W, K) in the maps' dtype (``layout="full"``), or the packed 3D
+head's dh-shifted (N, (D + 1) // 2 + 1, (H + 1) // 2 + 1, W, 4K)
+(``layout="dh_shifted"``), with the bias and (``elu=True``) the ELU fused,
+accumulated in fp32 and rounded once. It replaces the TPU kernel
+`redtail_tpu/kernels/fused_cv_emit_pallas.py:65` (`_emit_kernel`), whose
+output is the dh-shifted layout; the formula and the design notes are in
 `redtail_tpu_torch/csrc/fused_cv_emit.cu`.
 
 The wrapper runs the plain version only for tensors on the CPU. For CUDA
@@ -29,13 +31,27 @@ import torch.nn.functional as F
 from redtail_tpu_torch.kernels import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
+LAYOUTS = ("full", "dh_shifted")
+
+
+def _pack_dh_shifted(full: torch.Tensor) -> torch.Tensor:
+    """(N, D, H, W, K) -> (N, (D + 1) // 2 + 1, (H + 1) // 2 + 1, W, 4K):
+    depth slot ``ad`` holds d = 2 ad - 1 + qd, row slot ``hq`` holds row
+    2 hq - 1 + qh, channel groups (qh, qd, k), zero outside the input."""
+    n, d, h, w, k = full.shape
+    dq, hq = (d + 1) // 2 + 1, (h + 1) // 2 + 1
+    padded = F.pad(full, (0, 0, 0, 0, 1, 2 * hq - h - 1, 1, 2 * dq - d - 1))
+    return (padded.reshape(n, dq, 2, hq, 2, w, k)
+            .permute(0, 1, 3, 5, 4, 2, 6).reshape(n, dq, hq, w, 4 * k))
 
 
 def fused_cv_emit_plain(la: torch.Tensor, rb: torch.Tensor,
                         bias: Optional[torch.Tensor], max_disp: int, *,
-                        elu: bool = True) -> torch.Tensor:
+                        elu: bool = True,
+                        layout: str = "full") -> torch.Tensor:
     """Plain PyTorch version: `d_slices` of the JAX package
-    (`ops/fused_cost_volume_conv.py:121-174`) in fp32, rounded once."""
+    (`ops/fused_cost_volume_conv.py:121-174`) in fp32, rounded once, then
+    (``layout="dh_shifted"``) packed."""
     n, h, w, k3 = la.shape
     k = k3 // 3
     lf, rf = la.float(), rb.float()
@@ -70,10 +86,14 @@ def fused_cv_emit_plain(la: torch.Tensor, rb: torch.Tensor,
         if bias is not None:
             acc = acc + bias.float()
         out[:, d] = F.elu(acc) if elu else acc
+    if layout == "dh_shifted":
+        out = _pack_dh_shifted(out)
     return out.to(la.dtype)
 
 
-def _check(la, rb, bias, max_disp):
+def _check(la, rb, bias, max_disp, layout):
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
     if la.dim() != 4 or rb.dim() != 4 or la.shape[-1] % 3 \
             or la.shape[:3] != rb.shape[:3] \
             or rb.shape[-1] != 2 * la.shape[-1]:
@@ -95,7 +115,7 @@ def _check(la, rb, bias, max_disp):
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_cv_emit")
     lib.fused_cv_emit_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     lib.fused_cv_emit_launch.restype = ctypes.c_int
     lib.fused_cv_emit_error_string.argtypes = [ctypes.c_int]
     lib.fused_cv_emit_error_string.restype = ctypes.c_char_p
@@ -104,17 +124,19 @@ def _lib() -> ctypes.CDLL:
 
 def fused_cv_emit(la: torch.Tensor, rb: torch.Tensor,
                   bias: Optional[torch.Tensor], max_disp: int, *,
-                  elu: bool = True) -> torch.Tensor:
-    """The six conv maps -> (N, D, H, W, K) conv3D_1 output (see the module
+                  elu: bool = True, layout: str = "full") -> torch.Tensor:
+    """The six conv maps -> conv3D_1's output in ``layout`` (see the module
     docstring).
 
     CPU tensors take `fused_cv_emit_plain`. CUDA tensors launch the kernel
-    on the current stream and add one to ``fused_cv_emit.launches``; they
+    on the current stream and add one to ``fused_cv_emit.launches`` (and,
+    for the dh-shifted layout, to ``fused_cv_emit.packed_launches``); they
     must be contiguous and on one device."""
-    _check(la, rb, bias, max_disp)
+    _check(la, rb, bias, max_disp, layout)
     tensors = (la, rb) if bias is None else (la, rb, bias)
     if all(t.device.type == "cpu" for t in tensors):
-        return fused_cv_emit_plain(la, rb, bias, max_disp, elu=elu)
+        return fused_cv_emit_plain(la, rb, bias, max_disp, elu=elu,
+                                   layout=layout)
     if not (la.is_cuda and all(t.device == la.device for t in tensors)):
         raise ValueError("la, rb and bias must lie on one CUDA device (or "
                          "all on the CPU); got "
@@ -127,19 +149,24 @@ def fused_cv_emit(la: torch.Tensor, rb: torch.Tensor,
     k = k3 // 3
     b = (torch.zeros(k, device=la.device) if bias is None
          else bias.float().contiguous())
-    out = torch.empty((n, max_disp, h, w, k), dtype=la.dtype,
-                      device=la.device)
+    packed = layout == "dh_shifted"
+    shape = ((n, (max_disp + 1) // 2 + 1, (h + 1) // 2 + 1, w, 4 * k)
+             if packed else (n, max_disp, h, w, k))
+    out = torch.empty(shape, dtype=la.dtype, device=la.device)
     lib = _lib()
     err = lib.fused_cv_emit_launch(
         la.data_ptr(), rb.data_ptr(), b.data_ptr(), out.data_ptr(), n, h, w,
         k, int(max_disp), int(elu), int(la.dtype == torch.bfloat16),
-        la.device.index, torch.cuda.current_stream(la.device).cuda_stream)
+        int(packed), la.device.index,
+        torch.cuda.current_stream(la.device).cuda_stream)
     if err:
         raise RuntimeError(
             f"fused_cv_emit kernel launch failed: CUDA error {err} "
             f"({lib.fused_cv_emit_error_string(err).decode()})")
     fused_cv_emit.launches += 1
+    fused_cv_emit.packed_launches += packed
     return out
 
 
 fused_cv_emit.launches = 0
+fused_cv_emit.packed_launches = 0

@@ -25,14 +25,26 @@ nested param dict of numpy arrays (HWIO / DHWIO, keys as in
 Activations are NHWC at the public functions and NCHW / NCDHW in
 `torch.channels_last` / `torch.channels_last_3d` memory inside.
 
-This is the JAX package's unpacked path (its CPU defaults): per-tower
-encoders, no H-packing, no block-diagonal towers, no packed 3D layouts.
-The two towers run as one batch-2 chain of convs, which is exact.
+The 3D models have a second head, the JAX package's accelerator
+configuration: under `packed3d_lowering()` (or ``REDTAIL_TPU_PACKED3D=1``,
+see `use_packed3d`) the emission kernel writes conv3D_1's output in the
+dh-shifted packed layout and the 3D stack runs on D (and H) pairs folded
+into channels (`ops/packed3d.py`; its in-shifted, H-packed conv is the CUDA
+`conv223` kernel), ending on the card in the D-folded final deconv with the
+soft-argmin fused (`ops/convolution.py:conv3d_transpose_dfold`). Its
+band-composed kernels are derived from the same DHWIO weights once, at
+load, for each boundary parity an input size can give. The fused unpacked
+head stays the default.
+
+The 2D encoders are the JAX package's unpacked path (its CPU defaults):
+per-tower encoders, no H-packing, no block-diagonal towers. The two towers
+run as one batch-2 chain of convs, which is exact.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -42,11 +54,15 @@ from torch import nn
 
 from redtail_tpu_torch import resolve_device
 from redtail_tpu_torch.ops.activations import elu, sigmoid
+from redtail_tpu_torch.ops import packed3d as P
 from redtail_tpu_torch.ops.convolution import (
     conv2d_nchw,
     conv2d_transpose_nchw,
     conv3d_ncdhw,
+    conv3d_transpose_dfold,
     conv3d_transpose_ncdhw,
+    dfold_weights,
+    use_packed3d,
     use_plain_lowering,
 )
 from redtail_tpu_torch.ops.cost_volume import (
@@ -327,6 +343,14 @@ class _FusedConv3D1(_Conv):
                                       apply_elu=True)
         return out.permute(0, 4, 1, 2, 3)
 
+    def fused_packed(self, left, right, max_disp: int):
+        """(N, C, H, W) maps -> the ELU'd output in the packed head's
+        dh-shifted layout, (N, (D + 1) // 2 + 1, (H + 1) // 2 + 1, W, 4K)
+        contiguous."""
+        return cost_volume_conv3d_nchw(left, right, self.k_left, self.k_right,
+                                       self.bias, max_disp, apply_elu=True,
+                                       emit="dh_shifted")
+
 
 class _ConvTranspose(nn.Module):
     """TF conv{2,3}d_transpose layer, stride 2: the HWIO / DHWIO kernel
@@ -342,6 +366,176 @@ class _ConvTranspose(nn.Module):
                 else conv2d_transpose_nchw)
         return conv(x, self.weight, self.bias, out_spatial=out_spatial,
                     stride=2)
+
+
+# --------------------------------------------------------- the packed head
+
+
+@dataclass(frozen=True)
+class _Step:
+    """One layer of the packed head. ``op``: 'conv' (packed stride 1),
+    'down', 'down_unpack', 'deconv', 'native' (an unpacked `_Conv`) or
+    'final' (the c_out = 1 full-resolution deconv); ``d``: the original
+    depth its kernel depends on (its input's for downsamples and 'final',
+    its output's for 'deconv')."""
+
+    name: str
+    op: str
+    packed_h: bool = False
+    in_shifted: bool = False
+    in_packed_d: bool = False
+    skip: Optional[str] = None
+    layout: str = "none"   # the layout of the step's output ('final': input)
+    d: int = 0
+
+
+def _packed_plan(spec: StereoSpec) -> Tuple[_Step, ...]:
+    """The packed head's layer policy (JAX `_volume_head_packed`,
+    `redtail_tpu/models/stereo.py:459-540`), walked from the spec once:
+    conv3D_1's emission is DH-packed and shifted; stride-1 layers keep
+    their input layout and flip the pair convention; downsamples move
+    DH -> D and drop to unpacked once 2 * c_out > 128; decoders emit each
+    skip's layout; the final deconv reads the packed layout."""
+    layout, shift, d = "dh", True, spec.max_disp
+    steps, skips = [], {}
+    for layer in spec.enc3d[1:]:
+        if layer.stride == 1:
+            if layout == "none":
+                steps.append(_Step(layer.name, "native"))
+            else:
+                steps.append(_Step(layer.name, "conv",
+                                   packed_h=layout == "dh", in_shifted=shift,
+                                   layout=layout))
+                shift = not shift
+        else:
+            if shift:
+                raise ValueError(f"{layer.name}: a downsample needs an "
+                                 "aligned input")
+            if layout == "dh" or (layout == "d" and 2 * layer.out_ch <= 128):
+                steps.append(_Step(layer.name, "down",
+                                   packed_h=layout == "dh", layout="d", d=d))
+                layout = "d"
+            elif layout == "d":
+                steps.append(_Step(layer.name, "down_unpack", d=d))
+                layout = "none"
+            else:
+                steps.append(_Step(layer.name, "native"))
+            d = -(-d // 2)
+        skips[layer.name] = (layout, shift, d)
+    for name, _out_ch, skip in spec.dec3d:
+        if skip is None:
+            steps.append(_Step(name, "final", layout=layout, d=d))
+            continue
+        sk_layout, sk_shift, sk_d = skips[skip]
+        if sk_shift or layout not in ("none", "d"):
+            raise ValueError(f"{name}: skip {skip} must be aligned and the "
+                             f"input unpacked or D-packed, not {layout}")
+        steps.append(_Step(name, "deconv", in_packed_d=layout == "d",
+                           packed_h=sk_layout == "dh", skip=skip,
+                           layout=sk_layout, d=sk_d))
+        layout, shift, d = sk_layout, sk_shift, sk_d
+    return tuple(steps)
+
+
+class _PackedConv3d(nn.Module):
+    """One packed layer ('conv', 'down', 'down_unpack' or 'deconv' of
+    `ops/packed3d.py`): its band-composed kernel for each row parity the
+    kernel depends on, derived at load from the DHWIO weights and held in
+    the conv's weight layout as a non-persistent buffer, with its bias."""
+
+    def __init__(self, step: _Step, w, b, device, dtype):
+        super().__init__()
+        self.step = step
+        wt = torch.from_numpy(np.asarray(w, np.float32))
+        self.register_buffer("bias", _tensor(b, device, dtype),
+                             persistent=False)
+        # a downsample's H-packed band and a deconv's H-packed output band
+        # depend on the row count's parity (the TF-SAME low pad)
+        self.h_parity = step.packed_h and step.op in ("down", "deconv")
+        for hp in ((0, 1) if self.h_parity else (0,)):
+            spatial = (step.d, 2 + hp, 2)
+            if step.op == "conv":
+                k = P.prepare(P.conv3d_packed_kernel(
+                    wt, packed_h=step.packed_h),
+                    "conv223" if step.packed_h and step.in_shifted
+                    else "conv")
+            elif step.op == "down":
+                k = P.prepare(P.conv3d_packed_down_kernel(
+                    wt, full_spatial=spatial, packed_h=step.packed_h), "conv")
+            elif step.op == "down_unpack":
+                k = P.prepare(P.conv3d_packed_down_unpack_kernel(
+                    wt, full_spatial=spatial), "conv")
+            else:
+                k = P.prepare(P.deconv3d_packed_kernel(
+                    wt, out_spatial=spatial, in_packed_d=step.in_packed_d,
+                    pack_h=step.packed_h), "lhs_dilated")
+            self.register_buffer(f"kernel{hp}", k.to(device=device,
+                                                     dtype=dtype),
+                                 persistent=False)
+
+    def forward(self, x, spatial):
+        """``x``: NDHWC packed; ``spatial``: the original (D, H, W) of the
+        input, or for 'deconv' of the output."""
+        s = self.step
+        k = getattr(self, f"kernel{spatial[1] % 2 if self.h_parity else 0}")
+        if s.op == "conv":
+            return P.conv3d_packed(x, None, self.bias, full_spatial=spatial,
+                                   packed_h=s.packed_h,
+                                   in_shifted=s.in_shifted, kernel=k)
+        if s.op == "down":
+            return P.conv3d_packed_down(x, None, self.bias,
+                                        full_spatial=spatial,
+                                        packed_h=s.packed_h, kernel=k)
+        if s.op == "down_unpack":
+            return P.conv3d_packed_down_unpack(x, None, self.bias,
+                                               full_spatial=spatial, kernel=k)
+        return P.deconv3d_packed(x, None, self.bias, out_spatial=spatial,
+                                 in_packed_d=s.in_packed_d,
+                                 pack_h=s.packed_h, kernel=k)
+
+
+class _DfoldDeconv3d(nn.Module):
+    """The packed head's final c_out = 1 deconv as
+    `conv3d_transpose_dfold` on the packed layout, disparity last, with the
+    soft-argmin fused: (N, H, W) disparity. Its banded conv2d weights, for
+    each parity of the output's (H, W), are derived at load."""
+
+    def __init__(self, step: _Step, w, b, *, d_out: int, device, dtype):
+        super().__init__()
+        self.h_packed = step.layout == "dh"
+        wt = torch.from_numpy(np.asarray(w, np.float32))
+        self.register_buffer("bias", _tensor(b, device, dtype),
+                             persistent=False)
+        d_in = 2 * (-(-step.d // 2))   # the packed slots' true depths
+        self._blocks = {}
+        for hp in (0, 1):
+            for wp in (0, 1):
+                meta = []
+                for j, (i_lo, i_hi, ob, ob_hi, weight) in enumerate(
+                        dfold_weights(wt, out_spatial=(d_out, 2 + hp, 2 + wp),
+                                      d_in=d_in, h_packed=self.h_packed)):
+                    name = f"weight{hp}{wp}_{j}"
+                    self.register_buffer(name, weight.to(device=device,
+                                                         dtype=dtype),
+                                         persistent=False)
+                    meta.append((i_lo, i_hi, ob, ob_hi, name))
+                self._blocks[(hp, wp)] = meta
+
+    def forward(self, x, out_spatial):
+        blocks = [(i_lo, i_hi, ob, ob_hi, getattr(self, name))
+                  for i_lo, i_hi, ob, ob_hi, name
+                  in self._blocks[(out_spatial[1] % 2, out_spatial[2] % 2)]]
+        return conv3d_transpose_dfold(
+            x, None, self.bias, out_spatial=out_spatial, d_packed=True,
+            h_packed=self.h_packed, layout="dlast", blocks=blocks,
+            reduce=lambda t: softargmin(t[..., 0], axis=-1))
+
+
+def _use_dfold(x: torch.Tensor) -> bool:
+    """The packed head's final deconv as dfold: on the card, as the JAX
+    package's accelerator does; elsewhere only with
+    ``REDTAIL_TPU_DFOLD=1`` (its off-accelerator branch otherwise)."""
+    return x.is_cuda or os.environ.get("REDTAIL_TPU_DFOLD") == "1"
 
 
 class StereoNet(nn.Module):
@@ -383,6 +577,27 @@ class StereoNet(nn.Module):
             else:
                 layer = _Conv(w, b, strides.get(path, 1), device, dtype)
             self._add(path, layer)
+        self._steps = ()
+        if spec.enc3d and spec.enc3d[0].stride == 1:
+            self._steps = _packed_plan(spec)
+            self.packed3D = nn.ModuleDict()
+            for step in self._steps:
+                if step.op == "native":
+                    continue
+                leaf = params["decoder3D" if step.op in ("deconv", "final")
+                              else "encoder3D"][step.name]
+                if step.op != "final":
+                    layer = _PackedConv3d(step, leaf["weights"],
+                                          leaf["biases"], device, dtype)
+                elif step.layout in ("d", "dh") \
+                        and leaf["weights"].shape[3] == 1:
+                    layer = _DfoldDeconv3d(step, leaf["weights"],
+                                           leaf["biases"],
+                                           d_out=spec.full_max_disp,
+                                           device=device, dtype=dtype)
+                else:
+                    continue
+                self.packed3D[step.name] = layer
         stem = params["encoder2D"]["conv1"]
         self.conv1_s2d = _Conv(
             conv5s2_kernel_to_s2d(np.asarray(stem["weights"], np.float32),
@@ -453,6 +668,8 @@ class StereoNet(nn.Module):
         (N, C, H', W') feature maps -> (N, H, W) disparity in pixels."""
         spec = self.spec
         enc, first = self.encoder3D, spec.enc3d[0]
+        if self._steps and use_packed3d():
+            return self._volume_head_packed(fl, fr, full_hw)
         if isinstance(enc[first.name], _FusedConv3D1) \
                 and not use_plain_lowering():
             x = enc[first.name].fused(fl, fr, spec.max_disp)
@@ -472,6 +689,44 @@ class StereoNet(nn.Module):
             if skip is not None:
                 x = elu(x + acts[skip])
         return softargmin(x[:, 0], axis=1)
+
+    def _volume_head_packed(self, fl, fr, full_hw):
+        """The packed head (`_packed_plan`): the emission kernel's
+        dh-shifted conv3D_1 output through the packed 3D stack to the
+        final deconv: dfold + fused soft-argmin on the card (or with
+        ``REDTAIL_TPU_DFOLD=1``), else unpack + transposed conv +
+        soft-argmin, the JAX package's off-accelerator branch. NDHWC
+        activations throughout; (N, H, W) disparity in pixels."""
+        spec = self.spec
+        x = self.encoder3D[spec.enc3d[0].name].fused_packed(fl, fr,
+                                                            spec.max_disp)
+        spatial = (spec.max_disp, fl.shape[2], fl.shape[3])
+        acts = {}
+        for step in self._steps:
+            if step.op == "final":
+                target = (spec.full_max_disp, *full_hw)
+                if step.name in self.packed3D and _use_dfold(x):
+                    return self.packed3D[step.name](x, target)
+                if step.layout != "none":
+                    x = P.unpack_conv(x, spatial,
+                                      packed_h=step.layout == "dh")
+                x = self.decoder3D[step.name](x.permute(0, 4, 1, 2, 3),
+                                              target)
+                return softargmin(x[:, 0], axis=1)
+            if step.op == "deconv":
+                sk, spatial = acts[step.skip]
+                x = elu(self.packed3D[step.name](x, spatial) + sk)
+                continue
+            if step.op == "native":
+                layer = self.encoder3D[step.name]
+                x = elu(layer(x.permute(0, 4, 1, 2, 3))).permute(0, 2, 3, 4,
+                                                                  1)
+            else:
+                x = elu(self.packed3D[step.name](x, spatial))
+            if step.op != "conv" and self.encoder3D[step.name].stride == 2:
+                spatial = tuple(-(-v // 2) for v in spatial)
+            acts[step.name] = (x, spatial)
+        raise ValueError(f"{spec.name}: the packed plan has no final layer")
 
     def forward(self, left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
         """``left``/``right``: (N, H, W, 3) RGB in [0, 1], or s2d-packed

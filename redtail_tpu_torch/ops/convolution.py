@@ -26,15 +26,20 @@ What is TF's is arranged around them:
 
 `plain_lowering` is the JAX package's switch to the spec-literal forms; in
 the port it selects the explicit concat volume + dense conv3D_1 over the
-fused cost volume + conv3D_1 (`models/stereo.py`).
+fused cost volume + conv3D_1 (`models/stereo.py`). `packed3d_lowering`
+selects the packed 3D head (`ops/packed3d.py`), whose final c_out = 1
+deconv on the card is `conv3d_transpose_dfold`: the transposed conv with D
+folded into channels, one k=2 `F.conv2d` per block of output depths.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Optional, Sequence, Tuple, Union
+import os
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -42,6 +47,7 @@ Strides = Union[int, Sequence[int]]
 
 _PLAIN_LOWERING = contextvars.ContextVar("redtail_torch_plain_lowering",
                                          default=False)
+_PACKED3D = contextvars.ContextVar("redtail_torch_packed3d", default=False)
 
 
 @contextlib.contextmanager
@@ -57,6 +63,26 @@ def plain_lowering():
 
 def use_plain_lowering() -> bool:
     return _PLAIN_LOWERING.get()
+
+
+@contextlib.contextmanager
+def packed3d_lowering():
+    """Run the 3D models' packed head inside the block (`use_packed3d`)."""
+    token = _PACKED3D.set(True)
+    try:
+        yield
+    finally:
+        _PACKED3D.reset(token)
+
+
+def use_packed3d() -> bool:
+    """Whether the 3D models run the packed head: inside
+    `packed3d_lowering()`, or where ``REDTAIL_TPU_PACKED3D=1`` (the JAX
+    package's switch; ``0`` or unset is off: the fused unpacked head is the
+    port's default). `plain_lowering()` wins over both."""
+    if use_plain_lowering():
+        return False
+    return _PACKED3D.get() or os.environ.get("REDTAIL_TPU_PACKED3D") == "1"
 
 
 def tf_same_padding(in_dim: int, kern_dim: int,
@@ -227,3 +253,200 @@ def conv3d_transpose(y: torch.Tensor, w: torch.Tensor,
         y.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2), b,
         out_spatial=out_spatial, stride=tuple(strides), padding=padding)
     return out.permute(0, 2, 3, 4, 1)
+
+
+# ------------------------------------------------ D-folded transposed conv
+
+
+def _weave_axis(even: torch.Tensor, odd: torch.Tensor, axis: int,
+                out_size: int) -> torch.Tensor:
+    """Interleave two equal-rank tensors along ``axis``: out[2j] = even[j],
+    out[2j+1] = odd[j]; pads the shorter parity and slices to
+    ``out_size``."""
+    n_even, n_odd = (out_size + 1) // 2, out_size // 2
+
+    def fit(a, n):
+        a = a.narrow(axis, 0, n)
+        if n < n_even:
+            shape = list(a.shape)
+            shape[axis] = n_even - n
+            a = torch.cat([a, a.new_zeros(shape)], dim=axis)
+        return a
+
+    woven = torch.stack([fit(even, n_even), fit(odd, n_odd)], dim=axis + 1)
+    return woven.flatten(axis, axis + 1).narrow(axis, 0, out_size)
+
+
+def _add_bias_last(out: torch.Tensor, b: Optional[torch.Tensor],
+                   dtype: torch.dtype) -> torch.Tensor:
+    """``out`` + bias over the last dim, in fp32, then one cast."""
+    if b is None:
+        return out.to(dtype)
+    return (out.float() + b.float()).to(dtype)
+
+
+def _parity_taps(lo: int, r: int) -> List[Optional[int]]:
+    """Kernel tap of conv positions (a = 0 reads y[j - 1], a = 1 reads
+    y[j]) for output parity ``r`` of a k=3 s=2 transpose with low pad
+    ``lo``; None is a zero tap."""
+    if lo == 0:
+        return [2, 0] if r == 0 else [None, 1]
+    return [None, 1] if r == 0 else [2, 0]
+
+
+DfoldBlock = Tuple[int, int, int, int, torch.Tensor]
+
+
+def dfold_weights(w: torch.Tensor, *, out_spatial, d_in: int,
+                  h_packed: bool = False,
+                  d_block: Optional[int] = None) -> List[DfoldBlock]:
+    """The banded k=2 conv2d weights of `conv3d_transpose_dfold`, one per
+    block of output depths: (i_lo, i_hi, ob, ob_hi, OIHW weight) with input
+    depths i_lo..i_hi feeding output depths ob..ob_hi - 1. Depends on the
+    parities of ``out_spatial``; the model derives them once, at load.
+
+    w: (3, 3, 3, c_out, c_in) (TF VRSCK); ``d_in``: the true input depth
+    (twice the slots of a D-packed input)."""
+    c_out, c_in = w.shape[3], w.shape[4]
+    d_out = out_spatial[0]
+    lo_d, lo_h, lo_w = [tf_same_padding(X, 3, 2)[0] for X in out_spatial]
+    wf = w.float()
+    wz = torch.zeros_like(wf[0, 0, 0])  # (c_out, c_in)
+    rows = []
+    for a_h in (0, 1):
+        for a_w in (0, 1):
+            for rh in (0, 1):
+                for rw in (0, 1):
+                    th = _parity_taps(lo_h, rh)[a_h]
+                    tw = _parity_taps(lo_w, rw)[a_w]
+                    for td in range(3):
+                        rows.append(wz if th is None or tw is None
+                                    else wf[td, th, tw])
+    wh = torch.stack(rows).reshape(2, 2, 2, 2, 3, c_out, c_in)
+    if h_packed:
+        # the H window re-expression a_h = 2*a_s + qh - pp moves the
+        # conv-position parity pp into output channels (out of range: 0)
+        prow = [wh[2 * a_s + qh - pp] if 0 <= 2 * a_s + qh - pp <= 1
+                else torch.zeros_like(wh[0])
+                for a_s in (0, 1) for qh in (0, 1) for pp in (0, 1)]
+        wh = torch.stack(prow).reshape(2, 2, 2, *wh.shape[1:])
+    blk = d_block or (16 if h_packed else (32 if d_out > 48 else d_out))
+    blocks = []
+    for ob in range(0, d_out, blk):
+        ob_hi = min(ob + blk, d_out)
+        i_lo = max(0, (ob + lo_d - 2) // 2)
+        i_hi = min(d_in - 1, (ob_hi - 1 + lo_d) // 2)
+        t_idx = np.arange(3)[:, None, None]
+        i_idx = np.arange(i_lo, i_hi + 1)[None, :, None]
+        o_idx = np.arange(ob, ob_hi)[None, None, :]
+        band = torch.from_numpy(
+            (o_idx == 2 * i_idx - lo_d + t_idx).astype(np.float32))
+        if h_packed:
+            k2 = torch.einsum("tio,xqpyrstck->xyqikprsoc", band, wh)
+            k2 = k2.reshape(2, 2, 2 * (i_hi + 1 - i_lo) * c_in,
+                            8 * (ob_hi - ob) * c_out)
+        else:
+            k2 = torch.einsum("tio,xyrstck->xyikrsoc", band, wh)
+            k2 = k2.reshape(2, 2, (i_hi + 1 - i_lo) * c_in,
+                            4 * (ob_hi - ob) * c_out)
+        weight = k2.permute(3, 2, 0, 1).to(w.dtype).contiguous(
+            memory_format=torch.channels_last)
+        blocks.append((i_lo, i_hi, ob, ob_hi, weight))
+    return blocks
+
+
+def conv3d_transpose_dfold(y: torch.Tensor, w: Optional[torch.Tensor],
+                           b: Optional[torch.Tensor] = None, *,
+                           out_spatial, d_packed: bool = False,
+                           h_packed: bool = False, layout: str = "ndhwc",
+                           d_block: Optional[int] = None,
+                           reduce: Optional[Callable] = None,
+                           blocks: Optional[List[DfoldBlock]] = None
+                           ) -> torch.Tensor:
+    """TF conv3d_transpose (k=3, s=2, SAME) with the D axis folded into
+    channels (`redtail_tpu/ops/convolution.py:conv3d_transpose_dfold`): per
+    block of output depths, ONE k=2 conv2d (pad (1, 1)) whose output
+    channels enumerate (H-parity, W-parity, d_out, c_out) and whose input
+    channels are (d_in, c_in), with the D deposit relation o = 2i - lo + t
+    baked into banded weights (`dfold_weights`, or ``blocks`` derived
+    once). Exact.
+
+    y: NDHWC, or with ``d_packed`` the packed3d (pd, c) D-packed layout,
+    or with ``h_packed`` too the full 'dh' layout (N, Dp, Hp, W, (qh, qd,
+    c)). ``layout='dlast'`` emits (N, H, W, D, c_out). ``d_block``: the
+    output-depth block (default 16 when H-packed, else 32 for D_out > 48,
+    else unsplit). ``reduce``: a per-pixel reduction over the trailing
+    (D, c_out) dims (the models' soft-argmin), applied to each parity map
+    before the full-resolution weaves, after the bias and the cast;
+    requires 'dlast' and returns (N, H_out, W_out)."""
+    if h_packed and not d_packed:
+        raise ValueError("h_packed input implies the 'dh' packed layout")
+    if layout not in ("ndhwc", "dlast"):
+        raise ValueError(f"unknown layout {layout!r}")
+    if reduce is not None and layout != "dlast":
+        raise ValueError("reduce= requires layout='dlast'")
+    d_out_n, h_out, w_out = out_spatial
+    if h_packed:
+        n, dp_n, hs_n, w_in, c4 = y.shape
+        c_in, d_in_n = c4 // 4, 2 * dp_n
+        h_in = -(-h_out // 2)
+        # each row-parity half to (N, Hs, W, d-major (d, c)) channels: the
+        # packed (d2, pd, c) order is exactly the true-depth order
+        halves = [y[..., qh * 2 * c_in:(qh + 1) * 2 * c_in]
+                  .permute(0, 2, 3, 1, 4).reshape(n, hs_n, w_in,
+                                                  d_in_n * c_in)
+                  for qh in (0, 1)]
+    else:
+        n, d_in_n, h_in, w_in, c_in = y.shape
+        if d_packed:
+            d_in_n, c_in = 2 * d_in_n, c_in // 2
+        y2 = y.permute(0, 2, 3, 1, 4).reshape(n, h_in, w_in, d_in_n * c_in)
+    if blocks is None:
+        if w.shape[:3] != (3, 3, 3):
+            raise ValueError("dfold takes a k=3 kernel")
+        blocks = dfold_weights(w.to(y.dtype), out_spatial=out_spatial,
+                               d_in=d_in_n, h_packed=h_packed,
+                               d_block=d_block)
+    pgroups = 8 if h_packed else 4
+    parts = []
+    for i_lo, i_hi, ob, ob_hi, weight in blocks:
+        if h_packed:
+            x_win = torch.cat([hf[..., i_lo * c_in:(i_hi + 1) * c_in]
+                               for hf in halves], dim=-1)
+        else:
+            x_win = y2[..., i_lo * c_in:(i_hi + 1) * c_in]
+        xc = x_win.permute(0, 3, 1, 2)
+        with _exact_fp32(xc):
+            part = F.conv2d(xc, weight, padding=1).permute(0, 2, 3, 1)
+        parts.append(part.reshape(n, part.shape[1], w_in + 1, pgroups,
+                                  ob_hi - ob, -1))
+    conv = torch.cat(parts, dim=4) if len(parts) > 1 else parts[0]
+    c_out = conv.shape[-1]
+    rest = (d_out_n, c_out)
+    if reduce is not None:
+        # the weaves below are pure spatial interleaves/slices, so a
+        # per-pixel consumer commutes with them: reduce each parity map
+        # first and weave the (N, H, W) maps
+        conv = reduce(_add_bias_last(conv, b, y.dtype))
+        rest = ()
+    lo_h, lo_w = (tf_same_padding(X, 3, 2)[0] for X in out_spatial[1:])
+    if h_packed:
+        conv = conv.reshape(n, hs_n + 1, w_in + 1, 2, 2, 2, *rest)
+        # recover the conv-position axis p = 2*ps + pp - 1: one weave
+        conv = _weave_axis(conv[:, :, :, 1], conv[:, 1:, :, 0], 1, h_in + 1)
+    conv = conv.reshape(n, h_in + 1, w_in + 1, 2, 2, *rest)
+    outs = {}
+    for rh in (0, 1):
+        for rw in (0, 1):
+            off_h = 1 if (lo_h == 1 and rh == 1) else 0
+            off_w = 1 if (lo_w == 1 and rw == 1) else 0
+            outs[(rh, rw)] = conv[:, off_h:, off_w:, rh, rw]
+    g = [_weave_axis(outs[(rh, 0)], outs[(rh, 1)], 2, w_out)
+         for rh in (0, 1)]
+    out = _weave_axis(g[0], g[1], 1, h_out)  # (N, Hout, Wout[, Dout, c])
+    if reduce is not None:
+        return out
+    out = _add_bias_last(out, b, y.dtype)
+    if layout == "dlast":
+        return out
+    return out.permute(0, 3, 1, 2, 4)

@@ -9,11 +9,11 @@ shifted by the tap's disparity, up to one boundary column that
 conv2d(right, w_right[i][:, 2:3]) supplies. The six 2D convs run as two
 cuDNN calls (the tap kernels concatenated on output channels), and the
 hand-written CUDA kernel (`kernels/fused_cv_emit.py`) assembles the
-(N, D, H, W, K) output from them with bias and ELU, never materialising
-the (N, D, H, W, 2C) volume.
-
-Only the unpacked ``emit="full"`` layout is ported; the TPU's packed
-``emit="dh_shifted"`` layout raises (ROADMAP.md, module queue item 11).
+output from them with bias and ELU, never materialising the
+(N, D, H, W, 2C) volume: ``emit="full"`` gives (N, D, H, W, K) for the
+unpacked 3D stack, ``emit="dh_shifted"`` the packed head's
+(N, (D + 1) // 2 + 1, (H + 1) // 2 + 1, W, 4K) layout (`ops/packed3d.py`),
+with exact zeros in its padding slots and rows.
 """
 
 from __future__ import annotations
@@ -48,12 +48,14 @@ def split_kernels(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def cost_volume_conv3d_nchw(left: torch.Tensor, right: torch.Tensor,
                             k_la: torch.Tensor, k_rb: torch.Tensor,
                             b: Optional[torch.Tensor], max_disp: int, *,
-                            apply_elu: bool) -> torch.Tensor:
+                            apply_elu: bool,
+                            emit: str = "full") -> torch.Tensor:
     """The model's form: (N, C, H, W) feature maps (`torch.channels_last`)
-    and the `split_kernels` pair in OIHW -> (N, D, H, W, K) contiguous."""
+    and the `split_kernels` pair in OIHW -> the ``emit`` layout,
+    contiguous."""
     la = conv2d_nchw(left, k_la).permute(0, 2, 3, 1).contiguous()
     rb = conv2d_nchw(right, k_rb).permute(0, 2, 3, 1).contiguous()
-    return fused_cv_emit(la, rb, b, max_disp, elu=apply_elu)
+    return fused_cv_emit(la, rb, b, max_disp, elu=apply_elu, layout=emit)
 
 
 def cost_volume_conv3d(left: torch.Tensor, right: torch.Tensor,
@@ -61,13 +63,11 @@ def cost_volume_conv3d(left: torch.Tensor, right: torch.Tensor,
                        max_disp: int = 48, *, act=None,
                        emit: str = "full") -> torch.Tensor:
     """left/right (N, H, W, C) + conv3d weights w (3, 3, 3, 2C, K) ->
-    act(conv3d(cost_volume(left, right, D), w, b, stride 1, SAME)):
-    (N, D, H, W, K) in the input dtype. ``act``: None or `elu`."""
-    if emit == "dh_shifted":
-        raise NotImplementedError(
-            "emit='dh_shifted' (the TPU's packed layout) is not ported "
-            "(ROADMAP.md, module queue item 11)")
-    if emit != "full":
+    act(conv3d(cost_volume(left, right, D), w, b, stride 1, SAME)) in the
+    input dtype: (N, D, H, W, K) for ``emit="full"``, or packed
+    (``emit="dh_shifted"``, see the module docstring). ``act``: None or
+    `elu`."""
+    if emit not in ("full", "dh_shifted"):
         raise ValueError(f"unknown emit {emit!r}")
     if act not in (None, elu):
         raise ValueError("act must be None or redtail_tpu_torch.ops.elu")
@@ -78,4 +78,4 @@ def cost_volume_conv3d(left: torch.Tensor, right: torch.Tensor,
     return cost_volume_conv3d_nchw(
         left.permute(0, 3, 1, 2), right.permute(0, 3, 1, 2),
         k_la.permute(3, 2, 0, 1), k_rb.permute(3, 2, 0, 1), b, max_disp,
-        apply_elu=act is elu)
+        apply_elu=act is elu, emit=emit)

@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel (corr volume, concat volume, fused
-cost-volume assembly) against its plain version, the wrappers' no-fallback
-rule, and small models served through the kernels.
+cost-volume assembly in both layouts, the packed head's dense conv223)
+against its plain version, the wrappers' no-fallback rule, and small models
+served through the kernels.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither JAX nor `redtail_tpu`, so it also runs on a machine without
@@ -15,11 +16,12 @@ import numpy as np
 import pytest
 import torch
 
+from redtail_tpu_torch.kernels import conv223 as c223
 from redtail_tpu_torch.kernels import corr_cost_volume as corr
 from redtail_tpu_torch.kernels import cost_volume_concat as concat
 from redtail_tpu_torch.kernels import fused_cv_emit as emit
 from redtail_tpu_torch.models import STEREO_SPECS, init_stereo_params
-from redtail_tpu_torch.ops.convolution import plain_lowering
+from redtail_tpu_torch.ops.convolution import packed3d_lowering, plain_lowering
 from redtail_tpu_torch.runtime import StereoNode
 
 # (N, H, W, C), D: tests/test_kernels.py's pair, D == W, D > W, ragged W.
@@ -34,6 +36,14 @@ CONCAT_SHAPES = [((2, 7, 37, 8), 6), ((1, 3, 5, 4), 9), ((1, 4, 6, 8), 6),
 # Fused CV assembly, (N, H, W, K), D: ragged W, odd D, D > W, D == W, D = 1.
 EMIT_SHAPES = [((2, 7, 37, 8), 6), ((1, 5, 70, 4), 7), ((1, 3, 5, 4), 9),
                ((1, 4, 6, 2), 6), ((1, 3, 9, 3), 1)]
+# conv223 xp (N, Dp, Hp, W, C), K: NVSmall's conv3D_2, ResNet-18 3D's
+# conv3D_1b, NVTiny's conv3D_2; batch 2, odd Hp and Dp, W < 8, C = K = 16,
+# K != C, a ragged last column tile.
+CONV223_MODELS = [((1, 25, 82, 513, 128), 128), ((1, 35, 82, 513, 128), 128),
+                  ((1, 13, 42, 257, 64), 64)]
+CONV223_EDGES = [((2, 4, 6, 20, 32), 32), ((1, 5, 7, 9, 16), 16),
+                 ((1, 3, 4, 5, 16), 16), ((2, 3, 5, 70, 48), 32),
+                 ((1, 2, 3, 65, 64), 144)]
 
 pytestmark = pytest.mark.cuda
 
@@ -193,3 +203,146 @@ def test_stereo_node_3d_serves_through_the_kernels(cuda_device, lowering):
     assert disp.shape == hw and disp.dtype == np.float32
     assert np.isfinite(disp).all()
     assert 0 <= disp.min() <= disp.max() <= spec.full_max_disp
+
+
+def _conv223_inputs(device, xshape, k_out, dtype, seed=2):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    c = xshape[-1]
+    xp = torch.randn(xshape, generator=gen, device=device).to(dtype)
+    # He-scaled: outputs O(1), as the head's are
+    k = (torch.randn((2, 2, 3, c, k_out), generator=gen, device=device)
+         * (12 * c) ** -0.5).to(dtype)
+    bias = torch.randn(k_out, generator=gen, device=device)
+    return xp, k, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("xshape,k_out", CONV223_EDGES + CONV223_MODELS,
+                         ids=str)
+def test_conv223_kernel_matches_plain_on_card(cuda_device, xshape, k_out,
+                                              dtype):
+    xp, k, bias = _conv223_inputs(cuda_device, xshape, k_out, dtype)
+    before = c223.conv223.launches
+    got = c223.conv223(xp, k, bias)
+    torch.cuda.synchronize()
+    assert c223.conv223.launches == before + 1
+    want = c223.conv223_plain(xp, k, bias)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    # O(1) outputs: fp32 summation order, then (bf16) one rounding
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    else:
+        assert _ulp_ok(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,d", EMIT_SHAPES + [NVSMALL, RESNET18_3D])
+def test_packed_emit_kernel_matches_plain_on_card(cuda_device, shape, d,
+                                                  dtype):
+    n, h, w, k = shape
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(3)
+    la, rb, bias = (torch.randn(s, generator=gen, device=cuda_device)
+                    for s in ((n, h, w, 3 * k), (n, h, w, 6 * k), (k,)))
+    la, rb = la.to(dtype), rb.to(dtype)
+    before = (emit.fused_cv_emit.launches, emit.fused_cv_emit.packed_launches)
+    got = emit.fused_cv_emit(la, rb, bias, d, layout="dh_shifted")
+    torch.cuda.synchronize()
+    assert (emit.fused_cv_emit.launches,
+            emit.fused_cv_emit.packed_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    want = emit.fused_cv_emit_plain(la, rb, bias, d, layout="dh_shifted")
+    assert got.dtype == want.dtype and got.shape == want.shape == (
+        n, (d + 1) // 2 + 1, (h + 1) // 2 + 1, w, 4 * k)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    else:
+        assert _ulp_ok(got, want, 1e-4)
+    # the padding slots and rows are exactly zero (after bias and ELU)
+    assert not got[:, 0, :, :, :k].any() and not got[:, :, 0, :, :2 * k].any()
+
+
+def test_packed_kernels_never_take_plain_version(cuda_device, monkeypatch):
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(c223, "conv223_plain", plain)
+    monkeypatch.setattr(emit, "fused_cv_emit_plain", plain)
+    xp, k, bias = _conv223_inputs(cuda_device, (1, 3, 4, 9, 16), 16,
+                                  torch.bfloat16)
+    assert c223.conv223(xp, k, bias).is_cuda
+    la, rb = _pair(cuda_device, (1, 4, 40, 6))
+    assert emit.fused_cv_emit(la, torch.cat([rb, rb], -1), None, 5,
+                              layout="dh_shifted").is_cuda
+
+
+def test_packed_kernels_take_plain_version_on_cpu_tensors():
+    """No card needed: CPU tensors take the plain versions and count no
+    launch."""
+    gen = torch.Generator().manual_seed(4)
+    xp, k, bias = (torch.randn(s, generator=gen) for s in
+                   ((1, 3, 4, 9, 16), (2, 2, 3, 16, 16), (16,)))
+    la, rb = (torch.randn(s, generator=gen) for s in ((1, 4, 9, 6),
+                                                      (1, 4, 9, 12)))
+    before = (c223.conv223.launches, emit.fused_cv_emit.launches,
+              emit.fused_cv_emit.packed_launches)
+    assert torch.equal(c223.conv223(xp, k, bias),
+                       c223.conv223_plain(xp, k, bias))
+    assert torch.equal(
+        emit.fused_cv_emit(la, rb, bias[:2], 5, layout="dh_shifted"),
+        emit.fused_cv_emit_plain(la, rb, bias[:2], 5, layout="dh_shifted"))
+    assert (c223.conv223.launches, emit.fused_cv_emit.launches,
+            emit.fused_cv_emit.packed_launches) == before
+
+
+@pytest.mark.parametrize("bad", ["strided", "channels", "out_channels",
+                                 "wide", "dtype", "device", "bias"])
+def test_conv223_wrapper_raises_on_bad_cuda_input(cuda_device, bad):
+    xp, k, bias = _conv223_inputs(cuda_device, (1, 3, 4, 9, 32), 32,
+                                  torch.bfloat16)
+    if bad == "strided":
+        xp = xp[:, :, :, ::2]
+    elif bad == "channels":
+        xp, k = xp[..., :24].contiguous(), k[:, :, :, :24].contiguous()
+    elif bad == "out_channels":
+        k, bias = k[..., :24].contiguous(), bias[:24]
+    elif bad == "wide":
+        xp = torch.zeros((1, 3, 4, 9, 272), device=cuda_device,
+                         dtype=torch.bfloat16)
+        k = torch.zeros((2, 2, 3, 272, 32), device=cuda_device,
+                        dtype=torch.bfloat16)
+    elif bad == "dtype":
+        xp, k = xp.half(), k.half()
+    elif bad == "device":
+        k = k.cpu()
+    else:
+        bias = bias[:16]
+    before = c223.conv223.launches
+    with pytest.raises((TypeError, ValueError)):
+        c223.conv223(xp, k, bias)
+    assert c223.conv223.launches == before
+
+
+def test_stereo_node_packed_head_serves_through_the_kernels(cuda_device):
+    hw = (65, 129)
+    spec = dataclasses.replace(STEREO_SPECS["nvtiny"], input_hw=hw,
+                               max_disp=8)
+    node = StereoNode(spec, init_stereo_params(spec, seed=0),
+                      dtype=torch.bfloat16)
+    rs = np.random.RandomState(0)
+    left, right = (rs.randint(0, 256, hw + (3,)).astype(np.uint8)
+                   for _ in range(2))
+    before = (c223.conv223.launches, emit.fused_cv_emit.packed_launches,
+              concat.cost_volume_concat.launches)
+    with packed3d_lowering():
+        disp = node(left, right)
+    assert (c223.conv223.launches, emit.fused_cv_emit.packed_launches,
+            concat.cost_volume_concat.launches) == (before[0] + 1,
+                                                    before[1] + 1, before[2])
+    assert disp.shape == hw and disp.dtype == np.float32
+    assert np.isfinite(disp).all()
+    assert 0 <= disp.min() <= disp.max() <= spec.full_max_disp
+    unpacked = node(left, right)
+    # one bf16 frame through two lowerings of one function (PERF.md)
+    assert np.abs(disp - unpacked).mean() < 0.1

@@ -6,10 +6,12 @@ On the CPU the assembly kernel's wrapper runs its plain PyTorch version
 against JAX's XLA form (`emit="full"`), against the unfused
 conv3d(cost_volume) it factors, and against the TPU kernel it replaces,
 `emit_dh_shifted_pallas` (interpret mode, selected as
-`tests/test_fused_cv_emit_pallas.py` selects it), after repacking the
-port's (N, D, H, W, K) output into that kernel's dh-shifted layout here in
-the test. The CUDA kernel is held against the plain version on the card by
-`tests/test_torch_cuda.py` and `chip_smoke.py`.
+`tests/test_fused_cv_emit_pallas.py` selects it): the unpacked
+(N, D, H, W, K) output after repacking it here in the test, and the packed
+``emit="dh_shifted"`` output directly; that one also against JAX's XLA
+dh-shifted path at odd D and batch 2. The CUDA kernel is held against the
+plain version on the card by `tests/test_torch_cuda.py` and
+`chip_smoke.py`.
 """
 
 import numpy as np
@@ -129,11 +131,90 @@ def test_matches_pallas_emit_kernel_bf16(monkeypatch):
                                atol=0.05, rtol=0.05)
 
 
-def test_dh_shifted_emission_raises():
-    left, right, w, b = (torch.from_numpy(a)
-                         for a in _inputs(1, 4, 7, 2, 3, seed=4))
-    with pytest.raises(NotImplementedError, match="module queue item 11"):
-        cost_volume_conv3d(left, right, w, b, 4, act=elu, emit="dh_shifted")
+def _port_packed(left, right, w, b, d, act=elu, dtype=torch.float32):
+    t = [torch.from_numpy(a).to(dtype) for a in (left, right, w)]
+    return cost_volume_conv3d(*t, torch.from_numpy(b), d, act=act,
+                              emit="dh_shifted")
+
+
+# (n, h, w, c, D, k): odd D and batch 2 (the Pallas kernel takes neither)
+PACKED_XLA_SHAPES = XLA_SHAPES + [(2, 9, 17, 4, 6, 3)]
+
+
+@pytest.mark.parametrize("act", [elu, None], ids=["elu", "linear"])
+@pytest.mark.parametrize("shape", PACKED_XLA_SHAPES, ids=str)
+def test_dh_shifted_matches_xla_emission(shape, act):
+    n, h, w_, c, d, k = shape
+    left, right, w, b = _inputs(n, h, w_, c, k, seed=8, wscale=0.2)
+    want = np.asarray(jfcv.cost_volume_conv3d(
+        left, right, w, b, d, act=jelu if act else None, emit="dh_shifted"))
+    got = _port_packed(left, right, w, b, d, act=act).numpy()
+    assert got.shape == want.shape == (n, (d + 1) // 2 + 1, (h + 1) // 2 + 1,
+                                       w_, 4 * k)
+    # fp32 on both sides: summation order only
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+@pytest.mark.parametrize("h,w,c,k,dmax", PALLAS_CASES)
+def test_dh_shifted_matches_pallas_emit_kernel_fp32(monkeypatch, h, w, c, k,
+                                                    dmax):
+    left, right, wts, b = _inputs(1, h, w, c, k, seed=h, wscale=0.2)
+    want = _pallas(monkeypatch, left, right, wts, b, dmax)
+    got = _port_packed(left, right, wts, b, dmax).numpy()
+    assert got.shape == want.shape
+    # both accumulate fp32 and apply ELU in fp32: summation order only
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_dh_shifted_matches_pallas_emit_kernel_bf16(monkeypatch):
+    h, w, c, k, dmax = PALLAS_CASES[1]
+    left, right, wts, b = _inputs(1, h, w, c, k, seed=9, wscale=0.2)
+    j = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+    want = _pallas(monkeypatch, j(left), j(right), j(wts), b, dmax)
+    got = _port_packed(left, right, wts, b, dmax, dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    # the Pallas test's own bf16 gate (test_fused_cv_emit_pallas.py:57)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=0.05,
+                               rtol=0.05)
+
+
+@pytest.mark.parametrize("shape", WIDE_D_SHAPES, ids=str)
+def test_dh_shifted_wide_disparity_matches_dense_conv3d(shape):
+    n, h, w_, c, d, k = shape
+    left, right, w, b = _inputs(n, h, w_, c, k, seed=10)
+    want = _repack_dh_shifted(np.asarray(jelu(jconv3d(
+        cost_volume_pallas(left, right, d), w, b))))
+    np.testing.assert_allclose(_port_packed(left, right, w, b, d).numpy(),
+                               want, atol=1e-4)  # fp32 order only
+
+
+def test_dh_shifted_padding_is_exactly_zero():
+    """The padding slots and rows hold zeros, not elu(bias): the JAX
+    package once leaked elu(bias) there (`tests/test_packed3d.py:31-34`)."""
+    n, h, w_, c, d, k = 1, 7, 12, 3, 5, 4
+    left, right, w, _ = _inputs(n, h, w_, c, k, seed=11)
+    b = np.full(k, 0.7, np.float32)
+    got = _port_packed(left, right, w, b, d).numpy()
+    full = _port(left, right, w, b, d).numpy()
+    np.testing.assert_array_equal(got, _repack_dh_shifted(full))
+    assert not got[:, 0, :, :, :k].any()          # d = -1
+    assert not got[:, -1, :, :, k:2 * k].any()    # d = D (D odd: D, D + 1)
+    assert not got[:, :, 0, :, :2 * k].any()      # row -1
+    assert not got[:, :, -1].any()                # rows H, H + 1 (H odd)
+
+
+def test_plain_packed_layout_is_the_packed_full_layout():
+    rs = np.random.RandomState(12)
+    la = torch.from_numpy(rs.randn(2, 4, 8, 6).astype(np.float32))
+    rb = torch.from_numpy(rs.randn(2, 4, 8, 12).astype(np.float32))
+    bias = torch.from_numpy(rs.randn(2).astype(np.float32))
+    before = emit.fused_cv_emit.packed_launches
+    got = emit.fused_cv_emit(la, rb, bias, 5, layout="dh_shifted")
+    assert emit.fused_cv_emit.packed_launches == before
+    full = emit.fused_cv_emit_plain(la, rb, bias, 5).numpy()
+    np.testing.assert_array_equal(got.numpy(), _repack_dh_shifted(full))
+    with pytest.raises(ValueError, match="layout"):
+        emit.fused_cv_emit(la, rb, bias, 5, layout="dhw")
 
 
 @pytest.mark.parametrize("elu_on", [True, False], ids=["elu", "linear"])
