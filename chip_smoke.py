@@ -14,12 +14,16 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
    one nvcc per source, all at once;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card at the main paths' shapes and at edge cases (ragged W, D >= W,
-   odd D, C not a multiple of 8, batch 2, W < 8, C = K = 16), fp32 and
-   bf16, the fused cost-volume assembly in both its layouts; each kernel
-   and its plain version timed at the main path's shape with CUDA events
-   (device time: the host enqueues each call while the stream is held
-   busy, L2 evicted before each call), conv223 also beside cuDNN's
-   `F.conv3d` of the same dense conv (its library yardstick);
+   odd D, C or K not a multiple of 8, batch 2, W < 8, C = K = 16, K = 64;
+   conv223's tile edges: W = 63, 64, 65, 257, Hout not a multiple of 4,
+   K = 16..144 with C != K, more tiles than SMs), fp32 and bf16, the
+   fused cost-volume assembly in both its layouts; each kernel and its
+   plain version timed at the main path's shape with CUDA events (device
+   time: the host enqueues each call while the stream is held busy, L2
+   evicted before each call), with its bound share (bound / kernel time);
+   the assembly also without its ELU (what the fp32 expm1f costs);
+   conv223 (weights in the K-major form the packed head holds) also beside
+   cuDNN's `F.conv3d` of the same dense conv (its library yardstick);
 4. slice, card vs CPU: ResNet18-2D at 129x257 (max_disp 16) and NVTiny,
    NVSmall, ResNet-18 3D at 65x129 (max_disp 8; the fused, plain and
    packed lowerings, the packed one with the D-folded final deconv on the
@@ -80,19 +84,33 @@ CONCAT_CASES = (("nvsmall", (1, 161, 513, 32), 48),
                 ("C=3", (1, 4, 9, 3), 5))
 EMIT_CASES = (("nvsmall", (1, 161, 513, 32), 48),
               ("resnet18", (1, 161, 513, 32), 68),
+              ("K=64", (1, 9, 513, 64), 48),
               ("ragged", (2, 7, 37, 8), 6),
               ("odd D", (1, 5, 70, 4), 7),
+              ("K=12", (1, 5, 33, 12), 7),
+              ("b2 odd D", (2, 6, 70, 64), 11),
+              ("D>=W b2", (2, 5, 40, 32), 48),
               ("D>W", (1, 3, 5, 4), 9),
               ("D=1", (1, 3, 9, 3), 1))
 # conv223 (name, xp (N, Dp, Hp, W, C), K): NVSmall's conv3D_2 first (the
-# main path's call), ResNet-18 3D's conv3D_1b, NVTiny's conv3D_2, edges.
+# main path's call), ResNet-18 3D's conv3D_1b, NVTiny's conv3D_2, edges of
+# the bf16 kernel's 4 x 64 tiles (W = 63, 64, 65; Hout not a multiple of
+# 4; K = 16..144 with C != K; more tiles than 2 x 132 SMs, so the
+# persistent loop wraps).
 CONV223_CASES = (("nvsmall", (1, 25, 82, 513, 128), 128),
                  ("resnet18", (1, 35, 82, 513, 128), 128),
                  ("nvtiny", (1, 13, 42, 257, 64), 64),
                  ("batch 2", (2, 4, 6, 20, 32), 32),
                  ("odd Hp, Dp", (1, 5, 7, 9, 16), 16),
                  ("W<8", (1, 3, 4, 5, 16), 16),
-                 ("C=K=16", (1, 4, 5, 33, 16), 16))
+                 ("C=K=16", (1, 4, 5, 33, 16), 16),
+                 ("W=63 K=16", (1, 3, 6, 63, 32), 16),
+                 ("W=64 K=32", (1, 3, 6, 64, 64), 32),
+                 ("W=65 K=64", (1, 3, 6, 65, 16), 64),
+                 ("W=257 K=128", (1, 3, 7, 257, 32), 128),
+                 ("b2 K=128", (2, 3, 9, 130, 64), 128),
+                 ("K=144", (1, 2, 3, 65, 64), 144),
+                 ("wraps", (1, 9, 42, 200, 32), 16))
 FULL_HW = (321, 1025)
 SLICE_3D_HW, SLICE_3D_DISP = (65, 129), 8
 SLICE_3D_FP32_ATOL = 1e-3   # px: card fp32 vs CPU fp32, summation order
@@ -232,10 +250,11 @@ def time_kernel(torch, name, kernel, plain, nbytes, flops, *, library=None,
           f"{bound_by} ({nbytes / 1e6:.2f} MB at {PEAK_BYTES / 1e12} TB/s = "
           f"{1e3 * nbytes / PEAK_BYTES:.4f} ms, {flops / 1e9:.3f} GFLOP "
           f"{kind} at {peak_flops / 1e12} TFLOP/s = "
-          f"{1e3 * flops / peak_flops:.4f} ms)")
+          f"{1e3 * flops / peak_flops:.4f} ms); bound share (bound / kernel) "
+          f"{bound_ms / kernel_ms:.3f}")
     return {"ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "bound_share": bound_ms / kernel_ms, "library_ms": library_ms}
 
 
 def _randn(torch, gen, shape, dtype):
@@ -380,12 +399,23 @@ def phase_emit(torch, emit, gen):
         lambda: emit.fused_cv_emit_plain(la, rb, bias, d,
                                          layout="dh_shifted"),
         maps + packed * 2, 4 * full)
-    entry.update({f"packed_{key}": timed[key]
-                  for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    entry.update({f"packed_{key}": timed[key] for key in
+                  ("ms", "plain_ms", "bound_ms", "bound_by", "bound_share")})
+    # Both layouts once more without the ELU, a call no model makes: the
+    # difference is what the fp32 expm1f of every output costs.
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for prefix, layout in (("", "full"), ("packed_", "dh_shifted")):
+        entry[f"{prefix}no_elu_ms"] = cuda_ms(
+            torch, lambda: emit.fused_cv_emit(la, rb, bias, d, elu=False,
+                                              layout=layout), flush)
+    print(f"emit at {(n, h, w, k)} D={d} bf16 without the ELU, device time: "
+          f"full {entry['no_elu_ms']:.4f} ms, dh_shifted "
+          f"{entry['packed_no_elu_ms']:.4f} ms")
     return entry
 
 
 def _conv223_inputs(torch, gen, xshape, k_out, dtype):
+    """xp, k in the (2, 2, 3, C, K) form, bias."""
     c = xshape[-1]
     xp = _randn(torch, gen, xshape, dtype)
     # He-scaled weights: O(1) outputs, as the head's are
@@ -407,7 +437,9 @@ def _conv223_library(torch, xp, k, bias):
 def phase_conv223(torch, c223, gen):
     """The packed head's dense conv kernel against its plain version, then
     timed at NVSmall's conv3D_2 call beside its plain version and cuDNN,
-    and at ResNet-18 3D's conv3D_1b beside cuDNN."""
+    and at ResNet-18 3D's conv3D_1b beside cuDNN. The timed calls take the
+    weights as the packed head holds them, in the bf16 kernel's K-major
+    form (`kernel_weights`, made at load)."""
     max_err = 0.0
     for name, xshape, k_out in CONV223_CASES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -443,7 +475,8 @@ def phase_conv223(torch, c223, gen):
         n, dp, hp, w, c = xshape
         out = n * (dp - 1) * (hp - 1) * w * k_out
         library = _conv223_library(torch, xp, k, bias)
-        got, want = c223.conv223(xp, k, bias), library()
+        kt = c223.kernel_weights(k)
+        got, want = c223.conv223(xp, kt, bias, "kc"), library()
         lib_err = (got.float() - want.permute(0, 2, 3, 4, 1).float()
                    ).abs().max().item()
         print(f"conv223 {name} bf16 vs cuDNN F.conv3d of the same conv: max "
@@ -452,7 +485,7 @@ def phase_conv223(torch, c223, gen):
         del got, want
         timed = time_kernel(
             torch, f"conv223 {name} at {xshape} K={k_out} bf16",
-            lambda: c223.conv223(xp, k, bias),
+            lambda: c223.conv223(xp, kt, bias, "kc"),
             lambda: c223.conv223_plain(xp, k, bias),
             2 * (xp.numel() + k.numel() + out) + 4 * k_out,
             2 * out * 12 * c, library=library, peak_flops=PEAK_BF16_FLOPS)
@@ -460,8 +493,9 @@ def phase_conv223(torch, c223, gen):
             entry.update(timed)
         else:
             entry.update({f"{name}_{key}": timed[key] for key in
-                          ("ms", "plain_ms", "library_ms", "bound_ms")})
-        del xp, k, library
+                          ("ms", "plain_ms", "library_ms", "bound_ms",
+                           "bound_share")})
+        del xp, k, kt, library
     return entry
 
 
@@ -752,8 +786,11 @@ def main() -> int:
         log = (kernels._build.BUILD / f"{name}.log")
         if log.exists():
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  {name}: {line.strip()}")
+                if "Compiling entry" in line:
+                    print(f"  {name}: {line.split(chr(39))[1][:90]}")
+                elif any(key in line for key in ("registers", "spill",
+                                                 "C7520", "C7508")):
+                    print(f"  {name}: {line.strip()[:160]}")
 
     gen = seeded_generator(0)
     entries = {"corr_cost_volume": phase_corr(torch, corr, gen),

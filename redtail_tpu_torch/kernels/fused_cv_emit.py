@@ -15,6 +15,13 @@ accumulated in fp32 and rounded once. It replaces the TPU kernel
 output is the dh-shifted layout; the formula and the design notes are in
 `redtail_tpu_torch/csrc/fused_cv_emit.cu`.
 
+The kernel is built around its write path: K is a compile-time constant
+at the served widths (32, 64), a thread owns 8 consecutive channels of one
+column (one channel when K % 8 != 0) across its block's disparities and
+writes each (d, x) as one 16-byte store, and the outputs with a
+boundary-column term are recomputed by a small second pass, so the bulk
+runs no boundary code.
+
 The wrapper runs the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; nothing falls back.
 """
@@ -32,6 +39,7 @@ from redtail_tpu_torch.kernels import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
 LAYOUTS = ("full", "dh_shifted")
+MAX_GROUPS = 1024  # threads of one column: one block holds at most 1024
 
 
 def _pack_dh_shifted(full: torch.Tensor) -> torch.Tensor:
@@ -131,7 +139,8 @@ def fused_cv_emit(la: torch.Tensor, rb: torch.Tensor,
     CPU tensors take `fused_cv_emit_plain`. CUDA tensors launch the kernel
     on the current stream and add one to ``fused_cv_emit.launches`` (and,
     for the dh-shifted layout, to ``fused_cv_emit.packed_launches``); they
-    must be contiguous and on one device."""
+    must be contiguous, 16-byte aligned and on one device, with at most
+    `MAX_GROUPS` threads to a column."""
     _check(la, rb, bias, max_disp, layout)
     tensors = (la, rb) if bias is None else (la, rb, bias)
     if all(t.device.type == "cpu" for t in tensors):
@@ -147,12 +156,20 @@ def fused_cv_emit(la: torch.Tensor, rb: torch.Tensor,
     if n > 65535 or h > 65535:
         raise ValueError(f"N and H must be <= 65535 (grid limit); got {n}, {h}")
     k = k3 // 3
+    packed = layout == "dh_shifted"
+    groups = (4 if packed else 1) * (k if k % 8 else k // 8)
+    if groups > MAX_GROUPS:
+        raise ValueError(f"K={k} is too wide for the {layout} kernel: a "
+                         f"column takes (4 if dh_shifted else 1) * K / 8 "
+                         f"(K % 8 == 0) or * K threads, at most {MAX_GROUPS}")
     b = (torch.zeros(k, device=la.device) if bias is None
          else bias.float().contiguous())
-    packed = layout == "dh_shifted"
     shape = ((n, (max_disp + 1) // 2 + 1, (h + 1) // 2 + 1, w, 4 * k)
              if packed else (n, max_disp, h, w, k))
     out = torch.empty(shape, dtype=la.dtype, device=la.device)
+    for t in (la, rb, out):
+        if t.data_ptr() % 16:
+            raise ValueError("tensor storage not aligned to 16 bytes")
     lib = _lib()
     err = lib.fused_cv_emit_launch(
         la.data_ptr(), rb.data_ptr(), b.data_ptr(), out.data_ptr(), n, h, w,

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from redtail_tpu_torch.kernels.conv223 import conv223
+from redtail_tpu_torch.kernels.conv223 import conv223, kernel_weights
 from redtail_tpu_torch.ops.convolution import _exact_fp32, tf_same_padding
 
 Pads = Sequence[Tuple[int, int]]
@@ -93,9 +93,10 @@ def prepare(k: torch.Tensor, form: str) -> torch.Tensor:
     `F.conv3d`'s (O, I, kd, kh, kw), ``"lhs_dilated"``
     `F.conv_transpose3d`'s (I, O, kd, kh, kw) with the taps flipped, both
     in `torch.channels_last_3d` memory; ``"conv223"`` the CUDA kernel's
-    contiguous (2, 2, 3, C, K)."""
+    K-major (2, 2, 3, K, C) (`kernels/conv223.py:kernel_weights`;
+    `contract_weights` gives back the DHWIO (2, 2, 3, C, K))."""
     if form == "conv223":
-        return k.contiguous()
+        return kernel_weights(k)
     if form == "conv":
         wt = k.permute(4, 3, 0, 1, 2)
     elif form == "lhs_dilated":
@@ -248,7 +249,7 @@ def conv3d_packed(xp: torch.Tensor, w: Optional[torch.Tensor],
                          "conv223" if dense223 else "conv")
     if dense223:
         bt = None if b is None else b.float().repeat(groups)
-        out = conv223(xp.contiguous(), kernel, bt)
+        out = conv223(xp.contiguous(), kernel, bt, "kc")
     else:
         pad = (0, 0) if in_shifted else (1, 1)
         out = _conv(xp, kernel, (1, 1, 1),

@@ -11,6 +11,7 @@ Inputs are seeded numpy; biases random and nonzero. fp32 on both sides
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax.numpy as jnp
 from jax import lax
@@ -145,3 +146,142 @@ def test_wrapper_rejects_bad_input(bad):
         k = k.to("meta")
     with pytest.raises((TypeError, ValueError)):
         c223.conv223(xp, k, b)
+
+
+# The bf16 kernel's tiling (`tile_plan`, mirrored by `decode` in
+# csrc/conv223.cu): shapes of the three models' calls, the tile edges
+# (W = 63, 64, 65, Hout not a multiple of 4), W < 64, K > 128, batch 2.
+PLAN_SHAPES = [(1, 25, 82, 513, 128, 128), (1, 35, 82, 513, 128, 128),
+               (1, 13, 42, 257, 64, 64), (1, 3, 6, 63, 32, 16),
+               (1, 3, 6, 64, 64, 32), (1, 3, 6, 65, 16, 64),
+               (2, 3, 9, 130, 64, 128), (1, 2, 3, 65, 64, 144),
+               (1, 3, 4, 5, 16, 16), (2, 4, 6, 20, 32, 32)]
+
+
+def _tiles(plan):
+    """Every tile of the plan as (N tile, plane, h0, x0, rows, cols), in
+    the kernel's order."""
+    for t in range(plan.tiles):
+        nt, r = divmod(t, plan.planes * plan.per_plane)
+        plane, r = divmod(r, plan.per_plane)
+        yield (nt, plane) + plan.tile(r)
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_tile_plan_covers_each_output_once(shape):
+    n, dp, hp, w, c, k = shape
+    plan = c223.tile_plan(n, dp, hp, w, c, k)
+    hits = np.zeros((plan.n_tiles, n * (dp - 1), hp - 1, w), np.int32)
+    for nt, plane, h0, x0, rows, cols in _tiles(plan):
+        # the staged slab and the outputs fit one ring stage's room
+        assert rows * (cols + 2) <= c223.SLAB_PIXELS
+        assert rows * cols <= c223.TILE_PIXELS and rows <= 256
+        hits[nt, plane, h0:h0 + rows, x0:x0 + cols] += 1
+    assert (hits == 1).all()
+    assert plan.bn in (64, 128) and plan.n_tiles * plan.bn >= k
+    assert plan.steps == 4 * -(-c // 64)
+
+
+def test_tile_plan_ragged_w_costs_no_full_tile():
+    """At W = 513 the last column is one edge tile per plane: the m64
+    blocks that run cover the outputs within 5% (a 64-column tile per row
+    pair would cost 1/9 more)."""
+    plan = c223.tile_plan(1, 25, 82, 513, 128, 128)
+    assert (plan.rem, plan.edge_rows, plan.edge_tiles) == (1, 81, 1)
+    outputs = 24 * 81 * 513
+    blocks = sum(-(-min(rows, plan.hout - h0) * cols // 64)
+                 for _, _, h0, _, rows, cols in _tiles(plan))
+    assert outputs <= 64 * blocks <= 1.05 * outputs
+
+
+def _emulate_bf16_kernel(xp, k, bias, plan):
+    """The bf16 kernel's arithmetic in fp32 on the CPU, tile by tile: each
+    K-step's slab as TMA stages it (zero outside the tensor), A rows read
+    at the tap's pixel offset, B from the K-major weights."""
+    n, dp, hp, w, c = xp.shape
+    kt = c223.kernel_weights(k)              # (2, 2, 3, K, C)
+    kk = kt.shape[3]
+    # zero fill past every edge TMA can reach: x = -1 and W, rows past Hp,
+    # channels past C up to the 64-channel chunk
+    xz = F.pad(xp.float(), (0, 64 * plan.chunks - c, 1, 1, 0, c223.TH))
+    kz = F.pad(kt.float(), (0, 64 * plan.chunks - c, 0,
+                            plan.n_tiles * plan.bn - kk))
+    out = torch.full((n, dp - 1, hp - 1, w, kk), float("nan"))
+    for nt, plane, h0, x0, rows, cols in _tiles(plan):
+        b, d = divmod(plane, dp - 1)
+        npx = min(rows, plan.hout - h0) * cols
+        acc = torch.zeros((c223.TILE_PIXELS, plan.bn))
+        m = torch.arange(c223.TILE_PIXELS)
+        m = torch.where(m < npx, m, torch.zeros_like(m))
+        prow = (m // cols) * (cols + 2) + m % cols
+        for st in range(plan.steps):
+            cc, td, th = st >> 2, (st >> 1) & 1, st & 1
+            # the slab: rows x (cols + 2) pixels from (x0 - 1, h0 + th)
+            slab = xz[b, d + td, h0 + th:h0 + th + rows,
+                      x0:x0 + cols + 2, 64 * cc:64 * cc + 64]
+            slab = slab.reshape(-1, 64)
+            for tw in range(3):
+                bt = kz[td, th, tw, nt * plan.bn:(nt + 1) * plan.bn,
+                        64 * cc:64 * cc + 64]
+                acc += slab[prow + tw] @ bt.T
+        hh = h0 + torch.arange(npx) // cols
+        xx = x0 + torch.arange(npx) % cols
+        cols_k = slice(nt * plan.bn, min((nt + 1) * plan.bn, kk))
+        out[b, d, hh, xx, cols_k] = (acc[:npx, :cols_k.stop - cols_k.start]
+                                     + bias[cols_k])
+    return out
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 6, 130, 64, 64),
+                                   (2, 3, 7, 65, 48, 32),
+                                   (1, 2, 3, 65, 64, 144),
+                                   (1, 3, 4, 5, 16, 16),
+                                   (1, 2, 5, 70, 128, 128)], ids=str)
+def test_bf16_kernel_tiling_emulated_matches_plain(shape):
+    """The tile plan, the slab staging and the A-row mapping compute the
+    conv: an fp32 emulation of the kernel's loop against the plain
+    version."""
+    n, dp, hp, w, c, kk = shape
+    xp = _t(_rand((n, dp, hp, w, c), 9))
+    k = _t(_rand((2, 2, 3, c, kk), 10, 0.2))
+    b = _t(_rand((kk,), 11))
+    got = _emulate_bf16_kernel(xp, k, b, c223.tile_plan(n, dp, hp, w, c, kk))
+    torch.testing.assert_close(got, c223.conv223_plain(xp, k, b), rtol=0,
+                               atol=1e-4)
+
+
+def test_kernel_weights_round_trip():
+    k = _t(_rand((2, 2, 3, 48, 32), 12))
+    kt = c223.kernel_weights(k)
+    assert kt.shape == (2, 2, 3, 32, 48) and kt.is_contiguous()
+    assert torch.equal(kt[1, 0, 2, 5, 7], k[1, 0, 2, 7, 5])
+    assert torch.equal(c223.contract_weights(kt), k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_takes_kernel_form_weights(dtype):
+    """``k_layout="kc"`` (the packed head's stored form) gives the same
+    result as the (2, 2, 3, C, K) form on the CPU, counting no launch."""
+    xp = _t(_rand((1, 3, 4, 9, 16), 13)).to(dtype)
+    k = _t(_rand((2, 2, 3, 16, 32), 14, 0.2)).to(dtype)
+    b = _t(_rand((32,), 15))
+    before = c223.conv223.launches
+    got = c223.conv223(xp, c223.kernel_weights(k), b, "kc")
+    assert c223.conv223.launches == before
+    assert torch.equal(got, c223.conv223(xp, k, b))
+    with pytest.raises(ValueError):
+        c223.conv223(xp, k, b, "kc")         # (.., C, K) given as "kc"
+    with pytest.raises(ValueError):
+        c223.conv223(xp, k, b, "oi")
+
+
+def test_packed_prepare_stores_the_kernel_form():
+    """`prepare(k, "conv223")` is the K-major form, and `conv3d_packed`
+    takes it as the model holds it."""
+    x, w, b, xp, k, _ = _packed_case((7, 18, 16), 4, 4)
+    kt = P.prepare(_t(k), "conv223")
+    assert torch.equal(c223.contract_weights(kt), _t(k))
+    got = P.conv3d_packed(_t(xp), None, _t(b), full_spatial=(7, 18, 16),
+                          kernel=kt)
+    want = P.conv3d_packed(_t(xp), _t(w), _t(b), full_spatial=(7, 18, 16))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -33,17 +33,27 @@ NVSMALL, RESNET18_3D = ((1, 161, 513, 32), 48), ((1, 161, 513, 32), 68)
 # Concat volume: ragged W, D > W, D == W, C not a multiple of 8, odd D.
 CONCAT_SHAPES = [((2, 7, 37, 8), 6), ((1, 3, 5, 4), 9), ((1, 4, 6, 8), 6),
                  ((1, 4, 9, 3), 5), ((2, 5, 70, 5), 7)]
-# Fused CV assembly, (N, H, W, K), D: ragged W, odd D, D > W, D == W, D = 1.
+# Fused CV assembly, (N, H, W, K), D: ragged W, odd D, D > W, D == W, D = 1;
+# the kernel's K = 64 instantiation at the main path's D, K not a multiple
+# of 8 with odd D, batch 2 with odd D, D >= W at K = 32 with batch 2.
 EMIT_SHAPES = [((2, 7, 37, 8), 6), ((1, 5, 70, 4), 7), ((1, 3, 5, 4), 9),
-               ((1, 4, 6, 2), 6), ((1, 3, 9, 3), 1)]
+               ((1, 4, 6, 2), 6), ((1, 3, 9, 3), 1), ((1, 9, 513, 64), 48),
+               ((1, 5, 33, 12), 7), ((2, 6, 70, 64), 11),
+               ((2, 5, 40, 32), 48)]
 # conv223 xp (N, Dp, Hp, W, C), K: NVSmall's conv3D_2, ResNet-18 3D's
 # conv3D_1b, NVTiny's conv3D_2; batch 2, odd Hp and Dp, W < 8, C = K = 16,
-# K != C, a ragged last column tile.
+# K != C, a ragged last column tile; the bf16 kernel's 4 x 64 tiles: W at
+# 63, 64, 65 and 257, Hout not a multiple of 4, K = 16, 32, 64, 128 with
+# C != K, batch 2 at K = 128, and 280 tiles (more than 2 x 132 SMs: the
+# persistent loop wraps).
 CONV223_MODELS = [((1, 25, 82, 513, 128), 128), ((1, 35, 82, 513, 128), 128),
                   ((1, 13, 42, 257, 64), 64)]
 CONV223_EDGES = [((2, 4, 6, 20, 32), 32), ((1, 5, 7, 9, 16), 16),
                  ((1, 3, 4, 5, 16), 16), ((2, 3, 5, 70, 48), 32),
-                 ((1, 2, 3, 65, 64), 144)]
+                 ((1, 2, 3, 65, 64), 144), ((1, 3, 6, 63, 32), 16),
+                 ((1, 3, 6, 64, 64), 32), ((1, 3, 6, 65, 16), 64),
+                 ((1, 3, 7, 257, 32), 128), ((2, 3, 9, 130, 64), 128),
+                 ((1, 9, 42, 200, 32), 16)]
 
 pytestmark = pytest.mark.cuda
 
@@ -234,6 +244,24 @@ def test_conv223_kernel_matches_plain_on_card(cuda_device, xshape, k_out,
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
     else:
         assert _ulp_ok(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("xshape,k_out", [((1, 3, 7, 257, 32), 128),
+                                          ((1, 25, 82, 513, 128), 128)],
+                         ids=str)
+def test_conv223_kernel_form_matches_contract_form_on_card(
+        cuda_device, xshape, k_out, dtype):
+    """The packed head hands the kernel its weights in the K-major form
+    (`kernel_weights`, at load): the same result as the (2, 2, 3, C, K)
+    form, bit for bit, one launch each."""
+    xp, k, bias = _conv223_inputs(cuda_device, xshape, k_out, dtype)
+    before = c223.conv223.launches
+    got = c223.conv223(xp, c223.kernel_weights(k), bias, "kc")
+    want = c223.conv223(xp, k, bias)
+    torch.cuda.synchronize()
+    assert c223.conv223.launches == before + 2
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
