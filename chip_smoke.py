@@ -15,13 +15,20 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card at the main paths' shapes and at edge cases (ragged W, D >= W,
    odd D, C or K not a multiple of 8, batch 2, W < 8, C = K = 16, K = 64;
-   conv223's tile edges: W = 63, 64, 65, 257, Hout not a multiple of 4,
-   K = 16..144 with C != K, more tiles than SMs), fp32 and bf16, the
-   fused cost-volume assembly in both its layouts; each kernel and its
+   the corr kernel's tile edges: W = 63, 64, 65, 513, D = 1, 47, 48, 49,
+   130, C = 3, 8, 40; conv223's tile edges: W = 63, 64, 65, 257, Hout not
+   a multiple of 4, K = 16..144 with C != K, more tiles than SMs), fp32
+   and bf16, the corr kernel in its three epilogues (the volume in both
+   layouts and the fused soft-argmax, the latter on inputs scaled by
+   1/sqrt(C) so the volume is O(1), with the unit-scale error printed),
+   the fused cost-volume assembly in both its layouts; each kernel and its
    plain version timed at the main path's shape with CUDA events (device
    time: the host enqueues each call while the stream is held busy, L2
    evicted before each call), with its bound share (bound / kernel time);
-   the assembly also without its ELU (what the fp32 expm1f costs);
+   the assembly also without its ELU (what the fp32 expm1f costs); the
+   corr kernel in each epilogue, the pair the fused one replaces (the
+   volume kernel, then `ops/softargmax.py`) and, as the floor under every
+   time, one empty kernel timed the same way;
    conv223 (weights in the K-major form the packed head holds) also beside
    cuDNN's `F.conv3d` of the same dense conv (its library yardstick);
 4. slice, card vs CPU: ResNet18-2D at 129x257 (max_disp 16) and NVTiny,
@@ -33,7 +40,8 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
 5. serving, the main paths at full 321x1025 width in bf16, each driven
    with every launch count set to 0 just before and read just after:
    a. `StereoNode` ResNet18-2D, random weights, 10 frames: the corr
-      kernel once per frame, disparity in [0, 1025] px;
+      kernel's fused soft-argmax once per frame and its volume epilogues
+      never, disparity in [0, 1025] px;
    b. `StereoNode` NVSmall with the repo's real weights
       (`tests/data/nvsmall_golden.npz`), 10 frames: the fused cost-volume
       assembly kernel once per frame, disparity finite and in [0, 96] px;
@@ -70,11 +78,27 @@ TIMING_REPS = 30
 HOLD_CYCLES = 20_000_000  # ~10 ms at 1.98 GHz, longer than a kernel's enqueue
 PLAIN_HOLD_CYCLES = 200_000_000  # ~100 ms: a plain version enqueues many ops
 FP32_ATOL = 1e-4  # kernels at unit-scale inputs: summation order only
-# (name, (N, H, W, C), D): the main path's shape first.
+# index units: the corr kernel's fused soft-argmax at inputs scaled by
+# 1/sqrt(C), the volume's summation order through the softmax
+SOFTARGMAX_ATOL = 1e-4
+# (name, (N, H, W, C), D): the main path's shape first, then the corr
+# kernel's edges: its 16-column warps (W = 63, 64, 65, 513 end in a ragged
+# warp), chunks of 64 disparities (D = 1, 47, 48, 49 on 8 y tiles, 130 in
+# three chunks), channel steps (C = 40 bf16 takes two 32-channel steps; C =
+# 3 is loaded element by element), D > W.
 CORR_CASES = (("flagship", (1, 161, 513, 32), 48),
               ("ragged", (2, 7, 37, 8), 6),
               ("D>W", (1, 3, 5, 4), 9),
-              ("D=W", (1, 4, 6, 8), 6))
+              ("D=W", (1, 4, 6, 8), 6),
+              ("W=63 D=47", (1, 3, 63, 32), 47),
+              ("W=64 D=48", (1, 3, 64, 32), 48),
+              ("W=65 D=49", (1, 3, 65, 32), 49),
+              ("W=513 D=1", (1, 2, 513, 32), 1),
+              ("b2 C=8", (2, 3, 65, 8), 48),
+              ("D>W b2", (2, 2, 20, 8), 33),
+              ("C=40", (1, 2, 33, 40), 9),
+              ("C=3", (1, 2, 9, 3), 5),
+              ("D=130", (1, 2, 70, 16), 130))
 # Concat volume features (N, H, W, C), D / fused-CV assembly maps
 # (N, H, W, K), D: NVSmall's shape first, then ResNet-18 3D's, then edges.
 CONCAT_CASES = (("nvsmall", (1, 161, 513, 32), 48),
@@ -160,18 +184,20 @@ def print_clocks(after: str) -> None:
           f"{nvidia_smi('clocks.sm,clocks.max.sm,power.draw,temperature.gpu')}")
 
 
-def cuda_ms(torch, fn, flush, *, hold=HOLD_CYCLES, reps=TIMING_REPS) -> float:
+def cuda_ms(torch, fn, flush, *, hold=HOLD_CYCLES, reps=TIMING_REPS,
+            label="call") -> float:
     """Median time of one call (CUDA events), L2 evicted before each.
 
     With ``hold`` cycles the stream spins (`torch.cuda._sleep`) ahead of
     the start event while the host enqueues the call, so the time is the
-    device's alone. With ``hold=0`` the stream is idle at the start event
-    and the time also holds the host's enqueue (Python checks, allocation,
-    launch)."""
+    device's alone; a rep whose hold ran out first (the host stalled) is
+    discarded and taken again, at most 3 times in a row. With ``hold=0``
+    the stream is idle at the start event and the time also holds the
+    host's enqueue (Python checks, allocation, launch)."""
     for _ in range(3):
         fn()
-    times = []
-    for _ in range(reps):
+    times, stalls, in_row = [], 0, 0
+    while len(times) < reps:
         flush.zero_()
         if hold:
             torch.cuda._sleep(hold)
@@ -180,11 +206,19 @@ def cuda_ms(torch, fn, flush, *, hold=HOLD_CYCLES, reps=TIMING_REPS) -> float:
         start.record()
         fn()
         end.record()
-        check(not (hold and start.query()),
-              "the hold ended before the call was enqueued: the time would "
-              "include the host's; raise the hold")
+        if hold and start.query():
+            stalls, in_row = stalls + 1, in_row + 1
+            check(in_row <= 3, f"{label}: the hold ended before the call "
+                  f"was enqueued {in_row} times in a row: the time would "
+                  f"include the host's; raise the hold")
+            end.synchronize()
+            continue
+        in_row = 0
         end.synchronize()
         times.append(start.elapsed_time(end))
+    if stalls:
+        print(f"{label}: {stalls} rep(s) discarded, the hold ran out before "
+              f"the call was enqueued")
     return statistics.median(times)
 
 
@@ -236,10 +270,12 @@ def time_kernel(torch, name, kernel, plain, nbytes, flops, *, library=None,
     function) ``library`` timed at the main path's call; returns the timing
     keys of the kernel's entry of the `kernels` line."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    kernel_ms = cuda_ms(torch, kernel, flush)
+    kernel_ms = cuda_ms(torch, kernel, flush, label=f"{name} kernel")
     call_ms = cuda_ms(torch, kernel, flush, hold=0)
-    plain_ms = cuda_ms(torch, plain, flush, hold=PLAIN_HOLD_CYCLES)
-    library_ms = None if library is None else cuda_ms(torch, library, flush)
+    plain_ms = cuda_ms(torch, plain, flush, hold=PLAIN_HOLD_CYCLES,
+                       label=f"{name} plain")
+    library_ms = None if library is None else cuda_ms(
+        torch, library, flush, label=f"{name} library")
     print_clocks(f"the {name} timing")
     bound_ms, bound_by = bound(nbytes, flops, peak_flops)
     kind = "fp32" if peak_flops == PEAK_FP32_FLOPS else "bf16 tensor-core"
@@ -261,10 +297,11 @@ def _randn(torch, gen, shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
-def phase_corr(torch, corr, gen):
+def phase_corr(torch, corr, softargmax, gen):
     """The corr kernel against its plain version at every case, both
-    layouts and dtypes, then timed at the ResNet18-2D call."""
-    max_err = 0.0
+    dtypes, in its three epilogues; then each epilogue timed at the
+    ResNet18-2D call, beside the unfused pair the fused one replaces."""
+    max_err = {"dlast": 0.0, "hdw": 0.0, "softargmax": 0.0}
     for name, shape, d in CORR_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             left, right = (_randn(torch, gen, shape, dtype) for _ in range(2))
@@ -280,31 +317,83 @@ def phase_corr(torch, corr, gen):
                 if got.dtype == torch.float32:
                     check(err <= FP32_ATOL, f"corr {name} {dtype} {layout}: "
                           f"max abs err {err} > {FP32_ATOL}")
-                    max_err = max(max_err, err)
+                    max_err[layout] = max(max_err[layout], err)
                     tol = f"{FP32_ATOL}"
                 else:
                     check(bf16_ulp_ok(torch, got, want, FP32_ATOL),
                           f"corr {name} {dtype} {layout}: more than one "
                           f"bf16 ulp + {FP32_ATOL} off (max abs err {err})")
                     tol = f"1 bf16 ulp + {FP32_ATOL}"
-                print(f"corr {name:8s} {str(shape):18s} D={d:<3d} "
-                      f"{str(dtype):15s} {layout:5s} max_abs_err={err:.3e} "
+                print(f"corr {name:10s} {str(shape):18s} D={d:<3d} "
+                      f"{str(dtype):15s} {layout:10s} max_abs_err={err:.3e} "
                       f"(tol {tol})")
+            errs = {}
+            for scale in ("scaled", "unit"):
+                lr = (left, right) if scale == "unit" else \
+                    tuple(t * shape[-1] ** -0.5 for t in (left, right))
+                got = corr.corr_softargmax(*lr, d)
+                torch.cuda.synchronize()
+                want = corr.corr_softargmax_plain(*lr, d)
+                check(got.shape == want.shape == shape[:3]
+                      and got.dtype == want.dtype == torch.float32,
+                      f"corr {name} softargmax: {got.shape} {got.dtype} vs "
+                      f"{want.shape} {want.dtype}")
+                errs[scale] = (got - want).abs().max().item()
+            check(errs["scaled"] <= SOFTARGMAX_ATOL,
+                  f"corr {name} {dtype} softargmax: max abs err "
+                  f"{errs['scaled']} > {SOFTARGMAX_ATOL}")
+            max_err["softargmax"] = max(max_err["softargmax"], errs["scaled"])
+            print(f"corr {name:10s} {str(shape):18s} D={d:<3d} "
+                  f"{str(dtype):15s} softargmax max_abs_err="
+                  f"{errs['scaled']:.3e} (inputs / sqrt(C); tol "
+                  f"{SOFTARGMAX_ATOL}), {errs['unit']:.3e} at unit scale "
+                  f"(informational)")
 
     _, shape, d = CORR_CASES[0]
     left, right = (_randn(torch, gen, shape, torch.bfloat16)
                    for _ in range(2))
     n, h, w, c = shape
+    feats = 2 * left.numel() * left.element_size()
+    vol = n * h * w * d
+    flops = 2 * c * n * h * sum(max(w - k, 0) for k in range(d))
+    modes = []
+    for mode, out_bytes, kernel, plain in (
+            ("softargmax", n * h * w * 4,
+             lambda: corr.corr_softargmax(left, right, d),
+             lambda: corr.corr_softargmax_plain(left, right, d)),
+            ("dlast", vol * 4,
+             lambda: corr.corr_cost_volume(left, right, d),
+             lambda: corr.corr_cost_volume_plain(left, right, d)),
+            ("hdw", vol * 2,
+             lambda: corr.corr_cost_volume(left, right, d, layout="hdw"),
+             lambda: corr.corr_cost_volume_plain(left, right, d,
+                                                 layout="hdw"))):
+        # bf16 products on tensor cores; the bytes bound every epilogue
+        timed = time_kernel(torch, f"corr {mode} at {shape} D={d} bf16",
+                            kernel, plain, feats + out_bytes, flops,
+                            peak_flops=PEAK_BF16_FLOPS)
+        modes.append({"mode": mode, "max_abs_err": max_err[mode], **timed})
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    unfused_ms = cuda_ms(torch, lambda: softargmax(
+        corr.corr_cost_volume(left, right, d), axis=-1), flush,
+        label="corr unfused pair")
+    # what this timing gives a kernel that does nothing: the floor under
+    # every time above
+    floor_ms = cuda_ms(torch, lambda: torch.cuda._sleep(0), flush,
+                       label="empty kernel")
+    print(f"corr softargmax at {shape} D={d} bf16, device time: fused "
+          f"{modes[0]['ms']:.4f} ms; the pair it replaces (volume kernel, "
+          f"then ops/softargmax.py) {unfused_ms:.4f} ms; one empty kernel "
+          f"timed the same way {floor_ms:.4f} ms")
     entry = {"name": "corr_cost_volume", "route": "cuda",
              "source": "redtail_tpu_torch/csrc/corr_cost_volume.cu",
              "replaces": "redtail_tpu/kernels/cost_volume_pallas.py:43",
-             "launches": None, "max_abs_err": max_err}
-    entry.update(time_kernel(
-        torch, f"corr at {shape} D={d} bf16 -> fp32 dlast",
-        lambda: corr.corr_cost_volume(left, right, d),
-        lambda: corr.corr_cost_volume_plain(left, right, d),
-        2 * left.numel() * left.element_size() + n * h * w * d * 4,
-        2 * c * n * h * sum(max(w - k, 0) for k in range(d))))
+             "launches": None, "max_abs_err": max_err["softargmax"]}
+    # the top-level times are the main path's epilogue's (softargmax)
+    entry.update({k: v for k, v in modes[0].items()
+                  if k not in ("mode", "max_abs_err")})
+    entry.update({"unfused_ms": unfused_ms, "floor_ms": floor_ms,
+                  "modes": modes})
     return entry
 
 
@@ -599,11 +688,14 @@ def phase_serve_2d(np, torch, models, nodes, counters):
                            "resnet18_2d 321x1025 bf16")
     print_clocks("serving resnet18_2d")
     print(node.profiler.report())
-    check(counts["corr_cost_volume"] == SERVE_FRAMES,
-          f"corr kernel launched {counts['corr_cost_volume']} times for "
-          f"{SERVE_FRAMES} frames")
-    trace_frames(torch, node, frames[:3], med)
-    return counts["corr_cost_volume"]
+    check(counts["corr_softargmax"] == SERVE_FRAMES,
+          f"the corr kernel's fused soft-argmax launched "
+          f"{counts['corr_softargmax']} times for {SERVE_FRAMES} frames")
+    check(counts["corr_cost_volume"] == 0,
+          f"the fused path launched the corr volume "
+          f"{counts['corr_cost_volume']} times")
+    trace_frames(torch, node, frames[:3], med, match="corr_kernel")
+    return counts["corr_softargmax"], counts["corr_cost_volume"]
 
 
 def phase_serve_3d(np, torch, models, nodes, counters, plain_lowering,
@@ -727,10 +819,11 @@ def layer_breakdown(torch, node, frame, label):
           f"(other device work, and the device idle while the host packs)")
 
 
-def trace_frames(torch, node, frames, frame_ms):
+def trace_frames(torch, node, frames, frame_ms, match=None):
     """Informational: device time by kernel over a few served frames
     (`torch.profiler`), and the device's idle share of the unprofiled
-    per-frame latency ``frame_ms``."""
+    per-frame latency ``frame_ms``; each kernel whose name holds
+    ``match`` also on a line of its own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -750,6 +843,11 @@ def trace_frames(torch, node, frames, frame_ms):
           f"{frame_ms:.3f} ms median latency")
     print(events.table(sort_by="self_cuda_time_total", row_limit=15,
                        max_name_column_width=60))
+    for e in events:
+        if match and match in e.key and e.device_type == DeviceType.CUDA:
+            print(f"trace: {e.key[:90]}: {e.count / len(frames):g} calls "
+                  f"and {e.self_device_time_total / 1e3 / len(frames):.4f} "
+                  f"ms of device time per frame")
 
 
 def main() -> int:
@@ -768,6 +866,7 @@ def main() -> int:
         from redtail_tpu_torch.kernels import fused_cv_emit as emit
         from redtail_tpu_torch.ops.convolution import (packed3d_lowering,
                                                        plain_lowering)
+        from redtail_tpu_torch.ops.softargmax import softargmax
         from redtail_tpu_torch.ops.space_to_depth import space_to_depth2_np
         from redtail_tpu_torch.runtime import nodes
     except ImportError as e:
@@ -793,17 +892,20 @@ def main() -> int:
                     print(f"  {name}: {line.strip()[:160]}")
 
     gen = seeded_generator(0)
-    entries = {"corr_cost_volume": phase_corr(torch, corr, gen),
+    entries = {"corr_cost_volume": phase_corr(torch, corr, softargmax, gen),
                "cost_volume_concat": phase_concat(torch, concat, gen),
                "fused_cv_emit": phase_emit(torch, emit, gen),
                "conv223": phase_conv223(torch, c223, gen)}
     phase_slice(np, torch, models, space_to_depth2_np,
                 {"fused": contextlib.nullcontext, "plain": plain_lowering,
                  "packed": packed3d_lowering})
-    counters = (corr.corr_cost_volume, concat.cost_volume_concat,
-                emit.fused_cv_emit, c223.conv223)
-    by_path = {"corr_cost_volume": {"5a resnet18_2d": phase_serve_2d(
-        np, torch, models, nodes, counters)}}
+    counters = (corr.corr_cost_volume, corr.corr_softargmax,
+                concat.cost_volume_concat, emit.fused_cv_emit, c223.conv223)
+    fused, volume = phase_serve_2d(np, torch, models, nodes, counters)
+    by_path = {"corr_cost_volume": {"5a resnet18_2d": fused}}
+    for mode in entries["corr_cost_volume"]["modes"]:
+        # the volume's counter counts both its layouts
+        mode["launches"] = fused if mode["mode"] == "softargmax" else volume
     by_path.update(phase_serve_3d(np, torch, models, nodes, counters,
                                   plain_lowering, packed3d_lowering))
     for name, paths in by_path.items():

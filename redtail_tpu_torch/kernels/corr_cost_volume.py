@@ -1,24 +1,31 @@
 """Correlation cost volume: the hand-written CUDA kernel, its plain PyTorch
-version and the wrapper that chooses between them by device.
+versions and the wrappers that choose between them by device.
 
-    out[n, h, x, d] = sum_c L[n, h, x, c] * R[n, h, x - d, c],  zero where x < d
+    vol[n, h, x, d] = sum_c L[n, h, x, c] * R[n, h, x - d, c],  zero where x < d
 
 accumulated in fp32. It replaces the TPU kernel
 `redtail_tpu/kernels/cost_volume_pallas.py:43` (`_corr_kernel`); the design
-notes are in `redtail_tpu_torch/csrc/corr_cost_volume.cu`. Two layouts:
+notes are in `redtail_tpu_torch/csrc/corr_cost_volume.cu`. One kernel, three
+epilogues:
 
-- ``layout="dlast"``: (N, H, W, D) in fp32, what the ResNet18-2D model
-  consumes (the JAX model's `ops/cost_volume.py:corr_cost_volume_dlast`);
-- ``layout="hdw"``: (N, H, D, W) in the input dtype, the Pallas kernel's
-  contract (`corr_cost_volume_pallas`).
+- `corr_cost_volume(..., layout="dlast")`: (N, H, W, D) in fp32, the JAX
+  model's `ops/cost_volume.py:corr_cost_volume_dlast`;
+- `corr_cost_volume(..., layout="hdw")`: (N, H, D, W) in the input dtype,
+  the Pallas kernel's contract (`corr_cost_volume_pallas`);
+- `corr_softargmax`: (N, H, W) fp32, the soft-argmax over D of the `dlast`
+  volume (`ops/softargmax.py`, scale 1; the masked zeros take part), the
+  ResNet18-2D model's use of it, without the volume in device memory.
 
-The wrapper runs the plain version only for tensors on the CPU. For CUDA
+Each wrapper runs its plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; nothing falls back.
+`tile_plan` is the kernel's tiling, computed here so the CPU tests can
+emulate it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -27,6 +34,75 @@ from redtail_tpu_torch.kernels import _build
 
 LAYOUTS = ("dlast", "hdw")
 DTYPES = (torch.float32, torch.bfloat16)
+# The kernel's `mode` argument.
+MODES = {"hdw": 0, "dlast": 1, "softargmax": 2}
+# The kernel's tiling (`csrc/corr_cost_volume.cu`).
+WARPS = 4             # warps a block, each on its own unit of work
+WX = 16               # columns x a warp (the m16 of `mma.sync` m16n8k16)
+DC = 64               # disparities a chunk
+
+
+def y_tiles(dc: int) -> int:
+    """8-column y tiles a warp covers for a chunk of ``dc`` disparities."""
+    return -(-(dc + WX - 1) // 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """The kernel's tiling of one (n, h) row of width ``w``, ``c`` channels
+    of ``elt`` bytes and ``d`` disparities: a warp takes WX columns x, the
+    N * H * x_groups warps' units in order, 4 to a block."""
+
+    w: int
+    c: int
+    d: int
+    elt: int
+
+    @property
+    def x_groups(self) -> int:
+        return -(-self.w // WX)
+
+    @property
+    def d_chunks(self) -> int:
+        return -(-self.d // DC)
+
+    @property
+    def nt_max(self) -> int:
+        """y tiles the accumulators hold (the kernel's NT): 8 when every
+        chunk needs at most 8 (D <= 49), else 10."""
+        return 8 if y_tiles(min(self.d, DC)) <= 8 else y_tiles(DC)
+
+    def chunk(self, i: int):
+        """Disparity chunk ``i`` -> (d0, dc, nt)."""
+        d0 = i * DC
+        dc = min(DC, self.d - d0)
+        return d0, dc, y_tiles(dc)
+
+    def y_start(self, x0: int, i: int) -> int:
+        """First y of the tiles of the warp at x0 in chunk ``i``."""
+        d0, _, nt = self.chunk(i)
+        return x0 + WX - d0 - 8 * nt
+
+    def warp_out(self, mode: str) -> int:
+        """Elements of a warp's output staging: its runs at their shifts."""
+        vo = 16 // (self.elt if mode == "hdw" else 4)
+        if mode == "dlast":
+            return WX * self.d + vo if self.d_chunks == 1 else WX * (DC + vo)
+        if mode == "hdw":
+            return min(self.d, DC) * (WX + vo)
+        return 0
+
+    def smem_bytes(self, mode: str) -> int:
+        """Dynamic shared memory of a block."""
+        return WARPS * self.warp_out(mode) * (
+            self.elt if mode == "hdw" else 4)
+
+
+def tile_plan(w: int, c: int, d: int, dtype: torch.dtype) -> TilePlan:
+    """The kernel's tiling for rows of width ``w``, ``c`` channels of
+    ``dtype`` and ``d`` disparities."""
+    return TilePlan(w=w, c=c, d=d,
+                    elt=torch.empty((), dtype=dtype).element_size())
 
 
 def corr_cost_volume_plain(left: torch.Tensor, right: torch.Tensor,
@@ -43,9 +119,19 @@ def corr_cost_volume_plain(left: torch.Tensor, right: torch.Tensor,
     return out
 
 
-def _check(left, right, max_disp, layout):
-    if layout not in LAYOUTS:
-        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+def corr_softargmax_plain(left: torch.Tensor, right: torch.Tensor,
+                          max_disp: int) -> torch.Tensor:
+    """Plain PyTorch version of the fused epilogue: the `dlast` volume,
+    then `ops/softargmax.py:softargmax` over its last axis."""
+    # imported here: `ops` imports this module through `ops/cost_volume.py`
+    from redtail_tpu_torch.ops.softargmax import softargmax
+
+    return softargmax(
+        corr_cost_volume_plain(left, right, max_disp, layout="dlast"),
+        axis=-1)
+
+
+def _check(left, right, max_disp):
     if left.dim() != 4 or left.shape != right.shape:
         raise ValueError("left and right must be NHWC tensors of one shape; "
                          f"got {tuple(left.shape)} and {tuple(right.shape)}")
@@ -56,6 +142,23 @@ def _check(left, right, max_disp, layout):
         raise ValueError(f"empty input {tuple(left.shape)}")
     if int(max_disp) != max_disp or max_disp < 1:
         raise ValueError(f"max_disp must be an integer >= 1, got {max_disp}")
+
+
+def _on_cpu(left, right) -> bool:
+    """True for a CPU pair; raises on a pair the kernel does not take."""
+    if left.device.type == "cpu" and right.device.type == "cpu":
+        return True
+    if not (left.is_cuda and right.device == left.device):
+        raise ValueError("left and right must lie on one CUDA device (or "
+                         f"both on the CPU); got {left.device} and "
+                         f"{right.device}")
+    if not (left.is_contiguous() and right.is_contiguous()):
+        raise ValueError("the CUDA kernel takes contiguous NHWC tensors")
+    n, h, w, _ = left.shape
+    if n * h * -(-w // WX) > 2 ** 31 - 1 - 32 * WARPS:
+        raise ValueError(f"N * H * ceil(W / {WX}) warps must be < 2**31; "
+                         f"got N={n}, H={h}, W={w}")
+    return False
 
 
 @functools.lru_cache(maxsize=None)
@@ -69,6 +172,24 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _launch(left, right, max_disp, mode) -> torch.Tensor:
+    n, h, w, c = left.shape
+    shape, dtype = {"dlast": ((n, h, w, max_disp), torch.float32),
+                    "hdw": ((n, h, max_disp, w), left.dtype),
+                    "softargmax": ((n, h, w), torch.float32)}[mode]
+    out = torch.empty(shape, dtype=dtype, device=left.device)
+    lib = _lib()
+    err = lib.corr_cost_volume_launch(
+        left.data_ptr(), right.data_ptr(), out.data_ptr(), n, h, w, c,
+        int(max_disp), int(left.dtype == torch.bfloat16), MODES[mode],
+        left.device.index, torch.cuda.current_stream(left.device).cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"corr_cost_volume kernel launch failed ({mode}): CUDA error "
+            f"{err} ({lib.corr_cost_volume_error_string(err).decode()})")
+    return out
+
+
 def corr_cost_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
                      *, layout: str = "dlast") -> torch.Tensor:
     """NHWC pair -> correlation volume (see the module docstring).
@@ -76,33 +197,32 @@ def corr_cost_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
     CPU tensors take `corr_cost_volume_plain`. CUDA tensors launch the
     kernel on the current stream and add one to ``corr_cost_volume.launches``;
     they must be contiguous NHWC on one device."""
-    _check(left, right, max_disp, layout)
-    if left.device.type == "cpu" and right.device.type == "cpu":
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    _check(left, right, max_disp)
+    if _on_cpu(left, right):
         return corr_cost_volume_plain(left, right, max_disp, layout=layout)
-    if not (left.is_cuda and right.device == left.device):
-        raise ValueError("left and right must lie on one CUDA device (or "
-                         f"both on the CPU); got {left.device} and "
-                         f"{right.device}")
-    if not (left.is_contiguous() and right.is_contiguous()):
-        raise ValueError("the CUDA kernel takes contiguous NHWC tensors")
-    n, h, w, c = left.shape
-    if n > 65535 or h > 65535:
-        raise ValueError(f"N and H must be <= 65535 (grid limit); got {n}, {h}")
-    dlast = layout == "dlast"
-    out = torch.empty((n, h, w, max_disp) if dlast else (n, h, max_disp, w),
-                      dtype=torch.float32 if dlast else left.dtype,
-                      device=left.device)
-    lib = _lib()
-    err = lib.corr_cost_volume_launch(
-        left.data_ptr(), right.data_ptr(), out.data_ptr(), n, h, w, c,
-        int(max_disp), int(left.dtype == torch.bfloat16), int(dlast),
-        left.device.index, torch.cuda.current_stream(left.device).cuda_stream)
-    if err:
-        raise RuntimeError(
-            f"corr_cost_volume kernel launch failed: CUDA error {err} "
-            f"({lib.corr_cost_volume_error_string(err).decode()})")
+    out = _launch(left, right, max_disp, layout)
     corr_cost_volume.launches += 1
     return out
 
 
+def corr_softargmax(left: torch.Tensor, right: torch.Tensor,
+                    max_disp: int) -> torch.Tensor:
+    """NHWC pair -> (N, H, W) fp32 soft-argmax over D of the correlation
+    volume (see the module docstring).
+
+    CPU tensors take `corr_softargmax_plain`. CUDA tensors launch the
+    kernel's fused epilogue on the current stream and add one to
+    ``corr_softargmax.launches``; they must be contiguous NHWC on one
+    device."""
+    _check(left, right, max_disp)
+    if _on_cpu(left, right):
+        return corr_softargmax_plain(left, right, max_disp)
+    out = _launch(left, right, max_disp, "softargmax")
+    corr_softargmax.launches += 1
+    return out
+
+
 corr_cost_volume.launches = 0
+corr_softargmax.launches = 0

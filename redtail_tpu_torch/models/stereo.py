@@ -66,14 +66,14 @@ from redtail_tpu_torch.ops.convolution import (
     use_plain_lowering,
 )
 from redtail_tpu_torch.ops.cost_volume import (
-    corr_cost_volume_dlast,
+    corr_softargmax_dlast,
     cost_volume,
 )
 from redtail_tpu_torch.ops.fused_cost_volume_conv import (
     cost_volume_conv3d_nchw,
     split_kernels,
 )
-from redtail_tpu_torch.ops.softargmax import softargmax, softargmin
+from redtail_tpu_torch.ops.softargmax import softargmin
 from redtail_tpu_torch.ops.space_to_depth import conv5s2_kernel_to_s2d, s2d_hw
 from redtail_tpu_torch.utils.checkpoint import load_npz_flat
 
@@ -750,8 +750,8 @@ class StereoNet(nn.Module):
         if not spec.corr:
             return self._volume_head(feats[:n], feats[n:], full_hw)
         feats = feats.permute(0, 2, 3, 1).contiguous()  # NHWC for the kernel
-        vol = corr_cost_volume_dlast(feats[:n], feats[n:], spec.max_disp)
-        d = softargmax(vol, axis=-1)
+        # the correlation volume and its soft-argmax over D, one kernel
+        d = corr_softargmax_dlast(feats[:n], feats[n:], spec.max_disp)
         return self._bneck_head(d, conv1_act[:n], full_hw)
 
 

@@ -1,7 +1,7 @@
-"""The port on the card: each CUDA kernel (corr volume, concat volume, fused
-cost-volume assembly in both layouts, the packed head's dense conv223)
-against its plain version, the wrappers' no-fallback rule, and small models
-served through the kernels.
+"""The port on the card: each CUDA kernel (corr volume in its three
+epilogues, concat volume, fused cost-volume assembly in both layouts, the
+packed head's dense conv223) against its plain version, the wrappers'
+no-fallback rule, and small models served through the kernels.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither JAX nor `redtail_tpu`, so it also runs on a machine without
@@ -28,6 +28,13 @@ from redtail_tpu_torch.runtime import StereoNode
 SHAPES = [((2, 14, 33, 8), 6), ((1, 3, 7, 4), 7), ((1, 3, 5, 4), 9),
           ((2, 7, 37, 8), 6)]
 FLAGSHIP = ((1, 161, 513, 32), 48)
+# The corr kernel's edges (16-column warps, chunks of 64 disparities,
+# 32-channel bf16 steps): W = 63, 64, 65 and 513 at D = 1, 47, 48, 49;
+# D > W with batch 2; C = 8; two channel steps (C = 40 bf16); C = 3
+# (loaded element by element); three disparity chunks.
+CORR_EDGES = [((1, 3, 63, 32), 47), ((1, 3, 64, 32), 48), ((1, 3, 65, 32), 49),
+              ((1, 2, 513, 32), 1), ((2, 3, 65, 8), 48), ((2, 2, 20, 8), 33),
+              ((1, 2, 33, 40), 9), ((1, 2, 9, 3), 5), ((1, 2, 70, 16), 130)]
 # NVSmall's and ResNet-18 3D's volume shapes (N, H, W, C), D.
 NVSMALL, RESNET18_3D = ((1, 161, 513, 32), 48), ((1, 161, 513, 32), 68)
 # Concat volume: ragged W, D > W, D == W, C not a multiple of 8, odd D.
@@ -76,7 +83,7 @@ def _pair(device, shape, dtype=torch.float32, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("layout", ["dlast", "hdw"])
-@pytest.mark.parametrize("shape,d", SHAPES + [FLAGSHIP])
+@pytest.mark.parametrize("shape,d", SHAPES + CORR_EDGES + [FLAGSHIP])
 def test_kernel_matches_plain_on_card(cuda_device, shape, d, dtype, layout):
     left, right = _pair(cuda_device, shape, dtype)
     before = corr.corr_cost_volume.launches
@@ -91,6 +98,25 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, d, dtype, layout):
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,d", SHAPES + CORR_EDGES + [FLAGSHIP])
+def test_softargmax_kernel_matches_plain_on_card(cuda_device, shape, d,
+                                                 dtype):
+    left, right = _pair(cuda_device, shape, dtype, seed=1)
+    # scaled by 1/sqrt(C): the volume is O(1), as trained features make it
+    left, right = (t * shape[-1] ** -0.5 for t in (left, right))
+    before = (corr.corr_softargmax.launches, corr.corr_cost_volume.launches)
+    got = corr.corr_softargmax(left, right, d)
+    torch.cuda.synchronize()
+    assert (corr.corr_softargmax.launches,
+            corr.corr_cost_volume.launches) == (before[0] + 1, before[1])
+    want = corr.corr_softargmax_plain(left, right, d)
+    assert got.dtype == want.dtype == torch.float32
+    assert got.shape == want.shape == shape[:3]
+    # index units: the volume's fp32 summation order through the softmax
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
 def test_cuda_tensors_never_take_plain_version(cuda_device, monkeypatch):
     def plain(*args, **kwargs):
         raise AssertionError("a CUDA tensor reached the plain version")
@@ -100,6 +126,17 @@ def test_cuda_tensors_never_take_plain_version(cuda_device, monkeypatch):
     assert corr.corr_cost_volume(left, right, 5).is_cuda
 
 
+def test_fused_cuda_tensors_never_take_plain_version(cuda_device,
+                                                     monkeypatch):
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(corr, "corr_softargmax_plain", plain)
+    monkeypatch.setattr(corr, "corr_cost_volume_plain", plain)
+    left, right = _pair(cuda_device, (1, 4, 40, 8))
+    assert corr.corr_softargmax(left, right, 5).is_cuda
+
+
 @pytest.mark.parametrize("bad", ["strided", "device"])
 def test_wrapper_raises_on_bad_cuda_input(cuda_device, bad):
     left, right = _pair(cuda_device, (1, 4, 40, 8))
@@ -107,13 +144,18 @@ def test_wrapper_raises_on_bad_cuda_input(cuda_device, bad):
         left, right = left[:, :, ::2], right[:, :, ::2]
     else:
         right = right.cpu()
-    before = corr.corr_cost_volume.launches
+    before = (corr.corr_cost_volume.launches, corr.corr_softargmax.launches)
     with pytest.raises(ValueError):
         corr.corr_cost_volume(left, right, 5)
-    assert corr.corr_cost_volume.launches == before
+    with pytest.raises(ValueError):
+        corr.corr_softargmax(left, right, 5)
+    assert (corr.corr_cost_volume.launches,
+            corr.corr_softargmax.launches) == before
 
 
 def test_stereo_node_serves_through_the_kernel(cuda_device):
+    """The fused epilogue once a frame; the volume never reaches device
+    memory."""
     hw = (65, 129)
     spec = dataclasses.replace(STEREO_SPECS["resnet18_2d"], input_hw=hw,
                                max_disp=8)
@@ -122,9 +164,10 @@ def test_stereo_node_serves_through_the_kernel(cuda_device):
     rs = np.random.RandomState(0)
     left, right = (rs.randint(0, 256, hw + (3,)).astype(np.uint8)
                    for _ in range(2))
-    before = corr.corr_cost_volume.launches
+    before = (corr.corr_softargmax.launches, corr.corr_cost_volume.launches)
     disp = node(left, right)
-    assert corr.corr_cost_volume.launches == before + 1
+    assert (corr.corr_softargmax.launches,
+            corr.corr_cost_volume.launches) == (before[0] + 1, before[1])
     assert disp.shape == hw and disp.dtype == np.float32
     assert np.isfinite(disp).all() and 0 <= disp.min() <= disp.max() <= hw[1]
 
