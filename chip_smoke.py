@@ -56,6 +56,22 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
    device memory and a `torch.profiler` table; NVSmall also a per-layer
    device-time breakdown (5d's covers the packed layers and the D-folded
    deconv3D_3).
+6. TrailNet and YOLO, which run no kernel of the port (cuDNN and stock
+   PyTorch only): the four kernels' launch counters are printed on lines
+   of their own before and after, and must not move.
+   a. TrailNet at its full 180x320 with the repo's trained w8 weights
+      (`tests/data/trailnet_synth_trained.npz`), both forms (`CaffeNet` over
+      the emitted prototxt, the native `TrailNet`): card fp32 (TF32 off)
+      against the CPU within 1e-4 on the six probabilities, card bf16
+      against CPU fp32 under a mean of 1e-2;
+   b. `TrailNetNode` serving 20 frames after 2 warm-up frames, fp32 (the
+      JAX package's default) and bf16, each form: median and mean latency,
+      device busy per frame and kernel launches per frame from
+      `torch.profiler` over 3 more frames, idle share, peak device memory;
+   c. `YoloNode` on a YOLO-shaped stand-in graph written here (448x448 ->
+      1470, random weights from a seed; not the YOLO model, and no number
+      of it is YOLO's): the card's raw head against the CPU's, and the
+      (n, 6) detections' contract.
 
 Then one JSON line describing every ported kernel, and last the line
 `{"ok": true, "device": {...}}`.
@@ -153,6 +169,11 @@ LOWERINGS_MEAN, LOWERINGS_MAX = 0.02, 4.0
 # 0.0020-0.0072 px, max 0.19-2.0 px, mean over the frames 0.0039 px); the
 # same gates as the plain lowering's, about 2x the measured maximum
 PACKED_MEAN, PACKED_MAX = 0.02, 4.0
+TRAILNET_W8 = "tests/data/trailnet_synth_trained.npz"
+TRAILNET_FRAMES = 20
+TRAILNET_FP32_ATOL = 1e-4   # probabilities: card fp32 (TF32 off) vs CPU fp32
+TRAILNET_BF16_MEAN = 1e-2   # probabilities: card bf16 vs CPU fp32
+YOLO_STANDIN_WIDTHS = (16, 32, 64, 32)
 # H100 SXM data sheet: HBM bytes/s, fp32 (non-tensor-core) and dense bf16
 # tensor-core FLOP/s. The card's name and power limit are printed beside
 # every number.
@@ -639,6 +660,14 @@ def stereo_frames(np, seed, count):
     return frames
 
 
+def read_counts(counters):
+    """Each kernel wrapper's launch count (the emission's packed ones too)."""
+    counts = {c.__name__: c.launches for c in counters}
+    counts.update({f"{c.__name__}.packed": c.packed_launches
+                   for c in counters if hasattr(c, "packed_launches")})
+    return counts
+
+
 def serve(np, torch, node, frames, counters, max_disp_px, label):
     """The main path: every launch count set to 0, ``frames`` served, the
     counts read. Returns (disparities, counts, median latency ms)."""
@@ -657,9 +686,7 @@ def serve(np, torch, node, frames, counters, max_disp_px, label):
         disp = node(left, right)  # ends in a copy to the host
         lat.append(1e3 * (time.perf_counter() - t0))
         outs.append(disp)
-    counts = {c.__name__: c.launches for c in counters}
-    counts.update({f"{c.__name__}.packed": c.packed_launches
-                   for c in counters if hasattr(c, "packed_launches")})
+    counts = read_counts(counters)
     for disp in outs:
         check(disp.shape == FULL_HW and disp.dtype == np.float32,
               f"{label}: served {disp.shape} {disp.dtype}")
@@ -821,26 +848,34 @@ def layer_breakdown(torch, node, frame, label):
 
 def trace_frames(torch, node, frames, frame_ms, match=None):
     """Informational: device time by kernel over a few served frames
-    (`torch.profiler`), and the device's idle share of the unprofiled
-    per-frame latency ``frame_ms``; each kernel whose name holds
-    ``match`` also on a line of its own."""
+    (`torch.profiler`; ``frames`` holds each call's arguments), and the
+    device's idle share of the unprofiled per-frame latency ``frame_ms``;
+    each kernel whose name holds ``match`` also on a line of its own.
+    Returns (device busy ms, device operations) per frame, or None where
+    the profiler recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for left, right in frames:
-            node(left, right)
+        for args in frames:
+            node(*args)
     events = prof.key_averages()
-    busy_ms = sum(e.self_device_time_total for e in events
-                  if e.device_type == DeviceType.CUDA
-                  and not e.is_user_annotation) / 1e3 / len(frames)
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / len(
+        frames)
     if busy_ms == 0:
         print("trace: the profiler recorded no device time")
-        return
+        return None
+    copies = sum(e.count for e in device
+                 if e.key.startswith(("Memcpy", "Memset"))) / len(frames)
+    ops = sum(e.count for e in device) / len(frames)
     print(f"trace over {len(frames)} frames: device busy {busy_ms:.3f} ms "
           f"per frame; idle share {1 - busy_ms / frame_ms:.3f} of the "
-          f"{frame_ms:.3f} ms median latency")
+          f"{frame_ms:.3f} ms median latency; {ops:g} device operations per "
+          f"frame, {ops - copies:g} kernel launches and {copies:g} copies or "
+          f"memsets")
     print(events.table(sort_by="self_cuda_time_total", row_limit=15,
                        max_name_column_width=60))
     for e in events:
@@ -848,6 +883,153 @@ def trace_frames(torch, node, frames, frame_ms, match=None):
             print(f"trace: {e.key[:90]}: {e.count / len(frames):g} calls "
                   f"and {e.self_device_time_total / 1e3 / len(frames):.4f} "
                   f"ms of device time per frame")
+    return busy_ms, ops - copies
+
+
+def print_counts(counters, when):
+    for name, count in read_counts(counters).items():
+        print(f"kernel counter {name} {when}: {count}")
+
+
+def phase_trailnet(np, torch, io, models, trailnet, nodes):
+    """TrailNet at 180x320, both forms, card against CPU; then
+    `TrailNetNode` serving, both forms, fp32 and bf16. Returns the serving
+    figures by (form, dtype)."""
+    tree = trailnet.params_from_w8_npz(ROOT / TRAILNET_W8)
+    proto = io.parse_prototxt(models.emit_trailnet_prototxt())
+    blobs = models.native_params_to_blobs(tree)
+
+    def make(form, dtype, device=None):
+        if form == "caffe":
+            return models.CaffeNet(proto, blobs, dtype=dtype, device=device)
+        return trailnet.params_from_numpy(tree, device=device, dtype=dtype)
+
+    x = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (2, 180, 320, 3), dtype=np.uint8))
+    for form in ("caffe", "native"):
+        with torch.inference_mode():
+            ref = make(form, torch.float32, "cpu")(x).numpy()
+            check(ref.shape == (2, 6) and np.isfinite(ref).all()
+                  and np.allclose(ref.reshape(2, 2, 3).sum(-1), 1, atol=1e-5),
+                  f"trailnet {form}: CPU probabilities {ref}")
+            for dtype in (torch.float32, torch.bfloat16):
+                got = make(form, dtype)(x.cuda()).float().cpu().numpy()
+                err = np.abs(got - ref)
+                print(f"trailnet {form} 180x320 {dtype}: card vs CPU fp32 "
+                      f"max abs err {err.max():.3e}, mean {err.mean():.3e} "
+                      f"(gate: fp32 max {TRAILNET_FP32_ATOL}, bf16 mean "
+                      f"{TRAILNET_BF16_MEAN}); card {got[0].round(5)}")
+                if dtype == torch.float32:
+                    check(err.max() <= TRAILNET_FP32_ATOL,
+                          f"trailnet {form} fp32: card off CPU by {err.max()}")
+                else:
+                    check(err.mean() <= TRAILNET_BF16_MEAN,
+                          f"trailnet {form} bf16: card off CPU by mean "
+                          f"{err.mean()}")
+
+    frames = np.random.default_rng(7).integers(
+        0, 256, (TRAILNET_FRAMES + 5, 180, 320, 3), dtype=np.uint8)
+    figures = {}
+    for form in ("caffe", "native"):
+        for dtype in (torch.float32, torch.bfloat16):
+            label = f"trailnet {form} 180x320 {dtype}"
+            node = nodes.TrailNetNode(make(form, dtype))
+            for frame in frames[:2]:  # warm-up: cuDNN algorithm choice
+                node(frame)
+            node.profiler.reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            lat = []
+            for frame in frames[2:2 + TRAILNET_FRAMES]:
+                t0 = time.perf_counter()
+                probs = node(frame)  # ends in a copy to the host
+                lat.append(1e3 * (time.perf_counter() - t0))
+                check(probs.shape == (6,) and np.isfinite(probs).all()
+                      and np.allclose(probs.reshape(2, 3).sum(-1), 1,
+                                      atol=2e-2),
+                      f"{label}: served {probs}")
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            med, mean = statistics.median(lat), statistics.fmean(lat)
+            print(f"serve {label}: {TRAILNET_FRAMES} frames, per-frame "
+                  f"latency median {med:.3f} ms, mean {mean:.3f} ms (min "
+                  f"{min(lat):.3f}, max {max(lat):.3f}; host clock, "
+                  f"synchronized); peak device memory {peak:.1f} MiB")
+            print(node.profiler.report())
+            traced = trace_frames(torch, node, [(f,) for f in frames[-3:]],
+                                  med)
+            check(traced is not None, f"{label}: no device time traced")
+            busy, launches = traced
+            figures[f"{form} {str(dtype).split('.')[-1]}"] = {
+                "median_ms": med, "mean_ms": mean, "busy_ms": busy,
+                "idle_share": 1 - busy / med, "launches": launches,
+                "peak_mib": peak}
+    print_clocks("serving trailnet")
+    print(json.dumps({"trailnet_serving": figures}))
+    return figures
+
+
+def yolo_standin_prototxt(widths) -> str:
+    """A YOLO-shaped graph, not the YOLO model: a 448x448 BGR frame, /255
+    in a Scale layer, four Convolution / leaky-ReLU / Pooling stages down
+    to 7x7, Dropout, and an InnerProduct to the (1470,) YOLOv1 head."""
+    c1, c2, c3, c4 = widths
+    conv = ('layer {{ name: "{0}" type: "Convolution" bottom: "{1}" top: '
+            '"{0}" convolution_param {{ num_output: {2} kernel_size: {3} '
+            'stride: {4} pad: {5} }} }}\n'
+            'layer {{ name: "relu_{0}" type: "ReLU" bottom: "{0}" top: "{0}" '
+            'relu_param {{ negative_slope: 0.1 }} }}\n')
+    pool = ('layer {{ name: "{0}" type: "Pooling" bottom: "{1}" top: "{0}" '
+            'pooling_param {{ pool: {2} kernel_size: 2 stride: 2 }} }}\n')
+    return ('input: "data"\ninput_shape { dim: 1 dim: 3 dim: 448 dim: 448 }\n'
+            'layer { name: "scale" type: "Scale" bottom: "data" top: '
+            '"scaled" scale_param { filler { value: 0.00392156862745098 } } }\n'
+            + conv.format("conv1", "scaled", c1, 7, 2, 3)
+            + pool.format("pool1", "conv1", "MAX")
+            + conv.format("conv2", "pool1", c2, 3, 1, 1)
+            + pool.format("pool2", "conv2", "MAX")
+            + conv.format("conv3", "pool2", c3, 3, 2, 1)
+            + pool.format("pool3", "conv3", "MAX")
+            + conv.format("conv4", "pool3", c4, 1, 1, 0)
+            + pool.format("pool4", "conv4", "AVE")
+            + 'layer { name: "drop" type: "Dropout" bottom: "pool4" top: '
+            '"pool4" }\n'
+            'layer { name: "fc" type: "InnerProduct" bottom: "pool4" top: '
+            '"result" inner_product_param { num_output: 1470 } }\n')
+
+
+def phase_yolo(np, torch, io, models, nodes):
+    """`YoloNode` on the stand-in graph: the card's raw head against the
+    CPU's on one seeded 448x448 frame, then the detections' contract."""
+    proto = io.parse_prototxt(yolo_standin_prototxt(YOLO_STANDIN_WIDTHS))
+    card = models.CaffeNet(proto, seed=0)
+    cpu = models.CaffeNet(proto, seed=0, device="cpu")
+    frame = np.random.default_rng(8).integers(0, 256, (448, 448, 3),
+                                              dtype=np.uint8)
+    with torch.inference_mode():
+        want = cpu(frame).numpy()[0]
+        got = card(frame).float().cpu().numpy()[0]
+    scale = max(1.0, float(np.abs(want).max()))
+    err = np.abs(got - want).max()
+    print(f"yolo stand-in (not the YOLO model) 448x448 -> 1470, random "
+          f"weights: card vs CPU fp32 raw head max abs err {err:.3e} (gate "
+          f"{FP32_ATOL} x {scale:.3f}, the head's largest magnitude)")
+    check(want.shape == (1470,) and np.isfinite(got).all()
+          and err <= FP32_ATOL * scale, f"yolo stand-in: card off CPU by {err}")
+    node = nodes.YoloNode(card)
+    det = node(frame)
+    check(det.dtype == np.float32 and det.ndim == 2 and det.shape[1] == 6,
+          f"yolo stand-in: detections {det.dtype} {det.shape}")
+    labels, probs, boxes = det[:, 0], det[:, 1], det[:, 2:]
+    check((labels == np.round(labels)).all() and (labels >= 0).all()
+          and (labels < 20).all() and (probs >= node.prob_threshold).all()
+          and (boxes == np.round(boxes)).all() and (boxes[:, 2:] >= 1).all()
+          and (boxes[:, 0] + boxes[:, 2] <= 448).all()
+          and (boxes[:, 1] + boxes[:, 3] <= 448).all(),
+          f"yolo stand-in: detections break the (n, 6) contract: {det}")
+    print(f"yolo stand-in: YoloNode gave {len(det)} detection(s) of the "
+          f"(n, 6) [label, prob, x, y, w, h] contract (CPU node: "
+          f"{len(nodes.YoloNode(cpu, device='cpu')(frame))}); stages "
+          f"{sorted(node.profiler.stats())}")
 
 
 def main() -> int:
@@ -859,11 +1041,12 @@ def main() -> int:
                            "smoke test needs an NVIDIA card")
     sys.path.insert(0, str(ROOT))
     try:
-        from redtail_tpu_torch import kernels, models, seeded_generator
+        from redtail_tpu_torch import io, kernels, models, seeded_generator
         from redtail_tpu_torch.kernels import corr_cost_volume as corr
         from redtail_tpu_torch.kernels import cost_volume_concat as concat
         from redtail_tpu_torch.kernels import conv223 as c223
         from redtail_tpu_torch.kernels import fused_cv_emit as emit
+        from redtail_tpu_torch.models import trailnet
         from redtail_tpu_torch.ops.convolution import (packed3d_lowering,
                                                        plain_lowering)
         from redtail_tpu_torch.ops.softargmax import softargmax
@@ -912,6 +1095,16 @@ def main() -> int:
         check(all(paths.values()), f"{name} was not launched on {paths}")
         entries[name]["launches"] = sum(paths.values())
         entries[name]["launches_by_path"] = paths
+
+    # TrailNet and YOLO run no kernel of the port: the counters stay put
+    before = read_counts(counters)
+    print_counts(counters, "before the TrailNet and YOLO phases")
+    phase_trailnet(np, torch, io, models, trailnet, nodes)
+    phase_yolo(np, torch, io, models, nodes)
+    print_counts(counters, "after the TrailNet and YOLO phases")
+    check(read_counts(counters) == before,
+          f"a kernel launched on the TrailNet / YOLO path: {before} -> "
+          f"{read_counts(counters)}")
 
     print(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({"ok": True, "device": {

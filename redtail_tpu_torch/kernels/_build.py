@@ -1,4 +1,5 @@
-"""Build the package's CUDA kernels from `csrc/` at first use.
+"""Build the package's CUDA kernels from `csrc/` at first use, and the
+wrappers' shared guard against autograd.
 
 Each `csrc/<name>.cu` exposes a plain C interface and compiles with `nvcc`
 for `sm_90a` into its own shared library under `redtail_tpu_torch/build/`
@@ -6,6 +7,10 @@ for `sm_90a` into its own shared library under `redtail_tpu_torch/build/`
 The library's file name carries a hash of its source, so an edited source
 is rebuilt and a stale library is never loaded. `build()` starts one `nvcc`
 per missing library, all at once, and waits for them together.
+
+No kernel has a backward yet: `refuse_autograd` makes each wrapper raise,
+before it launches, where autograd would otherwise lose the gradients of
+everything upstream.
 """
 
 from __future__ import annotations
@@ -17,7 +22,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
+
+import torch
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
@@ -76,3 +83,18 @@ def load(name: str) -> ctypes.CDLL:
     """The kernel's shared library, built first if needed (once per
     process)."""
     return ctypes.CDLL(str(build((name,))[name]))
+
+
+def refuse_autograd(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise where grad mode is on and an input requires grad: the kernel
+    writes its output through a raw pointer, so the output would have no
+    ``grad_fn`` and a loss through it would silently drop the gradients of
+    every layer upstream. Under `torch.no_grad()` / `torch.inference_mode()`
+    (serving) nothing changes."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward yet (ROADMAP.md, module "
+            "queue item 9), and an input requires grad; run it under "
+            "torch.no_grad() or torch.inference_mode(), or on the CPU, whose "
+            "plain version is differentiable")

@@ -21,7 +21,9 @@ packed head does it at load, `ops/packed3d.py:prepare`) and
 handed to it.
 
 The wrapper runs the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises; nothing falls back.
+tensors it launches the kernel or raises; nothing falls back. The kernel
+has no backward yet, so on CUDA tensors that require grad, with grad mode
+on, the wrapper raises (`_build.refuse_autograd`).
 """
 
 from __future__ import annotations
@@ -164,6 +166,21 @@ def _check(xp, k, bias, k_layout) -> int:
     return kk
 
 
+def _on_cpu(xp, k, bias) -> bool:
+    """True where every input is on the CPU; raises on inputs the kernel
+    does not take."""
+    tensors = (xp, k) if bias is None else (xp, k, bias)
+    if all(t.device.type == "cpu" for t in tensors):
+        return True
+    if not (xp.is_cuda and all(t.device == xp.device for t in tensors)):
+        raise ValueError("xp, k and bias must lie on one CUDA device (or all "
+                         f"on the CPU); got {[str(t.device) for t in tensors]}")
+    if not (xp.is_contiguous() and k.is_contiguous()):
+        raise ValueError("the CUDA kernel takes contiguous xp (N, Dp, Hp, W, "
+                         "C) and k")
+    return False
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("conv223")
@@ -192,16 +209,10 @@ def conv223(xp: torch.Tensor, k: torch.Tensor, bias: Optional[torch.Tensor],
     16 and C <= 256. The bf16 kernel reads the "kc" form, the fp32 one the
     "ck" form: the other form is converted per call."""
     kk = _check(xp, k, bias, k_layout)
-    tensors = (xp, k) if bias is None else (xp, k, bias)
-    if all(t.device.type == "cpu" for t in tensors):
+    if _on_cpu(xp, k, bias):
         return conv223_plain(
             xp, k if k_layout == "ck" else contract_weights(k), bias)
-    if not (xp.is_cuda and all(t.device == xp.device for t in tensors)):
-        raise ValueError("xp, k and bias must lie on one CUDA device (or all "
-                         f"on the CPU); got {[str(t.device) for t in tensors]}")
-    if not (xp.is_contiguous() and k.is_contiguous()):
-        raise ValueError("the CUDA kernel takes contiguous xp (N, Dp, Hp, W, "
-                         "C) and k")
+    _build.refuse_autograd("conv223", xp, k, bias)
     n, dp, hp, w, c = xp.shape
     if c % 16 or kk % 16 or c > MAX_C:
         raise ValueError(f"the CUDA kernel takes C and K multiples of 16 and "

@@ -17,7 +17,9 @@ epilogues:
   ResNet18-2D model's use of it, without the volume in device memory.
 
 Each wrapper runs its plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises; nothing falls back.
+tensors it launches the kernel or raises; nothing falls back. The kernel
+has no backward yet, so on CUDA tensors that require grad, with grad mode
+on, the wrappers raise (`_build.refuse_autograd`).
 `tile_plan` is the kernel's tiling, computed here so the CPU tests can
 emulate it.
 """
@@ -202,6 +204,7 @@ def corr_cost_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
     _check(left, right, max_disp)
     if _on_cpu(left, right):
         return corr_cost_volume_plain(left, right, max_disp, layout=layout)
+    _build.refuse_autograd("corr_cost_volume", left, right)
     out = _launch(left, right, max_disp, layout)
     corr_cost_volume.launches += 1
     return out
@@ -219,6 +222,7 @@ def corr_softargmax(left: torch.Tensor, right: torch.Tensor,
     _check(left, right, max_disp)
     if _on_cpu(left, right):
         return corr_softargmax_plain(left, right, max_disp)
+    _build.refuse_autograd("corr_softargmax", left, right)
     out = _launch(left, right, max_disp, "softargmax")
     corr_softargmax.launches += 1
     return out

@@ -12,7 +12,9 @@ design notes are in `redtail_tpu_torch/csrc/cost_volume_concat.cu`. A pure
 copy: kernel and plain version agree bit for bit.
 
 The wrapper runs the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises; nothing falls back.
+tensors it launches the kernel or raises; nothing falls back. The kernel
+has no backward yet, so on CUDA tensors that require grad, with grad mode
+on, the wrapper raises (`_build.refuse_autograd`).
 """
 
 from __future__ import annotations
@@ -51,6 +53,19 @@ def _check(left, right, max_disp):
         raise ValueError(f"max_disp must be an integer >= 1, got {max_disp}")
 
 
+def _on_cpu(left, right) -> bool:
+    """True for a CPU pair; raises on a pair the kernel does not take."""
+    if left.device.type == "cpu" and right.device.type == "cpu":
+        return True
+    if not (left.is_cuda and right.device == left.device):
+        raise ValueError("left and right must lie on one CUDA device (or "
+                         f"both on the CPU); got {left.device} and "
+                         f"{right.device}")
+    if not (left.is_contiguous() and right.is_contiguous()):
+        raise ValueError("the CUDA kernel takes contiguous NHWC tensors")
+    return False
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("cost_volume_concat")
@@ -72,14 +87,9 @@ def cost_volume_concat(left: torch.Tensor, right: torch.Tensor,
     ``cost_volume_concat.launches``; they must be contiguous NHWC on one
     device."""
     _check(left, right, max_disp)
-    if left.device.type == "cpu" and right.device.type == "cpu":
+    if _on_cpu(left, right):
         return cost_volume_concat_plain(left, right, max_disp)
-    if not (left.is_cuda and right.device == left.device):
-        raise ValueError("left and right must lie on one CUDA device (or "
-                         f"both on the CPU); got {left.device} and "
-                         f"{right.device}")
-    if not (left.is_contiguous() and right.is_contiguous()):
-        raise ValueError("the CUDA kernel takes contiguous NHWC tensors")
+    _build.refuse_autograd("cost_volume_concat", left, right)
     n, h, w, c = left.shape
     if n > 65535 or h > 65535:
         raise ValueError(f"N and H must be <= 65535 (grid limit); got {n}, {h}")

@@ -23,7 +23,9 @@ boundary-column term are recomputed by a small second pass, so the bulk
 runs no boundary code.
 
 The wrapper runs the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises; nothing falls back.
+tensors it launches the kernel or raises; nothing falls back. The kernel
+has no backward yet, so on CUDA tensors that require grad, with grad mode
+on, the wrapper raises (`_build.refuse_autograd`).
 """
 
 from __future__ import annotations
@@ -119,6 +121,21 @@ def _check(la, rb, bias, max_disp, layout):
         raise ValueError(f"max_disp must be an integer >= 1, got {max_disp}")
 
 
+def _on_cpu(la, rb, bias) -> bool:
+    """True where every input is on the CPU; raises on inputs the kernel
+    does not take."""
+    tensors = (la, rb) if bias is None else (la, rb, bias)
+    if all(t.device.type == "cpu" for t in tensors):
+        return True
+    if not (la.is_cuda and all(t.device == la.device for t in tensors)):
+        raise ValueError("la, rb and bias must lie on one CUDA device (or "
+                         "all on the CPU); got "
+                         f"{[str(t.device) for t in tensors]}")
+    if not (la.is_contiguous() and rb.is_contiguous()):
+        raise ValueError("the CUDA kernel takes contiguous NHWC maps")
+    return False
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_cv_emit")
@@ -142,16 +159,10 @@ def fused_cv_emit(la: torch.Tensor, rb: torch.Tensor,
     must be contiguous, 16-byte aligned and on one device, with at most
     `MAX_GROUPS` threads to a column."""
     _check(la, rb, bias, max_disp, layout)
-    tensors = (la, rb) if bias is None else (la, rb, bias)
-    if all(t.device.type == "cpu" for t in tensors):
+    if _on_cpu(la, rb, bias):
         return fused_cv_emit_plain(la, rb, bias, max_disp, elu=elu,
                                    layout=layout)
-    if not (la.is_cuda and all(t.device == la.device for t in tensors)):
-        raise ValueError("la, rb and bias must lie on one CUDA device (or "
-                         "all on the CPU); got "
-                         f"{[str(t.device) for t in tensors]}")
-    if not (la.is_contiguous() and rb.is_contiguous()):
-        raise ValueError("the CUDA kernel takes contiguous NHWC maps")
+    _build.refuse_autograd("fused_cv_emit", la, rb, bias)
     n, h, w, k3 = la.shape
     if n > 65535 or h > 65535:
         raise ValueError(f"N and H must be <= 65535 (grid limit); got {n}, {h}")

@@ -1,12 +1,14 @@
-"""Operators of the stereo models, NHWC / NDHWC at the public functions."""
+"""Operators of the model zoo, NHWC / NDHWC at the public functions."""
 
-from redtail_tpu_torch.ops.activations import elu, sigmoid
+from redtail_tpu_torch.ops.activations import elu, sigmoid, srelu
 from redtail_tpu_torch.ops.convolution import (
     conv2d,
+    conv2d_round_once,
     conv2d_transpose,
     conv3d,
     conv3d_transpose,
     conv3d_transpose_dfold,
+    linear_fp32,
     packed3d_lowering,
     plain_lowering,
     tf_same_padding,
@@ -17,10 +19,12 @@ from redtail_tpu_torch.ops.cost_volume import (
     cost_volume,
 )
 from redtail_tpu_torch.ops.fused_cost_volume_conv import cost_volume_conv3d
+from redtail_tpu_torch.ops.preprocess import preprocess_caffe_host
 from redtail_tpu_torch.ops.softargmax import softargmax, softargmin
 
-__all__ = ["conv2d", "conv2d_transpose", "conv3d", "conv3d_transpose",
-           "conv3d_transpose_dfold", "corr_cost_volume_dlast",
-           "corr_softargmax_dlast", "cost_volume", "cost_volume_conv3d",
-           "elu", "packed3d_lowering", "plain_lowering", "sigmoid",
-           "softargmax", "softargmin", "tf_same_padding"]
+__all__ = ["conv2d", "conv2d_round_once", "conv2d_transpose", "conv3d",
+           "conv3d_transpose", "conv3d_transpose_dfold",
+           "corr_cost_volume_dlast", "corr_softargmax_dlast", "cost_volume",
+           "cost_volume_conv3d", "elu", "linear_fp32", "packed3d_lowering",
+           "plain_lowering", "preprocess_caffe_host", "sigmoid",
+           "softargmax", "softargmin", "srelu", "tf_same_padding"]

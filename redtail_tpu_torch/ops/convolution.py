@@ -24,6 +24,12 @@ What is TF's is arranged around them:
   cuDNN would otherwise use TF32, so `_exact_fp32` turns TF32 off (cuDNN
   and matmul flags) around each fp32 CUDA conv and restores it after.
 
+TrailNet's and the Caffe interpreter's convolutions (`conv2d_round_once`,
+Caffe's explicit symmetric pads) round once, as JAX's do: a bf16 conv runs
+on fp32 copies of its operands with TF32 allowed, exact in its products
+since every bf16 value is a TF32 value, and the fp32 sum plus bias is
+rounded to bf16 at the end.
+
 `plain_lowering` is the JAX package's switch to the spec-literal forms; in
 the port it selects the explicit concat volume + dense conv3D_1 over the
 fused cost volume + conv3D_1 (`models/stereo.py`). `packed3d_lowering`
@@ -97,19 +103,57 @@ def tf_same_padding(in_dim: int, kern_dim: int,
 
 
 @contextlib.contextmanager
-def _exact_fp32(x: torch.Tensor):
-    if not (x.is_cuda and x.dtype == torch.float32):
+def _tf32(x: torch.Tensor, allow: bool):
+    """cuDNN's and cuBLAS's TF32 switches set to ``allow`` around CUDA work
+    on ``x``, restored after; nothing on the CPU."""
+    if not x.is_cuda:
         yield
         return
     saved = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = allow
+    torch.backends.cuda.matmul.allow_tf32 = allow
     try:
         yield
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _exact_fp32(x: torch.Tensor):
+    if x.dtype != torch.float32:
+        return contextlib.nullcontext()
+    return _tf32(x, False)
+
+
+def _fp32_accumulate(x: torch.Tensor):
+    """Where a conv or matmul on fp32 copies of ``x``'s dtype is exact in
+    its products: TF32 off for fp32 (JAX's ``Precision.HIGHEST``), allowed
+    for bf16, whose every value is exact in TF32."""
+    return _tf32(x, x.dtype != torch.float32)
+
+
+def conv2d_round_once(x: torch.Tensor, w: torch.Tensor,
+                      b: Optional[torch.Tensor], stride: Strides,
+                      padding: Tuple[int, int]) -> torch.Tensor:
+    """Caffe's convolution with JAX's numerics (`redtail_tpu/models/
+    caffe_net.py:_conv`, `trailnet.py:c2d`): x (N, C, H, W), w (O, I, kh,
+    kw), symmetric explicit ``padding``, floor output dims; the conv runs on
+    fp32 copies of the operands (fp32 sums), the bias is added in fp32 and
+    the result is rounded once to x's dtype."""
+    with _fp32_accumulate(x):
+        out = F.conv2d(x.float(), w.float(),
+                       None if b is None else b.float(), stride, padding)
+    return out.to(x.dtype)
+
+
+def linear_fp32(x: torch.Tensor, w: torch.Tensor,
+                b: Optional[torch.Tensor]) -> torch.Tensor:
+    """x (N, I) @ w (O, I)^T + b in fp32 from fp32 copies of the operands
+    (JAX's ``preferred_element_type=float32`` dot); the caller rounds."""
+    with _fp32_accumulate(x):
+        return F.linear(x.float(), w.float(),
+                        None if b is None else b.float())
 
 
 def _add_bias(out: torch.Tensor, b: Optional[torch.Tensor],

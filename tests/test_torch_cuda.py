@@ -1,7 +1,9 @@
 """The port on the card: each CUDA kernel (corr volume in its three
 epilogues, concat volume, fused cost-volume assembly in both layouts, the
 packed head's dense conv223) against its plain version, the wrappers'
-no-fallback rule, and small models served through the kernels.
+no-fallback rule and their refusal of autograd, small models served
+through the kernels, and TrailNet and the YOLO node (no kernel on their
+path) against the CPU.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither JAX nor `redtail_tpu`, so it also runs on a machine without
@@ -11,6 +13,7 @@ them, with the JAX-importing `tests/conftest.py` left out:
 """
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -20,9 +23,22 @@ from redtail_tpu_torch.kernels import conv223 as c223
 from redtail_tpu_torch.kernels import corr_cost_volume as corr
 from redtail_tpu_torch.kernels import cost_volume_concat as concat
 from redtail_tpu_torch.kernels import fused_cv_emit as emit
-from redtail_tpu_torch.models import STEREO_SPECS, init_stereo_params
+from redtail_tpu_torch.io import parse_prototxt
+from redtail_tpu_torch.models import (
+    STEREO_SPECS,
+    CaffeNet,
+    emit_trailnet_prototxt,
+    init_stereo_params,
+    native_params_to_blobs,
+    params_from_w8_npz,
+    yolo,
+)
+from redtail_tpu_torch.models import trailnet
 from redtail_tpu_torch.ops.convolution import packed3d_lowering, plain_lowering
-from redtail_tpu_torch.runtime import StereoNode
+from redtail_tpu_torch.runtime import StereoNode, TrailNetNode, YoloNode
+
+TRAILNET_W8 = Path(__file__).resolve().parent / "data" / \
+    "trailnet_synth_trained.npz"
 
 # (N, H, W, C), D: tests/test_kernels.py's pair, D == W, D > W, ragged W.
 SHAPES = [((2, 14, 33, 8), 6), ((1, 3, 7, 4), 7), ((1, 3, 5, 4), 9),
@@ -417,3 +433,132 @@ def test_stereo_node_packed_head_serves_through_the_kernels(cuda_device):
     unpacked = node(left, right)
     # one bf16 frame through two lowerings of one function (PERF.md)
     assert np.abs(disp - unpacked).mean() < 0.1
+
+
+# ------------------------------------------- autograd refusal (ROADMAP)
+
+
+def _kernel_calls(device, requires_grad):
+    """(counter, call) of each of the five wrapper entry points on CUDA
+    inputs that require grad (or not)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+
+    def t(*shape):
+        return torch.randn(shape, generator=gen, device=device
+                           ).requires_grad_(requires_grad)
+
+    left, right = t(1, 3, 40, 8), t(1, 3, 40, 8)
+    la, rb, b = t(1, 3, 40, 6), t(1, 3, 40, 12), t(2)
+    xp, k, kb = t(1, 3, 4, 9, 16), t(2, 2, 3, 16, 16), t(16)
+    return {
+        "corr_cost_volume": (corr.corr_cost_volume,
+                             lambda: corr.corr_cost_volume(left, right, 5)),
+        "corr_softargmax": (corr.corr_softargmax,
+                            lambda: corr.corr_softargmax(left, right, 5)),
+        "cost_volume_concat": (concat.cost_volume_concat,
+                               lambda: concat.cost_volume_concat(left, right,
+                                                                 5)),
+        "fused_cv_emit": (emit.fused_cv_emit,
+                          lambda: emit.fused_cv_emit(la, rb, b, 5)),
+        "conv223": (c223.conv223, lambda: c223.conv223(xp, k, kb))}
+
+
+@pytest.mark.parametrize("name", ["corr_cost_volume", "corr_softargmax",
+                                  "cost_volume_concat", "fused_cv_emit",
+                                  "conv223"])
+def test_kernel_wrappers_refuse_autograd_on_card(cuda_device, name):
+    counter, call = _kernel_calls(cuda_device, True)[name]
+    before = counter.launches
+    with pytest.raises(RuntimeError, match=r"no backward yet.*item 9"):
+        call()
+    assert counter.launches == before
+    for ctx in (torch.no_grad, torch.inference_mode):
+        with ctx():
+            assert call().is_cuda
+    counter, call = _kernel_calls(cuda_device, False)[name]
+    assert call().is_cuda  # grad mode on, no input requires grad
+    torch.cuda.synchronize()
+    assert counter.launches == before + 3
+
+
+# ---------------------------------------------------------- TrailNet / YOLO
+
+KERNEL_COUNTERS = (corr.corr_cost_volume, corr.corr_softargmax,
+                   concat.cost_volume_concat, emit.fused_cv_emit, c223.conv223)
+
+
+def _trailnet(form, dtype, device):
+    tree = params_from_w8_npz(TRAILNET_W8)
+    if form == "native":
+        return trailnet.params_from_numpy(tree, device=device, dtype=dtype)
+    return CaffeNet(parse_prototxt(emit_trailnet_prototxt()),
+                    native_params_to_blobs(tree), dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["caffe", "native"])
+def test_trailnet_on_card_matches_cpu(cuda_device, form, dtype):
+    frames = np.random.RandomState(0).randint(0, 256, (2, 180, 320, 3)
+                                              ).astype(np.uint8)
+    x = torch.from_numpy(frames)
+    before = [c.launches for c in KERNEL_COUNTERS]
+    with torch.inference_mode():
+        want = _trailnet(form, torch.float32, "cpu")(x).numpy()
+        got = _trailnet(form, dtype, cuda_device)(x.to(cuda_device))
+        got = got.float().cpu().numpy()
+    assert [c.launches for c in KERNEL_COUNTERS] == before
+    assert got.shape == (2, 6) and np.isfinite(got).all()
+    err = np.abs(got - want)
+    if dtype == torch.float32:
+        # TF32 off: summation order only, in probability units
+        assert err.max() <= 1e-4, err.max()
+    else:
+        # one bf16 rounding per layer, against the CPU's fp32
+        assert err.mean() <= 1e-2, err.mean()
+
+
+def test_trailnet_node_on_card_launches_no_kernel(cuda_device):
+    node = TrailNetNode(_trailnet("caffe", torch.bfloat16, None))
+    frame = np.random.RandomState(1).randint(0, 256, (180, 320, 3)).astype(
+        np.uint8)
+    before = [c.launches for c in KERNEL_COUNTERS]
+    out = node(frame)
+    assert [c.launches for c in KERNEL_COUNTERS] == before
+    assert out.shape == (6,) and out.dtype == np.float32
+    np.testing.assert_allclose(out.reshape(2, 3).sum(-1), 1.0, atol=2e-2)
+
+
+YOLO_STANDIN = """
+input: "data"
+input_shape { dim: 1 dim: 3 dim: 448 dim: 448 }
+layer { name: "conv1" type: "Convolution" bottom: "data" top: "conv1"
+        convolution_param { num_output: 8 kernel_size: 7 stride: 4 pad: 3 } }
+layer { name: "relu1" type: "ReLU" bottom: "conv1" top: "conv1"
+        relu_param { negative_slope: 0.1 } }
+layer { name: "pool1" type: "Pooling" bottom: "conv1" top: "pool1"
+        pooling_param { pool: MAX kernel_size: 4 stride: 4 } }
+layer { name: "pool2" type: "Pooling" bottom: "pool1" top: "pool2"
+        pooling_param { pool: AVE kernel_size: 4 stride: 4 } }
+layer { name: "fc" type: "InnerProduct" bottom: "pool2" top: "fc"
+        inner_product_param { num_output: 1470 } }
+"""
+
+
+def test_yolo_node_on_card_matches_cpu(cuda_device):
+    """A YOLO-shaped graph (not the YOLO model), random weights."""
+    frame = np.random.RandomState(2).randint(0, 256, (448, 448, 3)).astype(
+        np.uint8)
+    nets = {d: CaffeNet(parse_prototxt(YOLO_STANDIN), seed=3, device=d)
+            for d in ("cpu", cuda_device)}
+    with torch.inference_mode():
+        raw = {d: net(frame).float().cpu().numpy()[0]
+               for d, net in nets.items()}
+    assert raw["cpu"].shape == (1470,)
+    np.testing.assert_allclose(raw[cuda_device], raw["cpu"], rtol=0,
+                               atol=1e-4 * max(1.0, np.abs(raw["cpu"]).max()))
+    node = YoloNode(nets[cuda_device], prob_threshold=0.01)
+    out = node(frame)
+    assert out.dtype == np.float32 and out.ndim == 2 and out.shape[1] == 6
+    np.testing.assert_array_equal(out, yolo.postprocess(
+        raw[cuda_device], 448, 448, prob_threshold=0.01))

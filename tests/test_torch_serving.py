@@ -197,15 +197,27 @@ def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from redtail_tpu_torch import resolve_device, seeded_generator
     from redtail_tpu_torch.apps import stereo_app
+    from redtail_tpu_torch.io import parse_prototxt
+    from redtail_tpu_torch.models import (CaffeNet, emit_trailnet_prototxt,
+                                          init_trailnet_params)
+    from redtail_tpu_torch.models import trailnet
+    from redtail_tpu_torch.runtime import TrailNetNode, YoloNode
 
     spec = _spec()
     params = init_stereo_params(spec)
+    proto = parse_prototxt(emit_trailnet_prototxt())
+    tree = init_trailnet_params()
     for call in (lambda: resolve_device(),
                  lambda: seeded_generator(0),
                  lambda: params_from_numpy(spec, params),
                  lambda: StereoNode(spec, params),
                  lambda: stereo_app.main(["resnet18_2d", "--left", "l.png",
-                                          "--right", "r.png"])):
+                                          "--right", "r.png"]),
+                 lambda: CaffeNet(proto),
+                 lambda: trailnet.params_from_numpy(tree),
+                 lambda: TrailNetNode(trailnet.params_from_numpy(
+                     tree, device="cpu")),
+                 lambda: YoloNode(CaffeNet(proto, device="cpu"))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
