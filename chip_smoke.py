@@ -5,8 +5,8 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It needs one card, PyTorch with CUDA and `nvcc`; no network, no cv2, no
-ml_dtypes, nothing of JAX. Without a card, or away from the rest of the
+It needs one card, PyTorch with CUDA, `nvcc`, `g++` and, for phase 7e,
+cv2; no network, no ml_dtypes, nothing of JAX. Without a card, or away from the rest of the
 repository, it exits non-zero and prints no result. Phases, each fatal:
 
 1. device: the card's name and power limit (nvidia-smi);
@@ -73,6 +73,38 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
       of it is YOLO's): the card's raw head against the CPU's, and the
       (n, 6) detections' contract.
 
+7. the serving runtime (frames in flight on the nodes' CUDA streams, the
+   u16 wire, the node graph, the controller and MAVLink, the native pack),
+   each path driven with every launch count set to 0 just before and read
+   just after:
+   a. the native host runtime built from `native/redtail_native.cpp` into
+      `redtail_tpu_torch/build/`, and its s2d pack of a 321x1025 frame
+      bit-equal to `space_to_depth2_np`, both timed on the host;
+   b. `StereoNode` ResNet18-2D at 321x1025 bf16, 20 seeded frames, with
+      overlap 0, 1 and 2, in a process of its own that no profiler has
+      traced (the script runs itself with `--overlap-child`), each mode
+      twice, in turns: call k returns frame k - N under its own stamp,
+      bit-equal to the synchronous node; frames/s, the stamp-to-result
+      latency median and the device idle share of each;
+   c. overlap 1, microbatch 2: ResNet18-2D at full width, and NVTiny at
+      65x129 under the fused head and under `packed3d_lowering()`, within
+      the bf16 gates of the synchronous node, the corr kernel, the
+      emission and conv223 launched once per batch of two;
+   d. the u16 wire against f32 on 7b's frames: within 1/128 px below
+      1023.984375 px and saturated there above it, the clipped pixels
+      counted;
+   e. `pipeline_app.main` in this process for 8 s: synthetic 321x1025
+      cameras, ResNet18-2D bf16 with overlap 1, TrailNet (`CaffeNet` over
+      the emitted prototxt, random weights) at 30 Hz, the YOLO stand-in at
+      1 Hz, the controller with `--fcu mavlink` (an in-process autopilot
+      over UDP on the loopback interface) and a person-stop at 3.5 s; its
+      JSON summary must show frames from stereo, TrailNet and the
+      controller, no node error, a stop event, an armed FCU with no bad
+      CRC, the corr kernel at least once per stereo frame and the native
+      pack on every frame;
+   f. `sim_app.main(["--real-dnn"])`, TrailNet on the card in the closed
+      loop: exit 0 (max cross-track < 5 m).
+
 Then one JSON line describing every ported kernel, and last the line
 `{"ok": true, "device": {...}}`.
 """
@@ -81,6 +113,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
+import io as stdio
 import json
 import statistics
 import subprocess
@@ -174,6 +208,25 @@ TRAILNET_FRAMES = 20
 TRAILNET_FP32_ATOL = 1e-4   # probabilities: card fp32 (TF32 off) vs CPU fp32
 TRAILNET_BF16_MEAN = 1e-2   # probabilities: card bf16 vs CPU fp32
 YOLO_STANDIN_WIDTHS = (16, 32, 64, 32)
+OVERLAP_FRAMES = 20
+OVERLAP_MODES = (0, 1, 2)
+OVERLAP_CHILD = "--overlap-child"  # chip_smoke runs itself so for 7b
+MB_3D_FRAMES = 8
+# 7c, ResNet18-2D at microbatch 2 against the synchronous node, sigmoid
+# units, on the pixels whose bf16 sigmoid is below 1: on the random weights
+# about half the pixels are pinned at 1.0 (1024 px) whatever the input, so
+# a fault that mixed up the two frames of a batch would show only on the
+# others (NVIDIA H100 80GB HBM3 at 700 W, one run: mean 5.4e-5 over all
+# pixels); the gate needs at least this share of pixels below the pin
+MB_2D_MEAN, MB_2D_FREE_SHARE = 1e-3, 0.25
+PIPELINE_SECONDS = 8.0
+# The injected person rides YOLO's latest-wins output topic, so a YOLO
+# publish within one objstop period (50 ms) after it overwrites it; YOLO
+# publishes at ~1 s intervals from the start, so inject half-way between.
+PERSON_STOP_S = 3.5
+# the u16 wire's steps: round(disp * 64), so within half a step of the
+# float32 disparity, and saturated at 65535 / 64 px
+U16_ATOL, U16_MAX_PX = 1.0 / 128.0, 65535.0 / 64.0
 # H100 SXM data sheet: HBM bytes/s, fp32 (non-tensor-core) and dense bf16
 # tensor-core FLOP/s. The card's name and power limit are printed beside
 # every number.
@@ -668,6 +721,13 @@ def read_counts(counters):
     return counts
 
 
+def zero_counts(counters):
+    for c in counters:
+        c.launches = 0
+        if hasattr(c, "packed_launches"):
+            c.packed_launches = 0
+
+
 def serve(np, torch, node, frames, counters, max_disp_px, label):
     """The main path: every launch count set to 0, ``frames`` served, the
     counts read. Returns (disparities, counts, median latency ms)."""
@@ -676,10 +736,7 @@ def serve(np, torch, node, frames, counters, max_disp_px, label):
     node.profiler.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
-        if hasattr(c, "packed_launches"):
-            c.packed_launches = 0
+    zero_counts(counters)
     lat, outs = [], []
     for left, right in frames:
         t0 = time.perf_counter()
@@ -1032,6 +1089,372 @@ def phase_yolo(np, torch, io, models, nodes):
           f"{sorted(node.profiler.stats())}")
 
 
+def host_ms(fn, reps=20):
+    """Median host time of ``fn()`` in ms, after 3 warm-up calls."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def phase_native(np, native, s2d):
+    """7a: the native host runtime built from the checkout, and its pack
+    bit-equal to numpy's on a full-width frame."""
+    built = native.library_path().exists()
+    t0 = time.perf_counter()
+    path = native.build()
+    check(native.load() is not None, f"the native runtime {path} does not "
+          f"load")
+    print(f"native runtime: {path.relative_to(ROOT)}, " + (
+        "built from the checkout at its first use by the nodes of the "
+        "earlier phases" if built else
+        f"built from the checkout in {time.perf_counter() - t0:.2f} s"))
+    frame = np.random.default_rng(9).integers(0, 256, FULL_HW + (3,),
+                                              dtype=np.uint8)
+    before = (native.pack_s2d.native_calls, native.pack_s2d.numpy_calls)
+    got = native.pack_s2d(frame, swap_rb=True)
+    want = s2d(frame[..., ::-1])
+    check((native.pack_s2d.native_calls, native.pack_s2d.numpy_calls)
+          == (before[0] + 1, before[1]), "pack_s2d did not take the native "
+          "path")
+    check(got.dtype == np.uint8 and got.shape == want.shape
+          and np.array_equal(got, want),
+          "the native s2d pack differs from space_to_depth2_np")
+    native_ms = host_ms(lambda: native.pack_s2d(frame, swap_rb=True))
+    numpy_ms = host_ms(lambda: s2d(frame[..., ::-1]))
+    print(f"native s2d pack of one {FULL_HW[0]}x{FULL_HW[1]}x3 frame: "
+          f"bit-equal to space_to_depth2_np; host median {native_ms:.3f} ms "
+          f"native, {numpy_ms:.3f} ms numpy")
+    return {"native_ms": native_ms, "numpy_ms": numpy_ms}
+
+
+def drive(node, frames):
+    """Serve ``frames`` through a node, then as many repeats of the first
+    frame as it takes to bring back the last result. Returns (results as
+    (data, stamp), stamp-to-result latencies in ms, the call stamps, calls
+    made, frames/s). The rate is taken from the first result to the last
+    (results - 1 frame periods), so it is the steady state's: the priming
+    calls of an overlapped node, and the repeats, fall outside it."""
+    want = len(frames)
+    calls = list(frames) + [frames[0]] * (node.microbatch
+                                          * (node.overlap + 1))
+    results, lat, sent, arrivals = [], [], [], []
+    for n, (left, right) in enumerate(calls, 1):
+        stamp = time.monotonic()
+        sent.append(stamp)
+        out = node(left, right, stamp=stamp)
+        now = time.monotonic()
+        if not node.overlap:
+            out = [(out, stamp)]
+        elif out is None:
+            out = []
+        else:
+            out = [(o.data, o.stamp)
+                   for o in (out if isinstance(out, list) else [out])]
+        for data, at in out:
+            results.append((data, at))
+            lat.append(1e3 * (now - at))
+            arrivals.append(now)
+        if len(results) >= want:
+            break
+    node.drain()
+    fps = (want - 1) / (arrivals[want - 1] - arrivals[0])
+    return results[:want], lat[:want], sent, n, fps
+
+
+def overlap_setup(np, models):
+    """7b's model and frames: ResNet18-2D at full width, random weights
+    from seed 0, 20 seeded frame pairs."""
+    spec = dataclasses.replace(models.STEREO_SPECS["resnet18_2d"],
+                               input_hw=FULL_HW)
+    return (spec, models.init_stereo_params(spec, seed=0),
+            stereo_frames(np, 2, OVERLAP_FRAMES))
+
+
+def overlap_child(np, torch, models, nodes, counters):
+    """7b, run in a process of its own (`OVERLAP_CHILD`): the host's
+    enqueue slows down for the rest of a process once `torch.profiler`
+    has traced in it, so the serving modes are timed here, where nothing
+    has. Each mode is driven twice, in turns (0, 1, 2, then 2, 1, 0), its
+    counts zeroed just before and read just after, then traced for its
+    device time; prints one JSON line last."""
+    spec, params, frames = overlap_setup(np, models)
+    modes = {overlap: nodes.StereoNode(spec, params, dtype=torch.bfloat16,
+                                       overlap=overlap)
+             for overlap in OVERLAP_MODES}
+    for node in modes.values():
+        node.warmup(*frames[0])
+    ref = [d for d, _ in drive(modes[0], frames)[0]]
+    again = [d for d, _ in drive(modes[0], frames)[0]]
+    repeat = all(np.array_equal(a, d) for a, d in zip(again, ref))
+    print(f"resnet18_2d {FULL_HW[0]}x{FULL_HW[1]} bf16 synchronous: a second "
+          f"pass of the same frames bit-equal to the first: {repeat}")
+    check(repeat, "the synchronous node does not repeat itself bit for bit: "
+          "overlap cannot be held to bit-equality")
+    runs = {overlap: [] for overlap in OVERLAP_MODES}
+    launches = {}
+    for order in (OVERLAP_MODES, OVERLAP_MODES[::-1]):
+        for overlap in order:
+            node = modes[overlap]
+            label = (f"resnet18_2d {FULL_HW[0]}x{FULL_HW[1]} bf16 overlap "
+                     f"{overlap}")
+            node.profiler.reset()
+            torch.cuda.synchronize()
+            zero_counts(counters)
+            results, lat, sent, calls, fps = drive(node, frames)
+            counts = read_counts(counters)
+            check(counts["corr_softargmax"] == calls,
+                  f"{label}: the fused corr kernel launched "
+                  f"{counts['corr_softargmax']} times for {calls} calls")
+            check([at for _, at in results] == sent[:len(frames)],
+                  f"{label}: results out of order or under other stamps")
+            bad = [i for i, ((d, _), r) in enumerate(zip(results, ref))
+                   if not (d.shape == FULL_HW and np.array_equal(d, r))]
+            check(not bad, f"{label}: frames {bad} differ from the "
+                  f"synchronous node's")
+            runs[overlap].append((fps, statistics.median(lat), max(lat)))
+            launches[overlap] = counts["corr_softargmax"]
+            print(f"serve {label}, pass {len(runs[overlap])}: "
+                  f"{len(frames)} frames, {fps:.2f} frames/s from the first "
+                  f"result to the last (host clock); "
+                  f"stamp-to-result latency median {runs[overlap][-1][1]:.3f}"
+                  f" ms, max {max(lat):.3f} ms; bit-equal to the synchronous "
+                  f"node's; launches {counts}")
+            print(node.profiler.report())
+    figures = {}
+    for overlap, node in modes.items():  # traced last: see the docstring
+        fps = statistics.fmean(r[0] for r in runs[overlap])
+        traced = trace_frames(torch, node, frames[:6], 1e3 / fps)
+        node.drain()
+        check(traced is not None, f"overlap {overlap}: no device time traced")
+        busy, ops = traced
+        figures[f"overlap {overlap}"] = {
+            "frames_per_s": [r[0] for r in runs[overlap]],
+            "latency_median_ms": [r[1] for r in runs[overlap]],
+            "latency_max_ms": [r[2] for r in runs[overlap]],
+            "busy_ms": busy, "idle_share": 1 - busy * fps / 1e3,
+            "launches": ops}
+    print_clocks("the overlap phase")
+    print(json.dumps({"overlap_serving": figures,
+                      "corr_launches": launches}))
+
+
+def phase_overlap(np, torch, models, nodes):
+    """7b: ResNet18-2D at full width through `StereoNode` with 0, 1 and 2
+    frames in flight, in a fresh process (`overlap_child`). Returns
+    (frames, this process's synchronous disparities for 7c-7d, the
+    weights, the corr kernel's launches by path)."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           OVERLAP_CHILD], capture_output=True, text=True,
+                          timeout=600, cwd=ROOT)
+    print(proc.stdout.rstrip())
+    check(proc.returncode == 0, f"the 7b process exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    by_path = {f"7b resnet18_2d overlap {overlap}": n
+               for overlap, n in result["corr_launches"].items()}
+    spec, params, frames = overlap_setup(np, models)
+    node = nodes.StereoNode(spec, params, dtype=torch.bfloat16)
+    ref = [node(*f) for f in frames]
+    return frames, ref, params, by_path
+
+
+def mb_serve(np, torch, node, frames, counters, label):
+    """Frames through an overlapped, microbatched node, the counts zeroed
+    just before and read just after; returns (disparities in frame order,
+    counts, dispatches)."""
+    node.warmup(*frames[0])
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    results, _, sent, calls, _ = drive(node, frames)
+    counts = read_counts(counters)
+    check([at for _, at in results] == sent[:len(frames)],
+          f"{label}: results out of order or under other stamps")
+    check(calls % node.microbatch == 0, f"{label}: {calls} calls")
+    return [d for d, _ in results], counts, calls // node.microbatch
+
+
+def phase_microbatch(np, torch, models, nodes, counters, packed3d_lowering,
+                     frames2d, ref2d, params2d):
+    """7c: overlap 1, microbatch 2: ResNet18-2D at full width and NVTiny at
+    65x129 under the fused and the packed head, each within the bf16 gates
+    of the synchronous node, its kernels launched once per batch of two.
+    Returns the launches by kernel and path."""
+    spec = dataclasses.replace(models.STEREO_SPECS["resnet18_2d"],
+                               input_hw=FULL_HW)
+    label = (f"resnet18_2d {FULL_HW[0]}x{FULL_HW[1]} bf16 overlap 1 "
+             "microbatch 2")
+    node = nodes.StereoNode(spec, params2d, dtype=torch.bfloat16, overlap=1,
+                            microbatch=2)
+    disps, counts, batches = mb_serve(np, torch, node, frames2d, counters,
+                                      label)
+    check(counts["corr_softargmax"] == batches,
+          f"{label}: the corr kernel launched {counts['corr_softargmax']} "
+          f"times for {batches} batches")
+    want = np.stack(ref2d)
+    err = np.abs(np.stack(disps) - want) / FULL_HW[1]
+    free = want < FULL_HW[1] * (1.0 - 2.0 ** -9)  # bf16 sigmoid below 1
+    print(f"{label}: {counts['corr_softargmax']} corr launches for "
+          f"{len(frames2d)} frames; against the synchronous node, sigmoid "
+          f"units: mean {err[free].mean():.3e} over the {free.mean():.4f} "
+          f"share of pixels whose sigmoid is below 1 (gate {MB_2D_MEAN}, "
+          f"share >= {MB_2D_FREE_SHARE}), mean {err.mean():.3e} over all, "
+          f"max {err.max():.3e}")
+    check(free.mean() >= MB_2D_FREE_SHARE,
+          f"{label}: only {free.mean()} of the pixels below the sigmoid's "
+          f"saturation")
+    check(err[free].mean() < MB_2D_MEAN, f"{label}: off the synchronous "
+          f"node by mean {err[free].mean()} below the saturation")
+    by_path = {"corr_cost_volume": {"7c resnet18_2d microbatch 2":
+                                    counts["corr_softargmax"]},
+               "fused_cv_emit": {}, "conv223": {}}
+
+    spec = dataclasses.replace(models.STEREO_SPECS["nvtiny"],
+                               input_hw=SLICE_3D_HW, max_disp=SLICE_3D_DISP)
+    tree = conditioned_params(np, models.init_stereo_params(spec, seed=1), 2)
+    rng = np.random.default_rng(10)
+    frames = []
+    for _ in range(MB_3D_FRAMES):
+        left = rng.integers(0, 256, SLICE_3D_HW + (3,), dtype=np.uint8)
+        frames.append((left, np.roll(left, -3, axis=1)))
+    for name, lowering, kernels in (
+            ("fused", contextlib.nullcontext, ("fused_cv_emit",)),
+            ("packed", packed3d_lowering,
+             ("conv223", "fused_cv_emit.packed"))):
+        label = f"nvtiny 65x129 bf16 {name} head overlap 1 microbatch 2"
+        sync = nodes.StereoNode(spec, tree, dtype=torch.bfloat16)
+        node = nodes.StereoNode(spec, tree, dtype=torch.bfloat16, overlap=1,
+                                microbatch=2)
+        with lowering():
+            sync(*frames[0])
+            zero_counts(counters)
+            want = [sync(*f) for f in frames]
+            per_frame = {k: read_counts(counters)[k] // len(frames)
+                         for k in kernels}
+            disps, counts, batches = mb_serve(np, torch, node, frames,
+                                              counters, label)
+        for k in kernels:
+            check(per_frame[k] >= 1 and counts[k] == per_frame[k] * batches,
+                  f"{label}: {k} launched {counts[k]} times for {batches} "
+                  f"batches ({per_frame[k]} a synchronous frame)")
+        diff = np.abs(np.stack(disps) - np.stack(want))
+        print(f"{label}: launches {({k: counts[k] for k in kernels})} for "
+              f"{batches} batches of 2 ({per_frame} a synchronous frame); "
+              f"against the synchronous node: mean {diff.mean():.3e} px "
+              f"(gate {SLICE_3D_BF16_MEAN}), max {diff.max():.3e} px")
+        check(diff.mean() < SLICE_3D_BF16_MEAN,
+              f"{label}: off the synchronous node by mean {diff.mean()}")
+        path = f"7c nvtiny {name} microbatch 2"
+        by_path["fused_cv_emit"][path] = counts[kernels[-1]]
+        if name == "packed":
+            by_path["conv223"][path] = counts["conv223"]
+    return by_path
+
+
+def phase_u16(np, torch, models, nodes, counters, frames, ref, params):
+    """7d: the u16 wire against the f32 wire on 7b's frames."""
+    spec = dataclasses.replace(models.STEREO_SPECS["resnet18_2d"],
+                               input_hw=FULL_HW)
+    node = nodes.StereoNode(spec, params, dtype=torch.bfloat16, wire="u16")
+    node.warmup(*frames[0])
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    got = np.stack([node(*f) for f in frames])
+    counts = read_counts(counters)
+    want = np.stack(ref)
+    below = want < U16_MAX_PX - U16_ATOL
+    err = np.abs(got - want)[below]
+    clipped = int((~below).sum())
+    print(f"u16 wire vs f32 wire, resnet18_2d 321x1025 bf16, {len(frames)} "
+          f"frames: max abs diff {err.max():.6f} px below "
+          f"{U16_MAX_PX - U16_ATOL} px (tol {U16_ATOL}); {clipped} of "
+          f"{want.size} pixels at or above it, served as "
+          f"{np.unique(got[~below]).tolist()[:4]} px (max f32 "
+          f"{want.max():.3f} px)")
+    check(got.dtype == np.float32 and err.max() <= U16_ATOL + 1e-6,
+          f"u16 wire off the f32 wire by {err.max()} px")
+    check(((got[~below] >= U16_MAX_PX - U16_ATOL)
+           & (got[~below] <= U16_MAX_PX)).all(),
+          "the u16 wire did not saturate at 65535 / 64 px")
+    check(counts["corr_softargmax"] == len(frames),
+          f"u16 wire: {counts['corr_softargmax']} corr launches")
+    return {"7d resnet18_2d u16 wire": counts["corr_softargmax"]}
+
+
+def phase_pipeline(np, models, native, counters):
+    """7e: `pipeline_app.main` in this process."""
+    from redtail_tpu_torch.apps import pipeline_app
+
+    check(importlib.util.find_spec("cv2") is not None,
+          "pipeline_app needs cv2: TrailNet and YOLO resize the 321x1025 "
+          "camera frames on the host with it, as in the JAX package")
+    work = ROOT / "redtail_tpu_torch" / "build" / "smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    trailnet_proto = work / "trailnet.prototxt"
+    yolo_proto = work / "yolo_standin.prototxt"
+    trailnet_proto.write_text(models.emit_trailnet_prototxt())
+    yolo_proto.write_text(yolo_standin_prototxt(YOLO_STANDIN_WIDTHS))
+    argv = ["--duration", str(PIPELINE_SECONDS), "--trailnet-prototxt",
+            str(trailnet_proto), "--yolo-prototxt", str(yolo_proto),
+            "--fcu", "mavlink", "--demo-person-stop", str(PERSON_STOP_S)]
+    zero_counts(counters)
+    packs = (native.pack_s2d.native_calls, native.pack_s2d.numpy_calls)
+    out, err = stdio.StringIO(), stdio.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        pipeline_app.main(argv)
+    wall = time.perf_counter() - t0
+    counts = read_counts(counters)
+    packs = (native.pack_s2d.native_calls - packs[0],
+             native.pack_s2d.numpy_calls - packs[1])
+    print(f"pipeline_app {' '.join(argv[:2])} ... ({wall:.1f} s with the "
+          f"warm-up); its stderr, the profiler report:")
+    print(err.getvalue().rstrip())
+    line = out.getvalue().strip().splitlines()[-1]
+    print(f"pipeline_app summary: {line}")
+    s = json.loads(line)
+    frames = s["frames"]
+    print(f"pipeline_app: launches {counts}; native packs {packs[0]}, numpy "
+          f"packs {packs[1]}; stereo {frames['stereo'] / PIPELINE_SECONDS:.2f}"
+          f" frames/s, trailnet {frames['trailnet'] / PIPELINE_SECONDS:.2f}, "
+          f"controller {frames['controller'] / PIPELINE_SECONDS:.2f} (over "
+          f"the {PIPELINE_SECONDS} s run)")
+    for name in ("stereo", "trailnet", "controller"):
+        check(frames.get(name, 0) > 0, f"pipeline_app: no {name} frames: {s}")
+    check(not any(s["errors"].values()), f"pipeline_app errors: {s}")
+    check(s["stop_events"] >= 1, f"pipeline_app: no person-stop: {s}")
+    check(s["mavlink"]["armed"] and s["mavlink"]["bad_crc"] == 0,
+          f"pipeline_app: MAVLink FCU not armed or bad CRCs: {s}")
+    check(counts["corr_softargmax"] >= frames["stereo"],
+          f"pipeline_app: {counts['corr_softargmax']} corr launches for "
+          f"{frames['stereo']} stereo frames")
+    check(packs[1] == 0 and packs[0] >= 2 * frames["stereo"],
+          f"pipeline_app: {packs[0]} native and {packs[1]} numpy packs for "
+          f"{frames['stereo']} stereo frames")
+    return {"7e pipeline_app": counts["corr_softargmax"]}, s
+
+
+def phase_sim(counters):
+    """7f: the closed-loop simulation with TrailNet on the card."""
+    from redtail_tpu_torch.apps import sim_app
+
+    before = read_counts(counters)
+    out = stdio.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = sim_app.main(["--real-dnn"])
+    line = out.getvalue().strip().splitlines()[-1]
+    print(f"sim_app --real-dnn ({time.perf_counter() - t0:.1f} s): exit {rc}"
+          f": {line}")
+    check(rc == 0, f"sim_app --real-dnn exited {rc}: {line}")
+    check(read_counts(counters) == before,
+          "a kernel launched on the TrailNet simulation path")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1041,7 +1464,8 @@ def main() -> int:
                            "smoke test needs an NVIDIA card")
     sys.path.insert(0, str(ROOT))
     try:
-        from redtail_tpu_torch import io, kernels, models, seeded_generator
+        from redtail_tpu_torch import (io, kernels, models, native,
+                                       seeded_generator)
         from redtail_tpu_torch.kernels import corr_cost_volume as corr
         from redtail_tpu_torch.kernels import cost_volume_concat as concat
         from redtail_tpu_torch.kernels import conv223 as c223
@@ -1055,6 +1479,11 @@ def main() -> int:
     except ImportError as e:
         raise SmokeFailure(f"redtail_tpu_torch is not beside chip_smoke.py "
                            f"({e})") from e
+    counters = (corr.corr_cost_volume, corr.corr_softargmax,
+                concat.cost_volume_concat, emit.fused_cv_emit, c223.conv223)
+    if sys.argv[1:] == [OVERLAP_CHILD]:
+        overlap_child(np, torch, models, nodes, counters)
+        return 0
 
     print(nvidia_smi("name,power.limit"))
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -1082,8 +1511,6 @@ def main() -> int:
     phase_slice(np, torch, models, space_to_depth2_np,
                 {"fused": contextlib.nullcontext, "plain": plain_lowering,
                  "packed": packed3d_lowering})
-    counters = (corr.corr_cost_volume, corr.corr_softargmax,
-                concat.cost_volume_concat, emit.fused_cv_emit, c223.conv223)
     fused, volume = phase_serve_2d(np, torch, models, nodes, counters)
     by_path = {"corr_cost_volume": {"5a resnet18_2d": fused}}
     for mode in entries["corr_cost_volume"]["modes"]:
@@ -1091,10 +1518,6 @@ def main() -> int:
         mode["launches"] = fused if mode["mode"] == "softargmax" else volume
     by_path.update(phase_serve_3d(np, torch, models, nodes, counters,
                                   plain_lowering, packed3d_lowering))
-    for name, paths in by_path.items():
-        check(all(paths.values()), f"{name} was not launched on {paths}")
-        entries[name]["launches"] = sum(paths.values())
-        entries[name]["launches_by_path"] = paths
 
     # TrailNet and YOLO run no kernel of the port: the counters stay put
     before = read_counts(counters)
@@ -1105,6 +1528,28 @@ def main() -> int:
     check(read_counts(counters) == before,
           f"a kernel launched on the TrailNet / YOLO path: {before} -> "
           f"{read_counts(counters)}")
+
+    # the serving runtime
+    phase_native(np, native, space_to_depth2_np)
+    frames2d, ref2d, params2d, paths = phase_overlap(np, torch, models,
+                                                     nodes)
+    by_path["corr_cost_volume"].update(paths)
+    for name, paths in phase_microbatch(
+            np, torch, models, nodes, counters, packed3d_lowering,
+            frames2d, ref2d, params2d).items():
+        by_path[name].update(paths)
+    by_path["corr_cost_volume"].update(phase_u16(
+        np, torch, models, nodes, counters, frames2d, ref2d, params2d))
+    paths, _ = phase_pipeline(np, models, native, counters)
+    by_path["corr_cost_volume"].update(paths)
+    phase_sim(counters)
+
+    for name, paths in by_path.items():
+        check(all(paths.values()), f"{name} was not launched on {paths}")
+        entries[name]["launches"] = sum(paths.values())
+        entries[name]["launches_by_path"] = paths
+    entries["corr_cost_volume"]["modes"][0]["launches"] = \
+        entries["corr_cost_volume"]["launches"]
 
     print(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""Host preprocessing of camera frames (`redtail_tpu/ops/preprocess.py`).
-`cv2` is imported only when a function runs.
+"""Preprocessing of camera frames (`redtail_tpu/ops/preprocess.py`): the
+host paths (`cv2`, imported only when a function runs) and the on-device
+`fused_ingest`.
 
 - The stereo apps' path (`stereoDNN/sample_app/main.cpp:83-98`):
   INTER_AREA resize, BGR -> RGB, /255.
@@ -10,7 +11,13 @@
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+from redtail_tpu_torch import resolve_device
 
 
 def preprocess_stereo_host(img_bgr: np.ndarray, w: int, h: int) -> np.ndarray:
@@ -45,3 +52,33 @@ def preprocess_caffe_host(img: np.ndarray, w: int, h: int, *,
     if shift != 0.0:
         img = img + shift
     return img
+
+
+def fused_ingest(frame_u8, out_hw: Tuple[int, int], *,
+                 bgr_to_rgb: bool = True, scale: float = 1.0 / 255.0,
+                 shift: float = 0.0, device=None) -> torch.Tensor:
+    """On-device ingest: uint8 (N, H, W, 3) or (H, W, 3) -> float32
+    (N, h, w, 3): bilinear resize, channel swap, x * scale + shift; only
+    the uint8 frame crosses to the device.
+
+    ``frame_u8``: a tensor, served on its own device, or an array, uploaded
+    to ``device`` (``None`` is the card). The resize is
+    `F.interpolate(..., "bilinear", antialias=True)`, PyTorch's nearest
+    call to `jax.image.resize(..., "bilinear")`: both take half-pixel
+    centres, clamp at the edges and widen the triangle kernel when they
+    downsample; they differ in the last float32 bits of the weights
+    (`tests/test_torch_apps.py` measures it)."""
+    x = frame_u8 if isinstance(frame_u8, torch.Tensor) else \
+        torch.from_numpy(np.ascontiguousarray(frame_u8)).to(
+            resolve_device(device))
+    if x.dim() == 3:
+        x = x[None]
+    x = x.float()
+    h, w = out_hw
+    if tuple(x.shape[1:3]) != (h, w):
+        x = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w),
+                          mode="bilinear", align_corners=False,
+                          antialias=True).permute(0, 2, 3, 1)
+    if bgr_to_rgb:
+        x = x.flip(-1)
+    return x * scale + shift

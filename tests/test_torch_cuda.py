@@ -3,7 +3,8 @@ epilogues, concat volume, fused cost-volume assembly in both layouts, the
 packed head's dense conv223) against its plain version, the wrappers'
 no-fallback rule and their refusal of autograd, small models served
 through the kernels, and TrailNet and the YOLO node (no kernel on their
-path) against the CPU.
+path) against the CPU, and the serving runtime: frames in flight on the
+nodes' streams, microbatches through the kernels, the u16 wire.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither JAX nor `redtail_tpu`, so it also runs on a machine without
@@ -12,6 +13,7 @@ them, with the JAX-importing `tests/conftest.py` left out:
     python3 -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import contextlib
 import dataclasses
 from pathlib import Path
 
@@ -562,3 +564,146 @@ def test_yolo_node_on_card_matches_cpu(cuda_device):
     assert out.dtype == np.float32 and out.ndim == 2 and out.shape[1] == 6
     np.testing.assert_array_equal(out, yolo.postprocess(
         raw[cuda_device], 448, 448, prob_threshold=0.01))
+
+
+# ------------------------------------- the serving runtime on the card
+
+SERVE_HW = (65, 129)
+
+
+def _serve_frames(n, hw=SERVE_HW, seed=0):
+    rs = np.random.RandomState(seed)
+    return [(rs.randint(0, 256, hw + (3,)).astype(np.uint8),
+             rs.randint(0, 256, hw + (3,)).astype(np.uint8))
+            for _ in range(n)]
+
+
+def _node_2d(**kw):
+    spec = dataclasses.replace(STEREO_SPECS["resnet18_2d"],
+                               input_hw=SERVE_HW, max_disp=8)
+    return StereoNode(spec, init_stereo_params(spec, seed=0),
+                      dtype=torch.bfloat16, **kw)
+
+
+@pytest.mark.parametrize("overlap", [1, 2])
+def test_overlapped_stereo_node_bit_equal_on_card(cuda_device, overlap):
+    """Frames in flight on the node's own stream: call k returns frame
+    k - N under its stamp, bit-equal to the synchronous node (the same
+    batch-1 kernels), over more frames than the staging ring holds."""
+    from redtail_tpu_torch import native
+    frames = _serve_frames(8)
+    sync = _node_2d()
+    want = [sync(*f) for f in frames]
+    node = _node_2d(overlap=overlap)
+    assert node._stream is not None and \
+        node._stream != torch.cuda.current_stream()
+    packs = native.pack_s2d.native_calls
+    before = corr.corr_softargmax.launches
+    outs = [node(*f, stamp=float(k)) for k, f in enumerate(frames)]
+    assert corr.corr_softargmax.launches == before + len(frames)
+    assert native.pack_s2d.native_calls == packs + 2 * len(frames)
+    assert outs[:overlap] == [None] * overlap
+    for k, out in enumerate(outs[overlap:]):
+        assert out.stamp == float(k)
+        np.testing.assert_array_equal(out.data, want[k])
+    node.drain()
+    assert not node._inflight
+
+
+def test_microbatched_nodes_run_the_kernels_at_batch_2(cuda_device):
+    """overlap=1, microbatch=2: one launch a batch of two frames, within
+    the bf16 gates of the synchronous node (cuDNN may choose other
+    algorithms at N = 2): ResNet18-2D through the corr kernel, NVTiny
+    through the emission (fused head) and conv223 (packed head)."""
+    frames = _serve_frames(4)
+    sync, node = _node_2d(), _node_2d(overlap=1, microbatch=2)
+    before = corr.corr_softargmax.launches
+    outs = [node(*f, stamp=float(k)) for k, f in enumerate(frames)]
+    assert corr.corr_softargmax.launches == before + 2
+    assert outs[:3] == [None] * 3 and [o.stamp for o in outs[3]] == [0, 1]
+    for o in outs[3]:
+        err = np.abs(o.data - sync(*frames[int(o.stamp)])) / SERVE_HW[1]
+        assert err.mean() < 1e-2  # sigmoid units, as the bf16 slice gate
+    spec = dataclasses.replace(STEREO_SPECS["nvtiny"], input_hw=SERVE_HW,
+                               max_disp=8)
+    params = init_stereo_params(spec, seed=0)
+    def counts(counters):
+        return [c.launches + getattr(c, "packed_launches", 0)
+                for c in counters]
+
+    for lowering, counters in (
+            (contextlib.nullcontext, [emit.fused_cv_emit]),
+            (packed3d_lowering, [c223.conv223, emit.fused_cv_emit])):
+        sync = StereoNode(spec, params, dtype=torch.bfloat16)
+        node = StereoNode(spec, params, dtype=torch.bfloat16, overlap=1,
+                          microbatch=2)
+        with lowering():
+            before = counts(counters)
+            want = [sync(*f) for f in frames]
+            per_frame = [(a - b) // len(frames)
+                         for a, b in zip(counts(counters), before)]
+            before = counts(counters)
+            outs = [node(*f, stamp=float(k)) for k, f in enumerate(frames)]
+            node.drain()
+            after = counts(counters)
+        # two dispatches of two frames: each launch covers a batch
+        assert min(per_frame) >= 1
+        assert [a - b for a, b in zip(after, before)] == \
+            [2 * n for n in per_frame]
+        for o in outs[3]:
+            assert np.abs(o.data - want[int(o.stamp)]).mean() < 0.1  # px
+
+
+def test_u16_wire_on_card(cuda_device):
+    frames = _serve_frames(2)
+    f32, u16 = _node_2d(), _node_2d(wire="u16")
+    for f in frames:
+        a, b = f32(*f), u16(*f)
+        assert b.dtype == np.float32 and (b * 64 == np.round(b * 64)).all()
+        assert np.abs(a - b).max() <= 1.0 / 128.0 + 1e-6
+
+
+def test_overlapped_node_on_a_graph_thread_on_card(cuda_device):
+    """The graph's thread starts with grad mode on; the node enters
+    inference mode there, so the kernels serve and no frame errors."""
+    from redtail_tpu_torch.runtime import NodeGraph
+    node = _node_2d(overlap=1)
+    g = NodeGraph()
+    g.add_node("stereo", node, ["l", "r"], "disp", max_rate_hz=100,
+               sync_slop=0.05)
+    g.start()
+    try:
+        for k, (left, right) in enumerate(_serve_frames(4)):
+            g.topic("l").publish(left, stamp=float(k))
+            g.topic("r").publish(right, stamp=float(k))
+            g.spin_until(lambda: g.nodes["stereo"].processed > k, timeout=5)
+        assert g.spin_until(lambda: g.topic("disp").count >= 2, timeout=5)
+    finally:
+        g.stop()
+    assert g.nodes["stereo"].errors == 0, g.nodes["stereo"].last_error
+
+
+def test_fused_ingest_on_card_matches_cpu(cuda_device):
+    """The card and the CPU round the float32 source coordinates apart:
+    a weight moves by up to two ulps of the largest coordinate (1025:
+    1.2e-4), the [0, 1] output by as much (measured 3.7e-5)."""
+    from redtail_tpu_torch.ops.preprocess import fused_ingest
+    x = np.random.RandomState(3).randint(0, 256, (2, 321, 1025, 3)).astype(
+        np.uint8)
+    atol = 2 * float(np.spacing(np.float32(1025)))
+    for hw in ((180, 320), (400, 1100)):
+        got = fused_ingest(x, hw)
+        assert got.is_cuda
+        want = fused_ingest(x, hw, device="cpu")
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=atol)
+
+
+def test_real_trailnet_sim_on_card_matches_cpu(cuda_device):
+    from redtail_tpu_torch.apps import sim_app
+    from redtail_tpu_torch.control import Pose
+    card = sim_app.make_real_trailnet()
+    cpu = sim_app.make_real_trailnet(device="cpu")
+    pose = Pose(np.array([5.0, 0.5, 1.5]))
+    np.testing.assert_allclose(card(pose, np.random.RandomState(0)),
+                               cpu(pose, np.random.RandomState(0)),
+                               rtol=0, atol=1e-4)

@@ -86,8 +86,7 @@ def test_stereo_node_3d_model_serves_pixels(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"overlap": 1}, {"microbatch": 2}, {"wire": "u16"}, {"quantize": "w8"},
-    {"quantize": "int8"}, {"device": "cuda:1"}], ids=str)
+    {"quantize": "w8"}, {"quantize": "int8"}, {"device": "cuda:1"}], ids=str)
 def test_stereo_node_later_slices_raise(kwargs):
     spec = _spec()
     kwargs.setdefault("device", "cpu")
@@ -201,6 +200,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from redtail_tpu_torch.models import (CaffeNet, emit_trailnet_prototxt,
                                           init_trailnet_params)
     from redtail_tpu_torch.models import trailnet
+    from redtail_tpu_torch.apps import pipeline_app, sim_app
+    from redtail_tpu_torch.ops.preprocess import fused_ingest
     from redtail_tpu_torch.runtime import TrailNetNode, YoloNode
 
     spec = _spec()
@@ -217,7 +218,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
                  lambda: trailnet.params_from_numpy(tree),
                  lambda: TrailNetNode(trailnet.params_from_numpy(
                      tree, device="cpu")),
-                 lambda: YoloNode(CaffeNet(proto, device="cpu"))):
+                 lambda: YoloNode(CaffeNet(proto, device="cpu")),
+                 lambda: StereoNode(spec, params, overlap=1),
+                 lambda: pipeline_app.main(["--duration", "0.1"]),
+                 lambda: sim_app.make_real_trailnet(),
+                 lambda: fused_ingest(np.zeros((4, 4, 3), np.uint8),
+                                      (2, 2))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -376,16 +376,14 @@ def test_load_trailnet(tree, nets, tmp_path, frames):
         jtrailnet.load_trailnet()
 
 
-@pytest.mark.parametrize("kwargs", [{"overlap": 1}, {"microbatch": 2},
-                                    {"device": "cuda:1"}], ids=str)
+@pytest.mark.parametrize("kwargs", [{"device": "cuda:1"}], ids=str)
 def test_trailnet_node_later_slices_raise(kwargs, nets):
     kwargs.setdefault("device", "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TrailNetNode(nets[("native", torch.float32)], **kwargs)
 
 
-@pytest.mark.parametrize("kwargs", [{"overlap": 2}, {"device": "cuda:1"}],
-                         ids=str)
+@pytest.mark.parametrize("kwargs", [{"device": "cuda:1"}], ids=str)
 def test_yolo_node_later_slices_raise(kwargs):
     kwargs.setdefault("device", "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
