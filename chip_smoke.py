@@ -105,6 +105,33 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
    f. `sim_app.main(["--real-dnn"])`, TrailNet on the card in the closed
       loop: exit 0 (max cross-track < 5 m).
 
+8. real weights in, quantized rungs out:
+   a. NVSmall's real weights written as fp32 and fp16 TRT blobs
+      (`io.write_trt_weights`), loaded back with `params_from_trt_blob` and
+      served through `StereoNode` at 321x1025 in fp32 (TF32 off, cuDNN's
+      deterministic algorithms) on one frame: the fp32 blob bit-equal to
+      the .npz net, the fp16 one within a stated gate;
+   b. in a process of its own that no profiler has traced (the script
+      runs itself with `--rungs-child`): `StereoNode` in bf16 with quantize
+      None / w8 / int8 (int8 calibrated on the first pair) for ResNet18-2D
+      (random conditioned weights) and NVSmall (real weights) under the
+      fused and the packed head, 20 frames after 2 warm-up frames, the
+      counts zeroed just before and read just after: median latency, the
+      corr / emission / conv223 launches, D1 and EPE against the same
+      model's fp32 node; then each node traced for device busy and idle
+      share;
+   c. card against CPU on the same seeded inputs and scales: `conv2d_int8`
+      and `quantize_act` bit-equal on both routes (K below and above the
+      2**24 bound); int8 ResNet18-2D at 129x257 and NVTiny at 65x129 within
+      stated gates; the bf16 round-once convs within one bf16 step; conv223
+      and the emission shown to add their bias before their one rounding;
+   d. `python -m redtail_tpu_torch.apps.stereo_app nvsmall --weights <fp16
+      blob> --weights-dtype fp16 --dtype bf16 --quantize int8 --accuracy
+      <8a's fp32 disparity .npy> --hw 321 1025` on 8a's pair (written as
+      PNGs): exit 0 and the five rungs' rows;
+   e. the device busy per frame of each stereo model after the round-once
+      repair (8b's unquantized rung) beside the figures before it.
+
 Then one JSON line describing every ported kernel, and last the line
 `{"ok": true, "device": {...}}`.
 """
@@ -227,6 +254,56 @@ PERSON_STOP_S = 3.5
 # the u16 wire's steps: round(disp * 64), so within half a step of the
 # float32 disparity, and saturated at 65535 / 64 px
 U16_ATOL, U16_MAX_PX = 1.0 / 128.0, 65535.0 / 64.0
+NVSMALL_NPZ = "tests/data/nvsmall_golden.npz"
+SMOKE_DIR = ROOT / "redtail_tpu_torch" / "build" / "smoke"
+# px, 8a: NVSmall at 321x1025 in fp32 from its weights rounded to fp16 (a
+# relative step of 2**-11) against the fp32 .npz weights, on one random-
+# texture frame, whose flat matching costs let the soft-argmin move (the
+# gates of the bf16 lowering comparisons above)
+BLOB_FP16_MEAN, BLOB_FP16_MAX = 0.02, 4.0
+RUNGS = (None, "w8", "int8")
+RUNG_FRAMES = 20
+RUNGS_CHILD = "--rungs-child"  # chip_smoke runs itself so for 8b
+# 8b: each rung against its model's fp32 node on the same 20 frames, gated
+# at a few times what it read (NVIDIA H100 80GB HBM3 at 700 W): NVSmall
+# (fused and packed alike, real weights) EPE px and D1 %, equal to these
+# digits in three runs, the EPE gate 3x, the D1 gate 10x (a reading of
+# 0.0001 % is one pixel in 329,025); ResNet18-2D (random weights, one run)
+# in sigmoid units on the pixels whose bf16 sigmoid is below 1, as 7c
+# (0.5846 of them; the rest sit pinned at 1.0 whatever the input): the
+# mean error 3x, the share of pixels off by more than 0.01 2x
+RUNG_READINGS = {
+    "nvsmall": {None: (0.0349, 0.0001), "w8": (0.0396, 0.0086),
+                "int8": (0.0669, 0.1135)},
+    "resnet18_2d": {None: (3.8491e-3, 0.11920), "w8": (8.9598e-3, 0.19588),
+                    "int8": (8.8465e-3, 0.18709)}}
+RUNG_EPE_FACTOR, RUNG_D1_FACTOR = 3.0, 10.0
+RUNG_2D_MEAN_FACTOR, RUNG_2D_OFF_FACTOR = 3.0, 2.0
+RUNG_2D_FREE_SHARE = 0.25
+# 8c: int8 nets card vs CPU fp32, (card fp32 mean, card bf16 mean): a
+# quantized input within fp32 noise of a rounding boundary may take the
+# other step on the card, so the fp32 gate is a mean, 10x the fp32 slice
+# gates above; the bf16 ones are the slice gates
+INT8_2D_GATES = (1e-3, 1e-2)   # sigmoid units
+INT8_3D_GATES = (1e-2, SLICE_3D_BF16_MEAN)  # px
+# 8c: the bf16 round-once convs card vs CPU (ops/convolution.py name, x,
+# w, keywords): NVSmall's conv2 and conv3D_2-sized 2D and 3D convs and
+# deconv3D_1 / 2-sized transposes
+ROUND_ONCE_CASES = (
+    ("conv2d", (2, 161, 513, 32), (3, 3, 32, 32), {}),
+    ("conv3d", (1, 25, 41, 129, 32), (3, 3, 3, 32, 32), {}),
+    ("conv2d_transpose", (1, 41, 129, 64), (3, 3, 32, 64),
+     {"out_spatial": (81, 257)}),
+    ("conv3d_transpose", (1, 13, 21, 65, 64), (3, 3, 3, 32, 64),
+     {"out_spatial": (25, 41, 129)}))
+# 8c: the epilogues of conv223 (NVSmall's conv3D_2: xp, K) and of the
+# emission (NVSmall's: (N, H, W), K, D)
+EPILOGUE_CONV223 = ((1, 25, 82, 513, 128), 128)
+EPILOGUE_EMIT = ((1, 161, 513), 32, 48)
+# device busy per frame, ms, that phases 5a, 5b and 5d measured before the
+# bf16 stereo convs rounded once (NVIDIA H100 80GB HBM3 at 700 W)
+BEFORE_REPAIR_BUSY_MS = {"resnet18_2d": 1.993, "nvsmall fused": 28.441,
+               "nvsmall packed": 9.535}
 # H100 SXM data sheet: HBM bytes/s, fp32 (non-tensor-core) and dense bf16
 # tensor-core FLOP/s. The card's name and power limit are printed beside
 # every number.
@@ -903,12 +980,12 @@ def layer_breakdown(torch, node, frame, label):
           f"(other device work, and the device idle while the host packs)")
 
 
-def trace_frames(torch, node, frames, frame_ms, match=None):
+def trace_frames(torch, node, frames, frame_ms, match=None, table=True):
     """Informational: device time by kernel over a few served frames
     (`torch.profiler`; ``frames`` holds each call's arguments), and the
     device's idle share of the unprofiled per-frame latency ``frame_ms``;
-    each kernel whose name holds ``match`` also on a line of its own.
-    Returns (device busy ms, device operations) per frame, or None where
+    each kernel whose name holds ``match`` also on a line of its own; the
+    table of the busiest kernels unless ``table`` is false. Returns (device busy ms, device operations) per frame, or None where
     the profiler recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -933,8 +1010,9 @@ def trace_frames(torch, node, frames, frame_ms, match=None):
           f"{frame_ms:.3f} ms median latency; {ops:g} device operations per "
           f"frame, {ops - copies:g} kernel launches and {copies:g} copies or "
           f"memsets")
-    print(events.table(sort_by="self_cuda_time_total", row_limit=15,
-                       max_name_column_width=60))
+    if table:
+        print(events.table(sort_by="self_cuda_time_total", row_limit=15,
+                           max_name_column_width=60))
     for e in events:
         if match and match in e.key and e.device_type == DeviceType.CUDA:
             print(f"trace: {e.key[:90]}: {e.count / len(frames):g} calls "
@@ -1454,6 +1532,451 @@ def phase_sim(counters):
     check(read_counts(counters) == before,
           "a kernel launched on the TrailNet simulation path")
 
+# ------------------------------------------------------------------ phase 8
+
+
+def phase_blob(np, torch, io, models, nodes, frame, card="cuda"):
+    """8a: NVSmall's real weights written as fp32 and fp16 TRT blobs,
+    loaded back with `params_from_trt_blob` and served at 321x1025 in fp32
+    (TF32 off, cuDNN's deterministic algorithms) on one frame against the
+    .npz net. Returns (blob paths by dtype, the .npz net's disparity)."""
+    spec = models.STEREO_SPECS["nvsmall"]
+    tree = models.params_from_npz(ROOT / NVSMALL_NPZ)
+    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref_node = nodes.StereoNode(spec, tree, dtype=torch.float32,
+                                    device=card)
+        ref = ref_node(*frame)
+        check(np.array_equal(ref_node(*frame), ref),
+              "8a: the fp32 .npz net does not repeat itself bit for bit")
+        paths = {}
+        for dtype in ("fp32", "fp16"):
+            path = SMOKE_DIR / f"nvsmall_{dtype}.trtw"
+            io.write_trt_weights(models.params_to_trt_blob(spec, tree), path,
+                                 dtype=dtype)
+            blob_tree = models.params_from_trt_blob(
+                spec, io.read_trt_weights(path, dtype))
+            got = nodes.StereoNode(spec, blob_tree, dtype=torch.float32,
+                                   device=card)(*frame)
+            diff = np.abs(got - ref)
+            print(f"8a nvsmall 321x1025 fp32 from the {dtype} TRT blob "
+                  f"({path.stat().st_size} bytes) vs the .npz net, one "
+                  f"frame: bit-equal {np.array_equal(got, ref)}, mean abs "
+                  f"diff {diff.mean():.4e} px, max {diff.max():.4e} px")
+            if dtype == "fp32":
+                check(np.array_equal(got, ref), "8a: the fp32 blob's net is "
+                      "not bit-equal to the .npz net")
+            else:
+                check(diff.mean() < BLOB_FP16_MEAN and diff.max() <
+                      BLOB_FP16_MAX, f"8a: the fp16 blob's net off the .npz "
+                      f"net past mean {BLOB_FP16_MEAN} / max {BLOB_FP16_MAX}")
+            paths[dtype] = path
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    return paths, ref
+
+
+def rung_setup(np, models):
+    """8b's models (label, spec, weights, packed head) and frames:
+    ResNet18-2D with random conditioned weights, NVSmall with the repo's
+    real weights under the fused and the packed head; 20 seeded pairs."""
+    spec2d = dataclasses.replace(models.STEREO_SPECS["resnet18_2d"],
+                                 input_hw=FULL_HW)
+    tree2d = conditioned_params(
+        np, models.init_stereo_params(spec2d, seed=0), 3)
+    spec3d = models.STEREO_SPECS["nvsmall"]
+    tree3d = models.params_from_npz(ROOT / NVSMALL_NPZ)
+    return ([("resnet18_2d", spec2d, tree2d, False),
+             ("nvsmall fused", spec3d, tree3d, False),
+             ("nvsmall packed", spec3d, tree3d, True)],
+            stereo_frames(np, 8, RUNG_FRAMES))
+
+
+RUNG_KERNELS = {"resnet18_2d": ("corr_softargmax",),
+                "nvsmall fused": ("fused_cv_emit",),
+                "nvsmall packed": ("conv223", "fused_cv_emit.packed")}
+
+
+def rung_gate(np, label, rung, got, ref, top, m):
+    """8b's accuracy gate of one rung against its fp32 node
+    (`RUNG_READINGS`); returns the figures it read."""
+    model = label.split()[0]
+    reading = RUNG_READINGS[model][rung]
+    if model == "nvsmall":
+        epe_gate = RUNG_EPE_FACTOR * reading[0]
+        d1_gate = RUNG_D1_FACTOR * reading[1]
+        print(f"8b {label} {rung or 'bf16'}: gates EPE < {epe_gate:.4f} px,"
+              f" D1 < {d1_gate:.4f} %")
+        check(m["epe"] < epe_gate and 100 * m["d1"] < d1_gate,
+              f"8b {label} {rung}: EPE {m['epe']} px / D1 {100 * m['d1']} "
+              f"% against the fp32 node, past {epe_gate} / {d1_gate}")
+        return {}
+    free = ref < top * (1.0 - 2.0 ** -9)  # bf16 sigmoid below 1
+    err = np.abs(got - ref)[free] / top
+    mean, off = float(err.mean()), float((err > 0.01).mean())
+    print(f"8b {label} {rung or 'bf16'}: sigmoid units on the "
+          f"{free.mean():.4f} share of pixels whose sigmoid is below 1: "
+          f"mean {mean:.4e}, share off by more than 0.01 {off:.4e}")
+    check(free.mean() >= RUNG_2D_FREE_SHARE, f"8b {label} {rung}: only "
+          f"{free.mean()} of the pixels below the sigmoid's saturation")
+    gates = (RUNG_2D_MEAN_FACTOR * reading[0],
+             RUNG_2D_OFF_FACTOR * reading[1])
+    print(f"8b {label} {rung or 'bf16'}: gates mean < {gates[0]:.4e}, "
+          f"share off < {gates[1]:.4e}")
+    check(mean < gates[0] and off < gates[1], f"8b {label} {rung}: "
+          f"sigmoid mean {mean} / share off {off} past {gates}")
+    return {"sigmoid_mean_free": mean, "sigmoid_off_share": off,
+            "free_share": float(free.mean())}
+
+
+def rungs_child(np, torch, models, nodes, counters, packed3d_lowering,
+                card="cuda"):
+    """8b, in a process of its own (`RUNGS_CHILD`) that no profiler has
+    traced: each model's bf16 `StereoNode` with quantize None / w8 / int8
+    (int8 calibrated on the first pair), 20 frames after 2 warm-up frames,
+    every count zeroed just before and read just after; D1 and EPE against
+    the same model's fp32 node on the same frames; then each node traced
+    for its device busy. Prints one JSON line last."""
+    from redtail_tpu_torch.utils.metrics import disparity_errors
+
+    configs, frames = rung_setup(np, models)
+    figures, served = {}, []
+    for label, spec, tree, packed in configs:
+        lowering = packed3d_lowering if packed else contextlib.nullcontext
+        top = spec.full_max_disp if not spec.corr else spec.input_hw[1]
+        with lowering():
+            ref_node = nodes.StereoNode(spec, tree, dtype=torch.float32,
+                                    device=card)
+            ref = np.stack([ref_node(*f) for f in frames])
+            del ref_node
+            for rung in RUNGS:
+                name = f"{label} bf16 {rung or 'none'}"
+                t0 = time.perf_counter()
+                node = nodes.StereoNode(
+                    spec, tree, dtype=torch.bfloat16, quantize=rung,
+                    calib_frames=frames[:1] if rung == "int8" else None,
+                    device=card)
+                build_s = time.perf_counter() - t0
+                outs, counts, med = serve(np, torch, node, frames, counters,
+                                          top, f"8b {name}")
+                for k in RUNG_KERNELS[label]:
+                    check(counts[k] == len(frames), f"8b {name}: {k} "
+                          f"launched {counts[k]} times for {len(frames)} "
+                          f"frames")
+                m = disparity_errors(np.stack(outs), ref,
+                                     np.ones_like(ref, bool))
+                print(f"8b {name}: against the fp32 node on the same "
+                      f"frames, D1 {100 * m['d1']:.4f} %, EPE "
+                      f"{m['epe']:.4f} px, max {m['err_max']:.3f} px; node "
+                      f"built in {build_s:.2f} s"
+                      f"{' (int8 calibration included)' if rung == 'int8' else ''}")
+                gate = rung_gate(np, label, rung, np.stack(outs), ref, top, m)
+                figures[name] = {
+                    "latency_median_ms": med, "d1": m["d1"],
+                    "epe": m["epe"], "err_max": m["err_max"], **gate,
+                    "launches": {k: counts[k] for k in (
+                        "corr_softargmax", "corr_cost_volume",
+                        "fused_cv_emit", "fused_cv_emit.packed", "conv223",
+                        "cost_volume_concat")}}
+                served.append((name, node, lowering, med))
+    print_clocks("the rung phase's serving")
+    for name, node, lowering, med in served:  # traced last: see 7b
+        with lowering():
+            traced = trace_frames(torch, node, frames[:3], med, table=False)
+        check(traced is not None, f"8b {name}: no device time traced")
+        busy, ops = traced
+        figures[name].update(busy_ms=busy, idle_share=1 - busy / med,
+                             device_launches=ops)
+    print(json.dumps({"rungs": figures}))
+
+
+def phase_rungs(np):
+    """8b in a fresh process (`rungs_child`); returns its figures."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           RUNGS_CHILD], capture_output=True, text=True,
+                          timeout=900, cwd=ROOT)
+    print(proc.stdout.rstrip())
+    check(proc.returncode == 0, f"the 8b process exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    figures = json.loads(proc.stdout.strip().splitlines()[-1])["rungs"]
+    print(f"8b rung table ({nvidia_smi('name,power.limit')}; latency: "
+          f"host clock, median of {RUNG_FRAMES} frames; busy: torch.profiler"
+          f" over 3 frames, traced after every rung was timed):")
+    print(f"  {'model / rung':34s} {'median ms':>10s} {'busy ms':>9s} "
+          f"{'idle':>6s} {'D1 %':>8s} {'EPE px':>8s}  launches")
+    for name, f in figures.items():
+        kernels = {k: v for k, v in f["launches"].items() if v}
+        print(f"  {name:34s} {f['latency_median_ms']:10.3f} "
+              f"{f['busy_ms']:9.3f} {f['idle_share']:6.3f} "
+              f"{100 * f['d1']:8.4f} {f['epe']:8.4f}  {kernels}")
+    return figures
+
+
+def ulps_apart(torch, got, want):
+    """Per element, how many bf16 steps apart two bf16 tensors are."""
+    def ordered(t):
+        bits = t.to(torch.bfloat16).contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (ordered(got.cpu()) - ordered(want.cpu())).abs()
+
+
+def phase_quant_card_vs_cpu(np, torch, models, ptq, stereo_int8, conv,
+                            c223, emit, card="cuda"):
+    """8c: the card against the CPU on the same seeded inputs and scales:
+    `conv2d_int8` and `quantize_act` bit-equal on both routes (K below and
+    above the 2**24 bound); the int8 nets (ResNet18-2D at 129x257, NVTiny
+    at 65x129, scales calibrated once on the CPU) within stated gates; the
+    bf16 round-once convs within one bf16 step; and the two CUDA kernels
+    that end in a conv epilogue shown to add their bias before their one
+    rounding."""
+    rs = np.random.RandomState(11)
+    for c_in, shape, stride in ((32, (1, 161, 513), 1), (32, (2, 9, 11), 2),
+                                (128, (1, 21, 40), 1), (256, (2, 9, 11), 2),
+                                (256, (1, 3, 3), 1)):
+        k = 9 * c_in
+        x = rs.randint(-127, 128, (shape[0], c_in) + shape[1:]).astype(
+            np.int8)
+        w = rs.randint(-127, 128, (24, c_in, 3, 3)).astype(np.int8)
+        x[0, :, 0, 0] = 127
+        w[0] = 127
+        ws = torch.from_numpy(((rs.rand(24) + 0.5) * 1e-3).astype(np.float32))
+        b = torch.from_numpy(rs.randn(24).astype(np.float32))
+        outs = [ptq.conv2d_int8_nchw(
+            torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev),
+            x_scale=0.0123, w_scale=ws, bias=b.to(dev), stride=stride,
+            padding="SAME" if shape[1] > 3 else "VALID",
+            out_dtype=torch.float32).cpu() for dev in (card, "cpu")]
+        route = "fp32 carriers" if k <= ptq.EXACT_FP32_K else "torch._int_mm"
+        print(f"8c conv2d_int8 K={k} ({route}) x {tuple(x.shape)} stride "
+              f"{stride}: card vs CPU bit-equal {torch.equal(*outs)}")
+        check(torch.equal(*outs), f"8c conv2d_int8 K={k}: card off the CPU")
+    xf = torch.from_numpy((rs.randn(1, 32, 161, 513) * 3).astype(np.float32))
+    for scale in (0.5, 0.0371):
+        q = [ptq.quantize_act(xf.to(dev), scale).cpu()
+             for dev in (card, "cpu")]
+        check(torch.equal(*q), f"8c quantize_act at {scale}: card off CPU")
+    print("8c quantize_act (1, 32, 161, 513) at scales 0.5 and 0.0371: card "
+          "vs CPU bit-equal")
+
+    for name, hw, disp in (("resnet18_2d", (129, 257), 16),
+                           ("nvtiny", SLICE_3D_HW, SLICE_3D_DISP)):
+        spec = dataclasses.replace(models.STEREO_SPECS[name], input_hw=hw,
+                                   max_disp=disp)
+        tree = conditioned_params(np, models.init_stereo_params(spec, seed=4),
+                                  5)
+        pairs = [tuple(rs.rand(*hw, 3).astype(np.float32) for _ in range(2))]
+        scales = stereo_int8.calibrate_stereo(spec, tree, pairs,
+                                              device="cpu")
+        qtree = stereo_int8.quantize_stereo_params_int8(tree, scales)
+        left, right = (torch.from_numpy(a[None]) for a in pairs[0])
+        with torch.inference_mode():
+            want = models.params_from_numpy(spec, qtree, device="cpu")(
+                left, right)
+            got = {dt: models.params_from_numpy(spec, qtree, device=card,
+                                                dtype=dt)(
+                left.to(card, dt), right.to(card, dt)).float().cpu()
+                for dt in (torch.float32, torch.bfloat16)}
+        unit = "sigmoid units" if spec.corr else "px"
+        g32, g16 = (INT8_2D_GATES if spec.corr else INT8_3D_GATES)
+        e32 = (got[torch.float32] - want).abs()
+        e16 = (got[torch.bfloat16] - want).abs()
+        print(f"8c int8 {name} {hw[0]}x{hw[1]} ({len(scales)} int8 layers), "
+              f"card vs CPU fp32: fp32 mean {e32.mean():.3e} max "
+              f"{e32.max():.3e} {unit} (gate mean {g32}); bf16 mean "
+              f"{e16.mean():.3e} max {e16.max():.3e} (gate mean {g16})")
+        check(e32.mean() < g32 and e16.mean() < g16,
+              f"8c int8 {name}: card off the CPU past the gates")
+
+    gen = torch.Generator().manual_seed(12)
+    for label, xs, ws, kw in ROUND_ONCE_CASES:
+        fn = getattr(conv, label)
+        x = torch.randn(xs, generator=gen).to(torch.bfloat16)
+        w = (torch.randn(ws, generator=gen) / 12).to(torch.bfloat16)
+        b = torch.randn(ws[-2] if "transpose" in label else ws[-1],
+                        generator=gen).to(torch.bfloat16)
+        with torch.inference_mode():
+            got = fn(x.to(card), w.to(card), b.to(card), **kw)
+            want = fn(x, w, b, **kw)
+        steps = ulps_apart(torch, got, want)
+        ok = bf16_ulp_ok(torch, got.cpu(), want, FP32_ATOL)
+        print(f"8c round-once bf16 {label} {tuple(x.shape)}: card vs CPU "
+              f"within one bf16 step plus {FP32_ATOL} (the fp32 sums' "
+              f"order, near zero): {ok}; at most {int(steps.max())} "
+              f"step(s) apart, {float((steps > 0).float().mean()):.2e} of "
+              f"the elements differ")
+        check(ok, f"8c {label}: card off the CPU past one bf16 step")
+
+    # conv223 and the emission: their bias goes into the fp32 sum before
+    # the one rounding: each stays within a step of the single-rounding
+    # plain version and matches it on more elements than a double rounding
+    xshape, c_out = EPILOGUE_CONV223
+    xp = torch.randn(xshape, generator=gen).to(torch.bfloat16)
+    k = (torch.randn((2, 2, 3, xshape[-1], c_out), generator=gen)
+         * xshape[-1] ** -0.5).to(torch.bfloat16)
+    bias = (torch.randn(c_out, generator=gen) * 3).to(torch.bfloat16)
+    nhw, k_emit, d_emit = EPILOGUE_EMIT
+    la = torch.randn(nhw + (3 * k_emit,), generator=gen).to(torch.bfloat16)
+    rb = torch.randn(nhw + (6 * k_emit,), generator=gen).to(torch.bfloat16)
+    ebias = (torch.randn(k_emit, generator=gen) * 3).to(torch.bfloat16)
+    for name, kernel, once, bare in (
+            ("conv223", lambda: c223.conv223(xp.to(card), k.to(card),
+                                             bias.to(card)),
+             lambda: c223.conv223_plain(xp.to(card), k.to(card), bias.to(card)),
+             lambda: c223.conv223_plain(xp.to(card), k.to(card), None)),
+            ("fused_cv_emit", lambda: emit.fused_cv_emit(
+                la.to(card), rb.to(card), ebias.to(card), d_emit, elu=False),
+             lambda: emit.fused_cv_emit_plain(
+                 la.to(card), rb.to(card), ebias.to(card), d_emit,
+                 elu=False),
+             lambda: emit.fused_cv_emit_plain(
+                 la.to(card), rb.to(card), None, d_emit, elu=False))):
+        b = bias if name == "conv223" else ebias
+        with torch.inference_mode():
+            got, want = kernel(), once()
+            twice = (bare().float() + b.to(card).float()).to(torch.bfloat16)
+        steps = ulps_apart(torch, got, want)
+        off_once = int((got != want).sum())
+        off_twice = int((got != twice).sum())
+        ok = bf16_ulp_ok(torch, got, want, FP32_ATOL)
+        print(f"8c {name} bf16 epilogue: against the plain version (fp32 sum"
+              f" + bias, one rounding) within one step plus {FP32_ATOL}: "
+              f"{ok}, at most {int(steps.max())} step(s), {off_once} of "
+              f"{got.numel()} elements differ; against a double rounding "
+              f"(sum rounded, + bias, rounded) {off_twice} differ")
+        check(ok and off_once < off_twice,
+              f"8c {name}: its bias is not added before its one rounding")
+
+
+def carrier_conv2d(torch, x_q, w_q, stride, pads):
+    """An int8 conv's exact sum by cuDNN on fp32 carriers, TF32 allowed
+    (exact while K * 127**2 < 2**24, as every stereo int8 layer's is),
+    deterministic algorithms: the library call 8c times `conv2d_int8_acc`
+    against."""
+    import torch.nn.functional as F
+    x = x_q.float()
+    if any(lo != hi for lo, hi in pads):
+        x = F.pad(x, [pads[1][0], pads[1][1], pads[0][0], pads[0][1]])
+        pads = ((0, 0), (0, 0))
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=True):
+        return F.conv2d(x, w_q.float(), stride=stride,
+                        padding=(pads[0][0], pads[1][0]))
+
+
+def phase_int8_routes(np, torch, models, nodes, ptq, card="cuda"):
+    """8c at full size: every int8 layer of ResNet18-2D's and NVSmall's
+    int8 rung (8b's nets, calibrated on 8b's first pair, bf16 at
+    321x1025), its quantized input caught on the way in on 8b's first
+    frame; the exact sum of each by `conv2d_int8_acc` (the port), by
+    im2col + `torch._int_mm` and by cuDNN on fp32 carriers, all three
+    bit-equal; each distinct layer shape timed (CUDA events, L2 evicted).
+    Returns {model: per-frame ms of the three}."""
+    configs, frames = rung_setup(np, models)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=card)
+    totals = {}
+    for label, spec, tree, packed in configs:
+        if packed:  # the packed head's int8 layers are the fused head's
+            continue
+        node = nodes.StereoNode(spec, tree, dtype=torch.bfloat16,
+                                quantize="int8", calib_frames=frames[:1],
+                                device=card)
+        caught = []
+
+        def catch(mod, args, caught=caught):
+            caught.append((ptq.quantize_act(args[0], mod.x_scale),
+                           mod.weight_q, (mod.stride, mod.stride)))
+        hooks = [m.register_forward_pre_hook(catch)
+                 for m in node.net.modules()
+                 if type(m).__name__ == "_Int8Conv"]
+        node(*frames[0])
+        for h in hooks:
+            h.remove()
+        check(caught, f"8c {label}: no int8 layer ran")
+        timed, total = {}, np.zeros(3)
+        for x_q, w_q, stride in caught:
+            pads = ptq._conv_pads("SAME", x_q.shape[2:], w_q.shape[2:],
+                                  stride)
+            fns = (lambda: ptq.conv2d_int8_acc(x_q, w_q, stride=stride),
+                   lambda: ptq._int_mm_conv(x_q, w_q, stride, pads).float(),
+                   lambda: carrier_conv2d(torch, x_q, w_q, stride, pads))
+            key = (tuple(x_q.shape), tuple(w_q.shape), stride)
+            with torch.inference_mode():
+                outs = [f() for f in fns]
+            check(all(torch.equal(outs[0], o) for o in outs[1:]),
+                  f"8c int8 routes {label} {key}: not bit-equal")
+            if key not in timed:
+                with torch.inference_mode():
+                    timed[key] = [cuda_ms(torch, f, flush,
+                                          label=f"8c int8 {key}")
+                                  for f in fns]
+            total += timed[key]
+        k_max = max(w.shape[1] * w.shape[2] * w.shape[3]
+                    for _, w, _ in caught)
+        print(f"8c int8 routes {label} {FULL_HW[0]}x{FULL_HW[1]} bf16, "
+              f"{len(caught)} int8 layers (K <= {k_max}), all three routes "
+              f"bit-equal; device ms (CUDA events, L2 evicted, median of "
+              f"{TIMING_REPS}): conv2d_int8_acc / im2col + torch._int_mm / "
+              f"cuDNN fp32 carriers:")
+        for key, t in timed.items():
+            n = sum(1 for x, w, st in caught
+                    if (tuple(x.shape), tuple(w.shape), st) == key)
+            print(f"  x {key[0]} w {key[1]} stride {key[2][0]} (x{n}): "
+                  f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f}")
+        print(f"  per frame: {total[0]:.4f} / {total[1]:.4f} / "
+              f"{total[2]:.4f} ms")
+        totals[label.split()[0]] = [float(t) for t in total]
+        del node, caught
+    print_clocks("the int8 route timing")
+    return totals
+
+
+def phase_app(np, blob_fp16, golden, frame, extra=()):
+    """8d: `stereo_app` in a subprocess: NVSmall from the fp16 TRT blob,
+    bf16, int8, with the accuracy table against 8a's fp32 disparity of the
+    same pair (written as lossless PNGs)."""
+    import cv2
+
+    left, right = SMOKE_DIR / "pair_left.png", SMOKE_DIR / "pair_right.png"
+    cv2.imwrite(str(left), frame[0])
+    cv2.imwrite(str(right), frame[1])
+    gold = SMOKE_DIR / "nvsmall_fp32_disp.npy"
+    np.save(gold, golden)
+    argv = [sys.executable, "-m", "redtail_tpu_torch.apps.stereo_app",
+            "nvsmall", "--weights", str(blob_fp16), "--weights-dtype",
+            "fp16", "--dtype", "bf16", "--quantize", "int8", "--accuracy",
+            str(gold), "--hw", *map(str, FULL_HW), "--left", str(left),
+            "--right", str(right), "--out", str(SMOKE_DIR / "app_disp"),
+            *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=600,
+                          cwd=ROOT)
+    print(f"8d {' '.join(argv[1:4])} ... --quantize int8 --accuracy "
+          f"({time.perf_counter() - t0:.1f} s): exit {proc.returncode}")
+    print(proc.stderr.rstrip()[-2000:])
+    check(proc.returncode == 0, f"8d stereo_app exited {proc.returncode}")
+    rows = [json.loads(s)["accuracy"] for s in proc.stdout.splitlines()
+            if s.startswith("{") and "accuracy" in s]
+    check(len(rows) == 1 and [r["rung"] for r in rows[0]] == [
+        "fp32", "bf16", "bf16+packed", "w8", "int8"],
+        f"8d: the accuracy rows are {rows}")
+    print(f"8d accuracy rows: {json.dumps(rows[0])}")
+    return rows[0]
+
+
+def print_repair_cost(figures):
+    """8e: device busy per frame after the round-once repair (8b's bf16
+    rung without quantization) beside the same paths' figures before the
+    repair."""
+    print(f"8e round-once repair, device busy per frame ({nvidia_smi('name,power.limit')}"
+          f"; before: measured by phase 5 before the repair, NVIDIA H100 "
+          f"80GB HBM3 at 700 W):")
+    for name, before in BEFORE_REPAIR_BUSY_MS.items():
+        after = figures[f"{name} bf16 none"]["busy_ms"]
+        print(f"  {name:16s} before {before:8.3f} ms, after {after:8.3f} ms "
+              f"({after / before:.3f}x)")
+
 
 def main() -> int:
     import numpy as np
@@ -1471,8 +1994,10 @@ def main() -> int:
         from redtail_tpu_torch.kernels import conv223 as c223
         from redtail_tpu_torch.kernels import fused_cv_emit as emit
         from redtail_tpu_torch.models import trailnet
+        from redtail_tpu_torch.ops import convolution as conv
         from redtail_tpu_torch.ops.convolution import (packed3d_lowering,
                                                        plain_lowering)
+        from redtail_tpu_torch.quant import ptq, stereo_int8
         from redtail_tpu_torch.ops.softargmax import softargmax
         from redtail_tpu_torch.ops.space_to_depth import space_to_depth2_np
         from redtail_tpu_torch.runtime import nodes
@@ -1483,6 +2008,9 @@ def main() -> int:
                 concat.cost_volume_concat, emit.fused_cv_emit, c223.conv223)
     if sys.argv[1:] == [OVERLAP_CHILD]:
         overlap_child(np, torch, models, nodes, counters)
+        return 0
+    if sys.argv[1:] == [RUNGS_CHILD]:
+        rungs_child(np, torch, models, nodes, counters, packed3d_lowering)
         return 0
 
     print(nvidia_smi("name,power.limit"))
@@ -1543,6 +2071,24 @@ def main() -> int:
     paths, _ = phase_pipeline(np, models, native, counters)
     by_path["corr_cost_volume"].update(paths)
     phase_sim(counters)
+
+    # real weights in, quantized rungs out
+    frame = stereo_frames(np, 8, 1)[0]  # 8b's first pair
+    blobs, golden = phase_blob(np, torch, io, models, nodes, frame)
+    figures = phase_rungs(np)
+    for name, f in figures.items():
+        model = name.split(" bf16 ")[0]
+        for kernel, entry in (("corr_softargmax", "corr_cost_volume"),
+                              ("fused_cv_emit", "fused_cv_emit"),
+                              ("fused_cv_emit.packed", "fused_cv_emit"),
+                              ("conv223", "conv223")):
+            if kernel in RUNG_KERNELS[model]:
+                by_path[entry][f"8b {name}"] = f["launches"][kernel]
+    phase_quant_card_vs_cpu(np, torch, models, ptq, stereo_int8, conv, c223,
+                            emit)
+    phase_int8_routes(np, torch, models, nodes, ptq)
+    phase_app(np, blobs["fp16"], golden, frame)
+    print_repair_cost(figures)
 
     for name, paths in by_path.items():
         check(all(paths.values()), f"{name} was not launched on {paths}")

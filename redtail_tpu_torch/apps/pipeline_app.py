@@ -43,8 +43,8 @@ def build_argparser():
     p.add_argument("--stereo-model", default="resnet18_2d",
                    choices=["nvtiny", "nvsmall", "resnet18", "resnet18_2d"])
     p.add_argument("--stereo-checkpoint",
-                   help="TF checkpoint of the stereo model (not ported yet: "
-                   "ROADMAP.md, module queue item 6)")
+                   help="TF checkpoint prefix of the stereo model (random "
+                   "weights without it)")
     p.add_argument("--trailnet-prototxt")
     p.add_argument("--trailnet-caffemodel")
     p.add_argument("--trailnet-rate", type=float, default=30.0)
@@ -165,10 +165,6 @@ def main(argv=None):
     if bool(args.video_left) != bool(args.video_right):
         raise SystemExit("--video-left and --video-right must be given "
                          "together (or use --video-sbs)")
-    if args.stereo_checkpoint:
-        raise NotImplementedError(
-            "--stereo-checkpoint (TF checkpoints) is not ported yet "
-            "(ROADMAP.md, module queue item 6)")
 
     import numpy as np
 
@@ -176,7 +172,8 @@ def main(argv=None):
     from redtail_tpu_torch.control import (
         APMRoverRC, Controller, ControllerConfig, Drone, FcuState,
         JoyCommand, Pose)
-    from redtail_tpu_torch.models import STEREO_SPECS, init_stereo_params
+    from redtail_tpu_torch.models import (STEREO_SPECS, init_stereo_params,
+                                          load_stereo_params)
     from redtail_tpu_torch.models.trailnet import load_trailnet
     from redtail_tpu_torch.runtime import NodeGraph, StageProfiler
     from redtail_tpu_torch.runtime.nodes import (StereoNode, TrailNetNode,
@@ -193,7 +190,9 @@ def main(argv=None):
 
     # --- DNN stages
     spec = STEREO_SPECS[args.stereo_model]
-    stereo = StereoNode(spec, init_stereo_params(spec), profiler=prof,
+    sparams = (load_stereo_params(args.stereo_checkpoint)
+               if args.stereo_checkpoint else init_stereo_params(spec))
+    stereo = StereoNode(spec, sparams, profiler=prof,
                         device=device, overlap=args.overlap,
                         microbatch=args.microbatch, wire=args.wire)
     trailnet = TrailNetNode(

@@ -1,9 +1,9 @@
 """Minimal protobuf wire-format helpers (`redtail_tpu/io/protolite.py`): no
 generated code, no protobuf library.
 
-Used by the Caffe model parsers (`io/caffe.py`). Supports the subset of the
-wire format those use: varint, length-delimited, fixed32/64, packed
-repeated scalars.
+Used by the TF tensor-bundle reader (`io/tf_checkpoint.py`) and the Caffe
+model parsers (`io/caffe.py`). Supports the subset of the wire format
+those use: varint, length-delimited, fixed32/64, packed repeated scalars.
 """
 
 from __future__ import annotations

@@ -10,8 +10,11 @@ from redtail_tpu_torch.models.stereo import (
     StereoNet,
     StereoSpec,
     init_stereo_params,
+    load_stereo_params,
     params_from_npz,
     params_from_numpy,
+    params_from_trt_blob,
+    params_to_trt_blob,
     params_to_numpy,
     stereo_forward,
     use_packed3d,
@@ -32,7 +35,9 @@ from redtail_tpu_torch.models.trailnet_proto import (
 
 __all__ = ["CaffeNet", "STEREO_SPECS", "StereoNet", "StereoSpec", "TrailNet",
            "emit_trailnet_prototxt", "init_stereo_params",
-           "init_trailnet_params", "load_trailnet", "native_params_to_blobs",
-           "params_from_npz", "params_from_numpy", "params_from_w8_npz",
+           "init_trailnet_params", "load_stereo_params", "load_trailnet",
+           "native_params_to_blobs", "params_from_npz", "params_from_numpy",
+           "params_from_trt_blob", "params_from_w8_npz",
+           "params_to_trt_blob",
            "params_to_numpy", "params_to_w8_npz", "stereo_forward",
            "trailnet_forward", "trailnet_predict", "use_packed3d", "yolo"]

@@ -255,11 +255,10 @@ class CaffeNet(nn.Module):
 
     # ------------------------------------------------------------ forward
 
-    def forward(self, inputs) -> Dict[str, torch.Tensor]:
-        """Run the graph. ``inputs``: an array or tensor, or a dict name ->
-        array; NCHW or NHWC (NCHW where C == the input_shape's C and the
-        last axis is not). Returns every blob (NCHW) plus '__out__', the
-        last layer's top."""
+    def input_blobs(self, inputs) -> Dict[str, torch.Tensor]:
+        """The input blobs, NCHW on the net's device in its dtype, from an
+        array or tensor, or a dict name -> array; NCHW or NHWC (NCHW where
+        C == the input_shape's C and the last axis is not)."""
         if not isinstance(inputs, dict):
             inputs = {self.input_names[0]: inputs}
         blobs: Dict[str, torch.Tensor] = {}
@@ -270,6 +269,14 @@ class CaffeNet(nn.Module):
             if not (x.shape[1] == shape[1] and x.shape[3] != shape[1]):
                 x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
             blobs[name] = x
+        return blobs
+
+    def forward(self, inputs) -> Dict[str, torch.Tensor]:
+        """Run the graph (``inputs`` as `input_blobs` takes them). Returns
+        every blob (NCHW) plus '__out__', the last layer's top. Each layer
+        runs through `_layer`, which `quant.caffe_net_forward_int8` calls
+        for every layer it does not run in int8."""
+        blobs = self.input_blobs(inputs)
         last_top = None
         for l in self.layers:
             t = l.get("type")

@@ -21,7 +21,14 @@ All four `STEREO_SPECS` are ported:
 is the JAX function's counterpart. Weights arrive as the JAX package's
 nested param dict of numpy arrays (HWIO / DHWIO, keys as in
 `_spec_layer_shapes`) and are moved to PyTorch's layouts once, at load
-(`params_from_numpy`), including the space-to-depth form of the stem.
+(`params_from_numpy`), including the space-to-depth form of the stem;
+the tree comes from an .npz bundle (`params_from_npz`), a TF checkpoint
+(`load_stereo_params`) or a TRT-era weight blob (`params_from_trt_blob`).
+A 2D conv leaf may be an int8 leaf of `quant/stereo_int8.py` ({weights_q,
+w_scale, x_scale, biases}), run as the JAX package's `_c2d` runs it; an
+int8 stem takes only raw frames. Every bf16 conv rounds once, as JAX's
+does: the layers hold fp32 carriers of their bf16 weights, made at load
+(`ops/convolution.py`).
 Activations are NHWC at the public functions and NCHW / NCDHW in
 `torch.channels_last` / `torch.channels_last_3d` memory inside.
 
@@ -53,6 +60,7 @@ import torch
 from torch import nn
 
 from redtail_tpu_torch import resolve_device
+from redtail_tpu_torch.io.tf_checkpoint import load_checkpoint
 from redtail_tpu_torch.ops.activations import elu, sigmoid
 from redtail_tpu_torch.ops import packed3d as P
 from redtail_tpu_torch.ops.convolution import (
@@ -74,6 +82,8 @@ from redtail_tpu_torch.ops.fused_cost_volume_conv import (
     split_kernels,
 )
 from redtail_tpu_torch.ops.softargmax import softargmin
+from redtail_tpu_torch.quant.ptq import (conv2d_int8_acc, dequantize_acc,
+                                         quantize_act)
 from redtail_tpu_torch.ops.space_to_depth import conv5s2_kernel_to_s2d, s2d_hw
 from redtail_tpu_torch.utils.checkpoint import load_npz_flat
 
@@ -277,11 +287,74 @@ def params_from_npz(path) -> Params:
     return params
 
 
-def _has_quantized(node) -> bool:
-    if isinstance(node, dict):
-        return "weights_q" in node or any(
-            _has_quantized(v) for v in node.values() if isinstance(v, dict))
-    return False
+def load_stereo_params(checkpoint_prefix) -> Params:
+    """The nested param dict (float32 numpy) of a TF checkpoint, e.g. the
+    shipped `stereoDNN/models/NVTiny/TensorFlow/model-inference-513x161-0`:
+    keys `model/scope/layer/var` split into the tree (a leading `model`
+    dropped), read by the numpy-only `io/tf_checkpoint.py`."""
+    flat = load_checkpoint(checkpoint_prefix)
+    params: Params = {}
+    for name, arr in flat.items():
+        parts = name.split("/")
+        if parts[0] == "model":
+            parts = parts[1:]
+        node = params
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = np.asarray(arr, np.float32)
+    return params
+
+
+def params_from_trt_blob(spec: StereoSpec,
+                         blob: Dict[str, np.ndarray]) -> Params:
+    """The nested param dict (float32 numpy) of a TRT-format weight blob
+    (`io/trt_weights.py:read_trt_weights`). The blob holds flat arrays
+    without shapes (`tensorrt_model_builder.py:52-60`); the shapes come from
+    the spec. 2D kernels are stored KCRS and become RSCK, 3D ones KVCRS and
+    become VRSCK (for a transposed conv K is its input channels); the
+    siamese tower reads the blob's `left_` names. The only way to NVSmall's
+    reference weights: its TF checkpoint shipped without data files."""
+    params: Params = {}
+    for path, kshape, bshape in _spec_layer_shapes(spec):
+        layer = path.split("/", 1)[1].replace("/", "_")
+        name = "left_" + layer if path.startswith("encoder2D") else layer
+        wk, wb = blob[name + "_k"], blob[name + "_b"]
+        if len(kshape) == 4:  # KCRS -> RSCK
+            r, s_, c, k = kshape
+            w = wk.reshape(k, c, r, s_).transpose(2, 3, 1, 0)
+        else:  # KVCRS -> VRSCK
+            v, r, s_, c, k = kshape
+            w = wk.reshape(k, v, c, r, s_).transpose(1, 3, 4, 2, 0)
+        if wb.size != int(np.prod(bshape)):
+            raise ValueError(f"{name}_b holds {wb.size} values, the spec's "
+                             f"{path} bias {bshape}")
+        *scopes, leaf = path.split("/")
+        node = params
+        for scope in scopes:
+            node = node.setdefault(scope, {})
+        node[leaf] = {"weights": np.ascontiguousarray(w, np.float32),
+                      "biases": np.asarray(wb, np.float32).reshape(bshape)}
+    return params
+
+
+def params_to_trt_blob(spec: StereoSpec, params: Params
+                       ) -> Dict[str, np.ndarray]:
+    """The inverse of `params_from_trt_blob`: the flat name -> array blob of
+    a param tree in the reference exporter's layouts (RSCK -> KCRS, VRSCK
+    -> KVCRS, the siamese tower under `left_` names), for
+    `io.write_trt_weights`."""
+    blob = {}
+    for path, kshape, _ in _spec_layer_shapes(spec):
+        layer = path.split("/", 1)[1].replace("/", "_")
+        name = "left_" + layer if path.startswith("encoder2D") else layer
+        leaf = params
+        for p in path.split("/"):
+            leaf = leaf[p]
+        perm = (3, 2, 0, 1) if len(kshape) == 4 else (4, 0, 3, 1, 2)
+        blob[name + "_k"] = np.transpose(
+            np.asarray(leaf["weights"], np.float32), perm).reshape(-1)
+        blob[name + "_b"] = np.asarray(leaf["biases"], np.float32)
+    return blob
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -294,10 +367,6 @@ def _tensor(a, device, dtype) -> torch.Tensor:
     return t
 
 
-def _param(a, device, dtype) -> nn.Parameter:
-    return nn.Parameter(_tensor(a, device, dtype), requires_grad=False)
-
-
 def _torch_layout(w: np.ndarray) -> np.ndarray:
     """HWIO / DHWIO -> PyTorch's (O, I, *k); for a transposed conv, whose
     I is its output, that is PyTorch's (in, out, *k)."""
@@ -305,26 +374,80 @@ def _torch_layout(w: np.ndarray) -> np.ndarray:
     return np.transpose(w, (nd - 1, nd - 2, *range(nd - 2)))
 
 
-class _Conv(nn.Module):
+def _carrier(a, device, dtype) -> torch.Tensor:
+    """``a`` rounded to ``dtype`` and held in fp32 (exact): the operand form
+    the round-once convs take (`ops/convolution.py`); 4D / 5D in channels-
+    last memory."""
+    return _tensor(a, device, dtype).float()
+
+
+class _Weights(nn.Module):
+    """A layer's weight and bias as fp32 carriers of the net's dtype, made
+    once at load (exact: every bf16 value is an fp32 value): the operands
+    of every frame's round-once conv, and what `params_to_numpy` reads."""
+
+    def __init__(self, w, b, device, dtype):
+        super().__init__()
+        self.weight = nn.Parameter(_carrier(w, device, dtype),
+                                   requires_grad=False)
+        self.bias = nn.Parameter(_carrier(b, device, dtype),
+                                 requires_grad=False)
+
+
+class _Conv(_Weights):
     """TF-SAME conv layer, 2D or 3D: the HWIO / DHWIO kernel held as
     OIHW / OIDHW."""
 
     def __init__(self, w, b, stride: int, device, dtype):
-        super().__init__()
+        super().__init__(_torch_layout(w), b, device, dtype)
         self.stride = stride
-        self.weight = _param(_torch_layout(w), device, dtype)
-        self.bias = _param(b, device, dtype)
 
     def forward(self, x):
         conv = conv3d_ncdhw if self.weight.dim() == 5 else conv2d_nchw
         return conv(x, self.weight, self.bias, self.stride)
 
 
+class _Int8Conv(nn.Module):
+    """A 2D conv leaf {weights_q, w_scale, x_scale, biases} of
+    `quant/stereo_int8.py`, as the JAX package's `_c2d` runs it: the input
+    quantized with ``x_scale`` (`quantize_act`), int8 x int8 with an exact
+    integer sum (`conv2d_int8`), dequantized by ``x_scale * w_scale`` (the
+    product taken once, at load: the same fp32 multiply), the bias added in
+    fp32 and one cast to the input's dtype."""
+
+    def __init__(self, leaf, stride: int, device, dtype):
+        super().__init__()
+        self.stride = stride
+        w_q = np.asarray(leaf["weights_q"])
+        if w_q.dtype != np.int8 or w_q.ndim != 4 or "x_scale" not in leaf:
+            raise ValueError(
+                "an int8 leaf holds 2D int8 'weights_q', 'w_scale' and "
+                "'x_scale' (quantize_stereo_params_int8); dequantize a w8 "
+                "tree first (dequantize_tree)")
+        self.register_buffer("weight_q", torch.from_numpy(
+            np.ascontiguousarray(np.transpose(w_q, (3, 2, 0, 1))))
+            .to(device))
+        x_scale = torch.tensor([np.float32(leaf["x_scale"])], device=device)
+        w_scale = torch.from_numpy(np.asarray(leaf["w_scale"], np.float32)
+                                   .reshape(-1)).to(device)
+        self.register_buffer("x_scale", x_scale)
+        self.register_buffer("w_scale", w_scale)
+        self.register_buffer("scale", x_scale * w_scale)
+        self.bias = nn.Parameter(_carrier(leaf["biases"], device, dtype),
+                                 requires_grad=False)
+
+    def forward(self, x):
+        acc = conv2d_int8_acc(quantize_act(x, self.x_scale), self.weight_q,
+                              stride=self.stride)
+        return dequantize_acc(acc, self.scale, self.bias, x.dtype)
+
+
 class _FusedConv3D1(_Conv):
     """conv3D_1 over the concat cost volume. ``forward`` is the dense
     conv3d (the plain lowering); ``fused`` computes the same layer from the
     two feature maps (`ops/fused_cost_volume_conv.py`) with the
-    `split_kernels` pair, derived at load and held as OIHW buffers."""
+    `split_kernels` pair, derived at load and held as OIHW fp32 carriers
+    (their only use is the round-once conv)."""
 
     def __init__(self, w, b, device, dtype):
         super().__init__(w, b, 1, device, dtype)
@@ -332,15 +455,15 @@ class _FusedConv3D1(_Conv):
                            split_kernels(torch.from_numpy(
                                np.asarray(w, np.float32)))):
             self.register_buffer(
-                name, _tensor(_torch_layout(k.numpy()), device, dtype),
+                name, _carrier(_torch_layout(k.numpy()), device, dtype),
                 persistent=False)
 
     def fused(self, left, right, max_disp: int):
         """(N, C, H, W) maps -> ELU'd output as an (N, K, D, H, W) view of
         (N, D, H, W, K) memory (`torch.channels_last_3d`)."""
         out = cost_volume_conv3d_nchw(left, right, self.k_left,
-                                      self.k_right, self.bias, max_disp,
-                                      apply_elu=True)
+                                      self.k_right, self.bias,
+                                      max_disp, apply_elu=True)
         return out.permute(0, 4, 1, 2, 3)
 
     def fused_packed(self, left, right, max_disp: int):
@@ -348,18 +471,16 @@ class _FusedConv3D1(_Conv):
         dh-shifted layout, (N, (D + 1) // 2 + 1, (H + 1) // 2 + 1, W, 4K)
         contiguous."""
         return cost_volume_conv3d_nchw(left, right, self.k_left, self.k_right,
-                                       self.bias, max_disp, apply_elu=True,
-                                       emit="dh_shifted")
+                                       self.bias, max_disp,
+                                       apply_elu=True, emit="dh_shifted")
 
 
-class _ConvTranspose(nn.Module):
+class _ConvTranspose(_Weights):
     """TF conv{2,3}d_transpose layer, stride 2: the HWIO / DHWIO kernel
     (I = output channels) held as PyTorch's (in, out, *k)."""
 
     def __init__(self, w, b, device, dtype):
-        super().__init__()
-        self.weight = _param(_torch_layout(w), device, dtype)
-        self.bias = _param(b, device, dtype)
+        super().__init__(_torch_layout(w), b, device, dtype)
 
     def forward(self, x, out_spatial):
         conv = (conv3d_transpose_ncdhw if self.weight.dim() == 5
@@ -441,13 +562,16 @@ class _PackedConv3d(nn.Module):
     """One packed layer ('conv', 'down', 'down_unpack' or 'deconv' of
     `ops/packed3d.py`): its band-composed kernel for each row parity the
     kernel depends on, derived at load from the DHWIO weights and held in
-    the conv's weight layout as a non-persistent buffer, with its bias."""
+    the conv's weight layout as a non-persistent buffer, with its bias: the
+    cuDNN forms as fp32 carriers of the net's dtype (the round-once conv's
+    operands), conv223's K-major form in the net's dtype (the CUDA kernel
+    reads bf16 weights and sums in fp32 itself)."""
 
     def __init__(self, step: _Step, w, b, device, dtype):
         super().__init__()
         self.step = step
         wt = torch.from_numpy(np.asarray(w, np.float32))
-        self.register_buffer("bias", _tensor(b, device, dtype),
+        self.register_buffer("bias", _carrier(b, device, dtype),
                              persistent=False)
         # a downsample's H-packed band and a deconv's H-packed output band
         # depend on the row count's parity (the TF-SAME low pad)
@@ -469,9 +593,11 @@ class _PackedConv3d(nn.Module):
                 k = P.prepare(P.deconv3d_packed_kernel(
                     wt, out_spatial=spatial, in_packed_d=step.in_packed_d,
                     pack_h=step.packed_h), "lhs_dilated")
-            self.register_buffer(f"kernel{hp}", k.to(device=device,
-                                                     dtype=dtype),
-                                 persistent=False)
+            k = k.to(device=device, dtype=dtype)
+            if not (step.op == "conv" and step.packed_h and step.in_shifted):
+                k = k.float()  # not conv223's: a carrier (band entries
+                #                are weights or zeros, so exact)
+            self.register_buffer(f"kernel{hp}", k, persistent=False)
 
     def forward(self, x, spatial):
         """``x``: NDHWC packed; ``spatial``: the original (D, H, W) of the
@@ -498,13 +624,14 @@ class _DfoldDeconv3d(nn.Module):
     """The packed head's final c_out = 1 deconv as
     `conv3d_transpose_dfold` on the packed layout, disparity last, with the
     soft-argmin fused: (N, H, W) disparity. Its banded conv2d weights, for
-    each parity of the output's (H, W), are derived at load."""
+    each parity of the output's (H, W), are derived at load and held, with
+    the bias, as fp32 carriers of the net's dtype."""
 
     def __init__(self, step: _Step, w, b, *, d_out: int, device, dtype):
         super().__init__()
         self.h_packed = step.layout == "dh"
         wt = torch.from_numpy(np.asarray(w, np.float32))
-        self.register_buffer("bias", _tensor(b, device, dtype),
+        self.register_buffer("bias", _carrier(b, device, dtype),
                              persistent=False)
         d_in = 2 * (-(-step.d // 2))   # the packed slots' true depths
         self._blocks = {}
@@ -515,9 +642,9 @@ class _DfoldDeconv3d(nn.Module):
                         dfold_weights(wt, out_spatial=(d_out, 2 + hp, 2 + wp),
                                       d_in=d_in, h_packed=self.h_packed)):
                     name = f"weight{hp}{wp}_{j}"
-                    self.register_buffer(name, weight.to(device=device,
-                                                         dtype=dtype),
-                                         persistent=False)
+                    self.register_buffer(name, weight.to(
+                        device=device, dtype=dtype).float(),
+                        persistent=False)
                     meta.append((i_lo, i_hi, ob, ob_hi, name))
                 self._blocks[(hp, wp)] = meta
 
@@ -551,11 +678,8 @@ class StereoNet(nn.Module):
     def __init__(self, spec: StereoSpec, params: Params, *,
                  device: torch.device, dtype: torch.dtype):
         super().__init__()
-        if _has_quantized(params):
-            raise NotImplementedError(
-                "int8 'weights_q' leaves are not ported yet (ROADMAP.md, "
-                "module queue item 7)")
         self.spec = spec
+        self._dtype = dtype
         strides = {f"bneck_encoder2D/{name}": s
                    for name, _, s in spec.bneck_channels}
         strides["encoder2D/conv1"] = 2
@@ -566,6 +690,19 @@ class StereoNet(nn.Module):
             leaf = params
             for p in path.split("/"):
                 leaf = leaf[p]
+            if "weights_q" in leaf:
+                if path.startswith(("bneck_decoder2D/", "decoder3D/",
+                                    "encoder3D/")):
+                    raise ValueError(f"{path}: only 2D convs take int8 "
+                                     "leaves")
+                layer = _Int8Conv(leaf, strides.get(path, 1), device, dtype)
+                if tuple(layer.weight_q.shape) != tuple(
+                        kshape[i] for i in (3, 2, 0, 1)):
+                    raise ValueError(f"{path}: int8 kernel shape "
+                                     f"{np.shape(leaf['weights_q'])}, spec "
+                                     f"wants {kshape}")
+                self._add(path, layer)
+                continue
             w, b = leaf["weights"], leaf["biases"]
             if tuple(w.shape) != kshape:
                 raise ValueError(f"{path}: kernel shape {tuple(w.shape)}, "
@@ -599,7 +736,8 @@ class StereoNet(nn.Module):
                     continue
                 self.packed3D[step.name] = layer
         stem = params["encoder2D"]["conv1"]
-        self.conv1_s2d = _Conv(
+        # an int8 stem takes only raw frames (no int8 s2d form), as in JAX
+        self.conv1_s2d = None if "weights_q" in stem else _Conv(
             conv5s2_kernel_to_s2d(np.asarray(stem["weights"], np.float32),
                                   spec.input_hw),
             stem["biases"], 1, device, dtype)
@@ -615,13 +753,22 @@ class StereoNet(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.conv1_s2d.weight.dtype
+        """The activations' dtype (the float weights', as built)."""
+        return self._dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.encoder2D.conv1.bias.device
 
     def _conv1(self, x):
         """The 5x5 stride-2 stem, or its 3x3 stride-1 form when ``x``
         arrives space-to-depth packed (12 channels)."""
-        stem = self.conv1_s2d if x.shape[1] == 12 else self.encoder2D.conv1
-        return elu(stem(x))
+        if x.shape[1] == 12:
+            if self.conv1_s2d is None:
+                raise ValueError("s2d-packed input unsupported with int8 "
+                                 "conv1: feed raw (N, H, W, 3) frames")
+            return elu(self.conv1_s2d(x))
+        return elu(self.encoder2D.conv1(x))
 
     def _plain_encoder(self, x):
         """NVTiny/NVSmall tower: conv1 5x5 s2 + conv2..4 + conv5 (no
@@ -764,7 +911,7 @@ def params_from_numpy(spec: StereoSpec, params: Params, *, device=None,
 
 def params_to_numpy(net: StereoNet) -> Params:
     """The inverse of `params_from_numpy`: the nested HWIO / DHWIO param
-    dict as float32 numpy."""
+    dict as float32 numpy (an int8 layer as its int8 leaf)."""
     params: Params = {}
     for path, _, _ in _spec_layer_shapes(net.spec):
         layer = net.get_submodule(path.replace("/", "."))
@@ -772,6 +919,13 @@ def params_to_numpy(net: StereoNet) -> Params:
         node = params
         for s in scopes:
             node = node.setdefault(s, {})
+        if isinstance(layer, _Int8Conv):
+            node[name] = {
+                "weights_q": layer.weight_q.permute(2, 3, 1, 0).cpu().numpy(),
+                "w_scale": layer.w_scale.cpu().numpy(),
+                "x_scale": np.float32(layer.x_scale.item()),
+                "biases": layer.bias.float().cpu().numpy()}
+            continue
         nd = layer.weight.dim()
         node[name] = {
             "weights": layer.weight.permute(*range(2, nd), 1, 0)

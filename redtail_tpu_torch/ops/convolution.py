@@ -17,18 +17,21 @@ What is TF's is arranged around them:
   pads (0, 1)) is an explicit zero pad of the input with ``padding=0``;
 - a transposed conv is cropped to ``out_spatial`` at the forward conv's
   low pad;
-- the bias is added in fp32 before the cast to the input dtype. cuDNN
-  returns a bf16 conv output already rounded, so on the bf16 path the sum
-  is rounded twice where JAX rounds once;
+- every convolution rounds once, as JAX's do (an fp32 sum, the bias
+  added in fp32, one cast to the input dtype): a bf16 conv runs on fp32
+  carriers of its operands with TF32 allowed, exact in its products since
+  every bf16 value is a TF32 value (`_fp32_accumulate`), and its fp32
+  output takes the bias before the one cast. The model passes weights
+  already widened at load, so a frame widens only the activations. (cuDNN's
+  own bf16 conv would return a rounded sum, and the bias added after it
+  would round a second time.) TrailNet's and the Caffe interpreter's
+  `conv2d_round_once` is the same arithmetic with Caffe's explicit pads;
 - fp32 convolutions run in full fp32, as JAX's ``Precision.HIGHEST``:
-  cuDNN would otherwise use TF32, so `_exact_fp32` turns TF32 off (cuDNN
-  and matmul flags) around each fp32 CUDA conv and restores it after.
-
-TrailNet's and the Caffe interpreter's convolutions (`conv2d_round_once`,
-Caffe's explicit symmetric pads) round once, as JAX's do: a bf16 conv runs
-on fp32 copies of its operands with TF32 allowed, exact in its products
-since every bf16 value is a TF32 value, and the fp32 sum plus bias is
-rounded to bf16 at the end.
+  cuDNN would otherwise use TF32, so `_fp32_accumulate` turns TF32 off
+  (cuDNN and matmul flags) around each fp32 CUDA conv and restores it
+  after. Those flags are process-wide: one lock (`_FLAGS_LOCK`) spans
+  each set, launch and restore, so a node thread's conv never launches
+  under another node thread's setting.
 
 `plain_lowering` is the JAX package's switch to the spec-literal forms; in
 the port it selects the explicit concat volume + dense conv3D_1 over the
@@ -43,6 +46,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import os
+import threading
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -102,28 +106,37 @@ def tf_same_padding(in_dim: int, kern_dim: int,
     return pad_start, pad_along - pad_start
 
 
+# cuDNN's and cuBLAS's TF32 and determinism switches are process-wide, and
+# the serving nodes run on threads of their own (a bf16 StereoNode beside an
+# fp32 TrailNetNode in `pipeline_app`), with the GIL dropped inside a conv:
+# one lock spans setting the switches, the launch that reads them and their
+# restore, so no conv of the port launches under another thread's setting.
+_FLAGS_LOCK = threading.RLock()
+
+
 @contextlib.contextmanager
 def _tf32(x: torch.Tensor, allow: bool):
     """cuDNN's and cuBLAS's TF32 switches set to ``allow`` around CUDA work
-    on ``x``, restored after; nothing on the CPU."""
+    on ``x``, and cuDNN held to its deterministic algorithms (a frame
+    served twice gives the same bits, as on the TPU; some fp32 transposed
+    convs otherwise sum with atomics), restored after, all under
+    `_FLAGS_LOCK`; nothing on the CPU."""
     if not x.is_cuda:
         yield
         return
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = allow
-    torch.backends.cuda.matmul.allow_tf32 = allow
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
-
-
-def _exact_fp32(x: torch.Tensor):
-    if x.dtype != torch.float32:
-        return contextlib.nullcontext()
-    return _tf32(x, False)
+    with _FLAGS_LOCK:
+        saved = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.deterministic)
+        torch.backends.cudnn.allow_tf32 = allow
+        torch.backends.cuda.matmul.allow_tf32 = allow
+        torch.backends.cudnn.deterministic = True
+        try:
+            yield
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic) = saved
 
 
 def _fp32_accumulate(x: torch.Tensor):
@@ -158,6 +171,8 @@ def linear_fp32(x: torch.Tensor, w: torch.Tensor,
 
 def _add_bias(out: torch.Tensor, b: Optional[torch.Tensor],
               dtype: torch.dtype) -> torch.Tensor:
+    """The fp32 conv sum ``out`` + bias over axis 1, in fp32, then one cast
+    to ``dtype``."""
     if b is None:
         return out.to(dtype)
     return (out.float() + b.float().reshape(-1, *[1] * (out.dim() - 2))
@@ -190,8 +205,9 @@ def _conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     else:
         x = F.pad(x, [p for pair in reversed(pads) for p in pair])
         conv_pad = 0
-    with _exact_fp32(x):
-        out = _CONV[x.dim()](x, w, stride=strides, padding=conv_pad)
+    with _fp32_accumulate(x):
+        out = _CONV[x.dim()](x.float(), w.float(), stride=strides,
+                             padding=conv_pad)
     return _add_bias(out, b, x.dtype)
 
 
@@ -202,8 +218,8 @@ def _conv_transpose(y: torch.Tensor, w: torch.Tensor,
     maps ``out_spatial`` to y's size. y (N, K, *Y), w (K, C, *k)."""
     padding = _padding(padding)
     strides = _tuple(strides, y.dim() - 2)
-    with _exact_fp32(y):
-        full = _CONV_T[y.dim()](y, w, stride=strides)
+    with _fp32_accumulate(y):
+        full = _CONV_T[y.dim()](y.float(), w.float(), stride=strides)
     crop = []
     for size, full_size, k, s in zip(out_spatial, full.shape[2:],
                                      w.shape[2:], strides):
@@ -323,7 +339,8 @@ def _weave_axis(even: torch.Tensor, odd: torch.Tensor, axis: int,
 
 def _add_bias_last(out: torch.Tensor, b: Optional[torch.Tensor],
                    dtype: torch.dtype) -> torch.Tensor:
-    """``out`` + bias over the last dim, in fp32, then one cast."""
+    """The fp32 conv sum ``out`` + bias over the last dim, in fp32, then
+    one cast."""
     if b is None:
         return out.to(dtype)
     return (out.float() + b.float()).to(dtype)
@@ -460,8 +477,9 @@ def conv3d_transpose_dfold(y: torch.Tensor, w: Optional[torch.Tensor],
         else:
             x_win = y2[..., i_lo * c_in:(i_hi + 1) * c_in]
         xc = x_win.permute(0, 3, 1, 2)
-        with _exact_fp32(xc):
-            part = F.conv2d(xc, weight, padding=1).permute(0, 2, 3, 1)
+        with _fp32_accumulate(xc):
+            part = F.conv2d(xc.float(), weight.float(),
+                            padding=1).permute(0, 2, 3, 1)
         parts.append(part.reshape(n, part.shape[1], w_in + 1, pgroups,
                                   ob_hi - ob, -1))
     conv = torch.cat(parts, dim=4) if len(parts) > 1 else parts[0]

@@ -34,7 +34,9 @@ weights) and, as ``kernel=``, optionally its band-composed kernel already
 in the conv's weight layout (`prepare`): the model derives those once, at
 load. The in-shifted, H-packed stride-1 conv (the head's conv3D_2 /
 conv3D_1b) runs the CUDA kernel `kernels/conv223.py` on the card; every
-other conv is cuDNN's, with TF32 off for fp32. Masks that zero a padding
+other conv is cuDNN's on fp32 carriers, TF32 off for fp32 and allowed for
+bf16, its sum plus bias rounded once (`ops/convolution.py`). The model
+holds those kernels widened to fp32 at load. Masks that zero a padding
 slot are in-place slice assignments; the JAX package's `mask_form` choice
 between two forms is a TPU fusion knob with no counterpart here.
 """
@@ -48,7 +50,8 @@ import torch
 import torch.nn.functional as F
 
 from redtail_tpu_torch.kernels.conv223 import conv223, kernel_weights
-from redtail_tpu_torch.ops.convolution import _exact_fp32, tf_same_padding
+from redtail_tpu_torch.ops.convolution import (_fp32_accumulate,
+                                               tf_same_padding)
 
 Pads = Sequence[Tuple[int, int]]
 
@@ -110,8 +113,9 @@ def _conv(x: torch.Tensor, wt: torch.Tensor, strides, pads: Pads,
           dil=(1, 1, 1)) -> torch.Tensor:
     """`lax.conv_general_dilated` over NDHWC ``x``: window strides, per-axis
     (lo, hi) pads (negative ones crop) and lhs dilation ``dil``; ``wt`` in
-    the `prepare` form the dilation needs. Returns NDHWC, unrounded
-    (cuDNN's output dtype)."""
+    the `prepare` form the dilation needs. Runs on fp32 carriers (TF32
+    allowed for a bf16 ``x``, exact in its products) and returns the NDHWC
+    fp32 sum, unrounded: `_bias` rounds it once."""
     xc = x.permute(0, 4, 1, 2, 3)
     if all(d == 1 for d in dil):
         if all(lo == hi >= 0 for lo, hi in pads):
@@ -119,15 +123,16 @@ def _conv(x: torch.Tensor, wt: torch.Tensor, strides, pads: Pads,
         else:
             xc = F.pad(xc, [p for pair in reversed(pads) for p in pair])
             pad = 0
-        with _exact_fp32(xc):
-            out = F.conv3d(xc, wt, stride=tuple(strides), padding=pad)
+        with _fp32_accumulate(xc):
+            out = F.conv3d(xc.float(), wt.float(), stride=tuple(strides),
+                           padding=pad)
         return out.permute(0, 2, 3, 4, 1)
     if tuple(strides) != (1, 1, 1):
         raise ValueError("lhs-dilated convs take window strides 1")
     # out[o] = sum_t k[t] x_dil[o + t - lo] = full[o + K - 1 - lo], where
     # full = conv_transpose(x, flip(k), stride=dil) without padding
-    with _exact_fp32(xc):
-        full = F.conv_transpose3d(xc, wt, stride=tuple(dil))
+    with _fp32_accumulate(xc):
+        full = F.conv_transpose3d(xc.float(), wt.float(), stride=tuple(dil))
     crop = []
     for n_in, ksz, L, (lo, hi), n_full in zip(
             xc.shape[2:], wt.shape[2:], dil, pads, full.shape[2:]):

@@ -26,9 +26,8 @@ Frames in flight (``overlap``/``microbatch``, `_OverlapMixin`) run on one
 CUDA stream per node: uploads from pinned staging buffers, the result
 copied to a pinned host buffer, and an event that the host waits on only
 when the result is due; the result is then copied out of the buffer. On the CPU the same code runs eagerly and
-the queue only shifts the results. Quantized weights and pinning to
-another card raise `NotImplementedError` (ROADMAP.md, module queue items 7
-and 10).
+the queue only shifts the results. Pinning to another card raises
+`NotImplementedError` (ROADMAP.md, module queue item 10).
 """
 
 from __future__ import annotations
@@ -40,6 +39,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from redtail_tpu_torch import native, resolve_device
 from redtail_tpu_torch.models import yolo
@@ -49,6 +49,9 @@ from redtail_tpu_torch.models.stereo import (
     params_from_numpy,
 )
 from redtail_tpu_torch.models.trailnet import INPUT_HW, load_trailnet
+from redtail_tpu_torch.quant import (calibrate_stereo, dequantize_tree,
+                                     quantize_stereo_params_int8,
+                                     quantize_stereo_params_w8)
 from redtail_tpu_torch.runtime.graph import Stamped
 from redtail_tpu_torch.runtime.profiler import StageProfiler
 
@@ -66,6 +69,19 @@ def _host_resize(x_u8: np.ndarray, hw, *, interpolation: str) -> np.ndarray:
         return cv2.resize(x_u8, (w, h), interpolation=interp)
     return np.stack([cv2.resize(f, (w, h), interpolation=interp)
                      for f in x_u8])
+
+
+def _calib_frame(x_u8, hw) -> np.ndarray:
+    """A calibration frame as the JAX node prepares it: float32, resized
+    bilinearly (with antialiasing, as `jax.image.resize`) only when its size
+    differs, BGR -> RGB, / 255."""
+    x = np.asarray(x_u8, np.float32)
+    if x.shape[:2] != tuple(hw):
+        x = F.interpolate(torch.from_numpy(x).permute(2, 0, 1)[None],
+                          size=tuple(hw), mode="bilinear",
+                          align_corners=False, antialias=True)[0] \
+            .permute(1, 2, 0).numpy()
+    return x[..., ::-1] / np.float32(255.0)
 
 
 def _check_single_device(device) -> None:
@@ -313,38 +329,65 @@ class StereoNode(_OverlapMixin):
     ``wire``: the disparity's transport from the card. ``'f32'`` copies
     float32; ``'u16'`` copies round(disp * 64) as 16 bits and converts on
     the host, half the bytes at 1/64 px steps. As in the JAX package it
-    saturates silently at 65535 / 64 = 1023.984375 px."""
+    saturates silently at 65535 / 64 = 1023.984375 px.
+
+    ``quantize`` (with the numpy param tree): ``'w8'`` stores the conv
+    weights as per-channel int8 and dequantizes them once, at load (the
+    weight-only rung); ``'int8'`` also runs the 2D conv stacks as int8 x
+    int8 with an exact integer sum (`quant/stereo_int8.py`), calibrated in
+    fp32 on ``calib_frames``, uint8 BGR (left, right) pairs preprocessed as
+    the JAX node does (bilinear resize if needed, RGB, /255). An int8 stem
+    has no s2d form, so that node uploads raw RGB frames and the native
+    pack stays off."""
 
     def __init__(self, spec: StereoSpec, params, *,
                  dtype: torch.dtype = torch.bfloat16,
-                 quantize: Optional[str] = None,
+                 quantize: Optional[str] = None, calib_frames=None,
                  profiler: Optional[StageProfiler] = None,
                  device=None, overlap: int = 0, microbatch: int = 1,
                  wire: str = "f32"):
-        if quantize is not None:
-            raise NotImplementedError(
-                f"quantize={quantize!r} is not ported yet (ROADMAP.md, "
-                "module queue item 7)")
         if wire not in ("f32", "u16"):
             raise ValueError(f"unknown wire format {wire!r}")
+        if quantize not in (None, "w8", "int8"):
+            raise ValueError(f"unknown quantize mode {quantize!r}")
+        if quantize is not None and isinstance(params, StereoNet):
+            raise ValueError("quantize takes the numpy param tree, not a "
+                             "StereoNet")
         _check_single_device(device)
         self._device = resolve_device(device)
         self.spec = spec
         self.profiler = profiler or StageProfiler()
         self._dtype = dtype
         self._wire = wire
+        self._hw = tuple(spec.input_hw)
+        if quantize == "int8":
+            if not calib_frames:
+                raise ValueError("quantize='int8' requires calib_frames")
+            pairs = [(_calib_frame(l, self._hw), _calib_frame(r, self._hw))
+                     for l, r in calib_frames]
+            params = quantize_stereo_params_int8(params, calibrate_stereo(
+                spec, params, pairs, device=self._device))
+        elif quantize == "w8":
+            params = dequantize_tree(quantize_stereo_params_w8(params))
+        # an int8 stem has no s2d form (JAX: use_s2d_stem() and not int8)
+        self._s2d = quantize != "int8"
         if isinstance(params, StereoNet):
-            self.net = params.to(device=self._device, dtype=dtype)
+            if params.dtype != dtype:
+                raise ValueError(f"the StereoNet was built in "
+                                 f"{params.dtype}; this node serves {dtype}")
+            self.net = params.to(device=self._device)
         else:
             self.net = params_from_numpy(spec, params, device=self._device,
                                          dtype=dtype)
-        self._hw = tuple(spec.input_hw)
         self._init_overlap(overlap, microbatch)
 
     def _host_prep(self, x_u8: np.ndarray) -> np.ndarray:
         """Resize if needed, then BGR -> RGB and s2d pack in one native
-        pass, on host uint8 (bit-identical numpy fallback)."""
+        pass, on host uint8 (bit-identical numpy fallback); for an int8
+        stem only the resize and BGR -> RGB."""
         x_u8 = _host_resize(x_u8, self._hw, interpolation="area")
+        if not self._s2d:
+            return np.ascontiguousarray(x_u8[..., ::-1])
         return native.pack_s2d(x_u8, swap_rb=True)
 
     def _run(self, inputs) -> torch.Tensor:

@@ -1,1 +1,1 @@
-"""Utilities: checkpoint bundles."""
+"""Utilities: checkpoint bundles, disparity metrics."""

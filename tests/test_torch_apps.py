@@ -260,6 +260,8 @@ def test_pipeline_app_flags_and_rejections():
         (1, 1, "f32", "sim", "resnet18_2d")
     with pytest.raises(SystemExit, match="together"):
         pipeline_app.main(["--video-left", "l.avi", "--duration", "0.1"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # the flag reads a TF checkpoint's index (tests/test_torch_weights_io.py
+    # serves a real one); a missing one is a missing file
+    with pytest.raises(FileNotFoundError, match="ckpt.index"):
         pipeline_app.main(["--stereo-checkpoint", "ckpt", "--cpu"])
     assert pipeline_app._default_yolo_prototxt() is None

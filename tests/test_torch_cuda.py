@@ -3,8 +3,11 @@ epilogues, concat volume, fused cost-volume assembly in both layouts, the
 packed head's dense conv223) against its plain version, the wrappers'
 no-fallback rule and their refusal of autograd, small models served
 through the kernels, and TrailNet and the YOLO node (no kernel on their
-path) against the CPU, and the serving runtime: frames in flight on the
-nodes' streams, microbatches through the kernels, the u16 wire.
+path) against the CPU, the serving runtime: frames in flight on the
+nodes' streams, microbatches through the kernels, the u16 wire; and the
+quantized rungs: the exact int8 conv and `quantize_act` bit-equal to the
+CPU, the round-once bf16 convs, quantized nodes through the corr kernel,
+a TRT blob's net bit-equal to its tree.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither JAX nor `redtail_tpu`, so it also runs on a machine without
@@ -707,3 +710,230 @@ def test_real_trailnet_sim_on_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(card(pose, np.random.RandomState(0)),
                                cpu(pose, np.random.RandomState(0)),
                                rtol=0, atol=1e-4)
+
+
+# ------------------------------------------------------ quantized rungs
+
+
+def _conditioned(tree, seed=7):
+    """Random biases, and residual-branch and feature-head weights scaled by
+    0.3 so ResNet18-2D's cost volume is O(1), as a trained network's is
+    (tests/test_torch_stereo.py `conditioned`): under plain He-init the
+    soft-argmax turns bf16 rounding into pixels of output."""
+    rs = np.random.RandomState(seed)
+
+    def walk(node, path):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, f"{path}/{k}")
+            elif k == "biases":
+                out[k] = (rs.randn(*v.shape) * 0.1).astype(np.float32)
+            elif path.endswith(("res_conv2", "encoder2D_out")):
+                out[k] = (v * 0.3).astype(np.float32)
+            else:
+                out[k] = v
+        return out
+    return walk(tree, "")
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("c_in", [32, 128, 256],
+                         ids=["K=288", "K=1152", "K=2304"])
+def test_conv2d_int8_on_card_bit_equal_to_cpu(cuda_device, c_in, stride):
+    """Both exact routes on the card (fp32 carriers at K = 288, im2col and
+    `torch._int_mm` above the 2**24 bound, K and N padded to multiples of
+    8) give the CPU's integer sums, so the dequantized outputs are
+    bit-equal; a 3x3 VALID input (one output row) pads M past 16."""
+    from redtail_tpu_torch.quant import ptq
+    rs = np.random.RandomState(c_in)
+    for shape, padding in (((2, c_in, 13, 21), "SAME"),
+                           ((1, c_in, 3, 3), "VALID")):
+        x = rs.randint(-127, 128, shape).astype(np.int8)
+        w = rs.randint(-127, 128, (20, c_in, 3, 3)).astype(np.int8)
+        ws = torch.from_numpy(((rs.rand(20) + 0.5) * 1e-3).astype(np.float32))
+        b = torch.from_numpy(rs.randn(20).astype(np.float32))
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got, want = (ptq.conv2d_int8_nchw(
+                torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev),
+                x_scale=0.0123, w_scale=ws, bias=b.to(dev), stride=stride,
+                padding=padding, out_dtype=out_dtype).cpu()
+                for dev in (cuda_device, "cpu"))
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("x_shape,w_shape,stride", [
+    ((2, 3, 41, 65), (32, 3, 5, 5), 2),     # ResNet18-2D's conv1: K = 75
+    ((1, 32, 13, 21), (32, 32, 3, 3), 1),   # K = 288, M = 273
+    ((2, 256, 9, 11), (20, 256, 3, 3), 1),  # K = 2304, M = 198
+    ((1, 96, 5, 40), (16, 96, 1, 1), 1)])   # K = 96, M = 200
+def test_int_mm_route_on_card_at_rows_off_32(cuda_device, x_shape, w_shape,
+                                            stride):
+    """The im2col + `torch._int_mm` route at row counts M that are not a
+    multiple of 32 and small K, shapes whose unpadded product cuBLASLt
+    refuses on the H100: the rows padded to 32, it gives the CPU's exact
+    int32 sums."""
+    from redtail_tpu_torch.quant import ptq
+    rs = np.random.RandomState(sum(x_shape))
+    x = torch.from_numpy(rs.randint(-127, 128, x_shape).astype(np.int8))
+    w = torch.from_numpy(rs.randint(-127, 128, w_shape).astype(np.int8))
+    pads = ptq._conv_pads("SAME", x_shape[2:], w_shape[2:], (stride,) * 2)
+    got = ptq._int_mm_conv(x.to(cuda_device), w.to(cuda_device),
+                           (stride,) * 2, pads).cpu()
+    assert torch.equal(got, ptq._int_mm_conv(x, w, (stride,) * 2, pads))
+
+
+def test_quantize_act_on_card_bit_equal_to_cpu(cuda_device):
+    """The division by the scale is a true fp32 division on the card too
+    (the scale lies on the device: a host scalar would be a reciprocal
+    multiply), rounding half to even."""
+    from redtail_tpu_torch.quant import ptq
+    x = torch.from_numpy((np.random.RandomState(1).randn(2, 16, 33, 65) * 5)
+                         .astype(np.float32))
+    x.view(-1)[:4] = torch.tensor([0.25, 0.75, -0.25, 1.25])
+    for scale in (0.5, 0.0371, np.float32(1.7)):
+        assert torch.equal(ptq.quantize_act(x.to(cuda_device), scale).cpu(),
+                           ptq.quantize_act(x, scale))
+
+
+@pytest.mark.parametrize("name", ["conv2d", "conv3d", "conv2d_transpose",
+                                  "conv3d_transpose"])
+def test_round_once_convs_on_card_within_a_step_of_cpu(cuda_device, name):
+    """bf16 convs on fp32 carriers with TF32 allowed: exact products, fp32
+    sums in another order than the CPU's, one rounding: at most one bf16
+    step apart."""
+    from redtail_tpu_torch.ops import convolution as conv
+    gen = torch.Generator().manual_seed(3)
+    nd = 3 if "3d" in name else 2
+    x = torch.randn((2,) + (7, 12, 17)[-nd:] + (16,), generator=gen)
+    w = torch.randn((3,) * nd + (16, 24), generator=gen) / 8
+    b = torch.randn(24, generator=gen)
+    kw = {}
+    if "transpose" in name:  # I = 24, the transpose's output channels
+        w = w.transpose(-1, -2).contiguous()
+        kw["out_spatial"] = tuple(2 * s for s in x.shape[1:-1])
+    x, w, b = (t.to(torch.bfloat16) for t in (x, w, b))
+    fn = getattr(conv, name)
+    got = fn(x.to(cuda_device), w.to(cuda_device), b.to(cuda_device), **kw)
+    want = fn(x, w, b, **kw)
+    assert got.dtype == torch.bfloat16
+    # one bf16 step of the larger magnitude, plus the fp32 sums' order
+    # error (1e-4 at these O(1) sums) where cancellation leaves a result
+    # near zero
+    got, want = got.cpu().float(), want.float()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+    step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    assert bool(((got - want).abs() <= step + 1e-4).all())
+
+
+@pytest.mark.parametrize("quantize", ["w8", "int8"])
+def test_stereo_node_quantized_serves_through_the_kernel_on_card(
+        cuda_device, quantize):
+    """ResNet18-2D at 65x129, bf16: the quantized node on the card runs
+    the corr kernel once a frame and stays within the bf16 gate (a mean of
+    1e-2 sigmoid units, in pixels) of the same node on the CPU."""
+    hw = (65, 129)
+    spec = dataclasses.replace(STEREO_SPECS["resnet18_2d"], input_hw=hw,
+                               max_disp=8)
+    tree = _conditioned(init_stereo_params(spec, seed=0))
+    rs = np.random.RandomState(2)
+    calib = [tuple(rs.randint(0, 256, hw + (3,)).astype(np.uint8)
+                   for _ in range(2))]
+    kw = {"calib_frames": calib} if quantize == "int8" else {}
+    card = StereoNode(spec, tree, dtype=torch.bfloat16, quantize=quantize,
+                      **kw)
+    cpu = StereoNode(spec, tree, dtype=torch.float32, device="cpu",
+                     quantize=quantize, **kw)
+    frame = calib[0]
+    before = corr.corr_softargmax.launches
+    got = card(*frame)
+    assert corr.corr_softargmax.launches == before + 1
+    assert card._s2d == (quantize != "int8")
+    assert got.shape == hw and np.isfinite(got).all()
+    assert np.abs(got - cpu(*frame)).mean() < 1e-2 * hw[1]
+
+
+def test_trt_blob_net_on_card_bit_equal_to_tree(cuda_device, tmp_path):
+    """NVTiny from an fp32 TRT blob serves bit-equal to the tree it was
+    written from, in fp32 with cuDNN's deterministic algorithms."""
+    from redtail_tpu_torch.io import read_trt_weights, write_trt_weights
+    from redtail_tpu_torch.models import (params_from_trt_blob,
+                                          params_to_trt_blob)
+
+    hw = (65, 129)
+    spec = dataclasses.replace(STEREO_SPECS["nvtiny"], input_hw=hw,
+                               max_disp=8)
+    tree = init_stereo_params(spec, seed=1)
+    blob = params_to_trt_blob(spec, tree)
+    write_trt_weights(blob, tmp_path / "w.trtw")
+    loaded = params_from_trt_blob(spec, read_trt_weights(tmp_path / "w.trtw"))
+    rs = np.random.RandomState(3)
+    frame = tuple(rs.randint(0, 256, hw + (3,)).astype(np.uint8)
+                  for _ in range(2))
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = StereoNode(spec, tree, dtype=torch.float32)(*frame)
+        got = StereoNode(spec, loaded, dtype=torch.float32)(*frame)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("widen", [False, True],
+                         ids=["as-is", "launch-widened"])
+def test_fp32_trailnet_beside_bf16_stereo_thread_bit_equal(cuda_device,
+                                                           monkeypatch,
+                                                           widen):
+    """`pipeline_app` runs a bf16 StereoNode (its convs with TF32 allowed)
+    and an fp32 TrailNetNode (TF32 off) on threads of their own, and the
+    switches are process-wide: TrailNet served while the stereo thread
+    runs frame after frame is bit-equal to TrailNet served alone.
+    ``launch-widened``: each port conv sleeps 0.2 ms (dropping the GIL)
+    between setting the switches and launching, as a slow launch would,
+    so the other thread's switches would land inside every window."""
+    import threading
+    import time
+    import types
+
+    from redtail_tpu_torch.ops import convolution as conv
+
+    if widen:
+        def slow(fn):
+            def call(*args, **kw):
+                time.sleep(2e-4)
+                return fn(*args, **kw)
+            return call
+        for table in (conv._CONV, conv._CONV_T):
+            for k, fn in list(table.items()):
+                monkeypatch.setitem(table, k, slow(fn))
+        monkeypatch.setattr(conv, "F", types.SimpleNamespace(
+            conv2d=slow(torch.nn.functional.conv2d),
+            linear=slow(torch.nn.functional.linear),
+            pad=torch.nn.functional.pad))
+    spec = dataclasses.replace(STEREO_SPECS["resnet18_2d"],
+                               input_hw=(161, 513), max_disp=24)
+    stereo = StereoNode(spec, _conditioned(init_stereo_params(spec, seed=0)),
+                        dtype=torch.bfloat16)
+    pairs = _serve_frames(2, hw=(161, 513), seed=4)
+    node = TrailNetNode(_trailnet("caffe", torch.float32, None))
+    rs = np.random.RandomState(5)
+    frames = [rs.randint(0, 256, (180, 320, 3)).astype(np.uint8)
+              for _ in range(12)]
+    alone = [node(f) for f in frames]
+    stereo(*pairs[0])
+    stop, served = threading.Event(), []
+
+    def serve_stereo():
+        while not stop.is_set():
+            served.append(stereo(*pairs[len(served) % 2]))
+
+    worker = threading.Thread(target=serve_stereo)
+    worker.start()
+    try:
+        beside = [node(f) for f in frames]
+    finally:
+        stop.set()
+        worker.join()
+    assert len(served) >= 2
+    assert all(np.array_equal(a, b) for a, b in zip(alone, beside))

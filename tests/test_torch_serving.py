@@ -85,12 +85,18 @@ def test_stereo_node_3d_model_serves_pixels(monkeypatch):
     np.testing.assert_allclose(got, want, atol=1e-3)
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"quantize": "w8"}, {"quantize": "int8"}, {"device": "cuda:1"}], ids=str)
-def test_stereo_node_later_slices_raise(kwargs):
+@pytest.mark.parametrize("kwargs,error,match", [
+    pytest.param(kwargs, error, match, id=str(kwargs))
+    for kwargs, error, match in (
+        ({"quantize": "int8"}, ValueError, "requires calib_frames"),
+        ({"device": "cuda:1"}, NotImplementedError, "ROADMAP.md"))])
+def test_stereo_node_later_slices_raise(kwargs, error, match):
+    """Another card is a later slice; the quantized rungs serve now
+    (`tests/test_torch_quant.py`), and int8 without calibration frames
+    raises as in the JAX node."""
     spec = _spec()
     kwargs.setdefault("device", "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(error, match=match):
         StereoNode(spec, init_stereo_params(spec), **kwargs)
 
 
@@ -202,6 +208,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from redtail_tpu_torch.models import trailnet
     from redtail_tpu_torch.apps import pipeline_app, sim_app
     from redtail_tpu_torch.ops.preprocess import fused_ingest
+    from redtail_tpu_torch.quant import calibrate_stereo
     from redtail_tpu_torch.runtime import TrailNetNode, YoloNode
 
     spec = _spec()
@@ -220,6 +227,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
                      tree, device="cpu")),
                  lambda: YoloNode(CaffeNet(proto, device="cpu")),
                  lambda: StereoNode(spec, params, overlap=1),
+                 lambda: StereoNode(spec, params, quantize="w8"),
+                 lambda: calibrate_stereo(spec, params, []),
                  lambda: pipeline_app.main(["--duration", "0.1"]),
                  lambda: sim_app.make_real_trailnet(),
                  lambda: fused_ingest(np.zeros((4, 4, 3), np.uint8),
@@ -235,6 +244,16 @@ def _port_files():
     return sorted(p for p in pkg.rglob("*.py")
                   if p.relative_to(pkg).parts[0] != "build") + [
         ROOT / "chip_smoke.py"]
+
+
+def test_port_scan_covers_the_weight_and_quant_modules():
+    """The scan below walks every module of the package; these are the
+    ones the weight loaders and the quantized rungs added."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for name in ("io/trt_weights.py", "io/tf_checkpoint.py",
+                 "quant/ptq.py", "quant/stereo_int8.py",
+                 "utils/metrics.py"):
+        assert f"redtail_tpu_torch/{name}" in scanned
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -145,10 +145,22 @@ def test_params_round_trip():
 
 
 def test_int8_leaves_not_ported():
-    spec = STEREO_SPECS["resnet18_2d"]
+    """Int8 leaves serve now (`tests/test_torch_quant.py`); what neither
+    package's forward runs is still refused: a weight-only w8 leaf (no
+    ``x_scale``: dequantize it first) and an int8 leaf on a 3D or
+    transposed conv."""
+    spec = STEREO_SPECS["nvtiny"]
     params = init_stereo_params(spec)
-    params["bneck_encoder2D"]["conv2D_1"]["weights_q"] = np.zeros(1, np.int8)
-    with pytest.raises(NotImplementedError, match="module queue item 7"):
+    leaf = params["encoder2D"]["conv2"]
+    leaf["weights_q"] = np.zeros(leaf.pop("weights").shape, np.int8)
+    leaf["w_scale"] = np.ones(leaf["weights_q"].shape[-1], np.float32)
+    with pytest.raises(ValueError, match="dequantize_tree"):
+        params_from_numpy(spec, params, device="cpu")
+    leaf["x_scale"] = np.float32(0.01)
+    params_from_numpy(spec, params, device="cpu")  # a complete int8 leaf
+    deconv = params["decoder3D"]["deconv3D_1"]
+    deconv["weights_q"] = np.zeros(deconv.pop("weights").shape, np.int8)
+    with pytest.raises(ValueError, match="only 2D convs"):
         params_from_numpy(spec, params, device="cpu")
 
 
