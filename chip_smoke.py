@@ -132,6 +132,30 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
    e. the device busy per frame of each stereo model after the round-once
       repair (8b's unquantized rung) beside the figures before it.
 
+9. training (each path driven with every launch count set to 0 just
+   before and read just after):
+   a. the backward kernels against their plain versions: the corr backward
+      (the fused soft-argmax's, which recomputes the volume, and both
+      volume layouts') at ResNet18-2D's training features (4, 80, 256,
+      32), D = 48, and at phase 3's corr edges; the concat backward at
+      NVTiny's and NVSmall's training features and the concat edges; fp32
+      and bf16; each timed at the training call (CUDA events, L2 evicted,
+      the stream held busy) beside its bound and its plain version (no
+      single PyTorch call computes either);
+   b. one train step, card against CPU, fp32 and bf16, ResNet18-2D and
+      NVTiny at 64x128, batch 2, the same numpy params: the loss and every
+      gradient leaf within stated gates, the backward kernel once;
+   c. the main path: `train_app stereo --crop 160x512 --batch 4 --dtype
+      bfloat16`, 20 steps of ResNet18-2D (the corr kernel's fused
+      soft-argmax and its backward each step), then NVTiny (the concat
+      kernel and its backward), on a synthetic KITTI tree written under
+      `redtail_tpu_torch/build/smoke/train/`: finite losses, the loss on a
+      fixed batch lower after than before, `--resume` for 2 more steps,
+      the `--out` params served by `StereoNode`; then `train_app trailnet`
+      at 180x320, batch 16, no kernel launched, `--export-caffe`, served
+      by `TrailNetNode`; for each, the step's median time, device busy,
+      idle share and peak device memory.
+
 Then one JSON line describing every ported kernel, and last the line
 `{"ok": true, "device": {...}}`.
 """
@@ -1978,6 +2002,518 @@ def print_repair_cost(figures):
               f"({after / before:.3f}x)")
 
 
+# ------------------------------------------------------------------ phase 9
+
+# The training path: the 160x512 crop at batch 4, the JAX package's own
+# training bench configuration (README "Training"), whose features are
+# (4, 80, 256, C) at half resolution; 20 bf16 steps of each stereo model.
+TRAIN_CROP, TRAIN_BATCH, TRAIN_STEPS = (160, 512), 4, 20
+TRAIN_FEATS = {"resnet18_2d": ((4, 80, 256, 32), 48),
+               "nvtiny": ((4, 80, 256, 8), 24),
+               "nvsmall": ((4, 80, 256, 32), 48)}
+# 9a: the corr backward at the training shape, then the forward kernel's
+# edges (phase 3's); the concat backward at NVTiny's and NVSmall's training
+# shapes, then the forward's edges
+CORR_BWD_CASES = (("resnet18_2d train",) + TRAIN_FEATS["resnet18_2d"],) \
+    + CORR_CASES[1:]
+CONCAT_BWD_CASES = (("nvtiny train",) + TRAIN_FEATS["nvtiny"],
+                    ("nvsmall train",) + TRAIN_FEATS["nvsmall"]) \
+    + CONCAT_CASES[2:]
+# the backwards against their plain versions: fp32 within this share of the
+# largest magnitude (+1), the summation order only; bf16 within one bf16
+# step on top (both round one fp32 sum once)
+BWD_RTOL = 1e-5
+# 9b: a train step on the card against the CPU at this crop, batch 2: each
+# gradient leaf, fp32 within this share of its largest magnitude (cuDNN
+# with TF32 off and the kernels sum in other orders; the corr model's
+# soft-argmax and sigmoid amplify); bf16 within these relative L2 distances
+# of the CPU's bf16 leaf, each set between the sound step's worst leaf and
+# a deliberately wrong step's (its backward kernel's dR zeroed), both read
+# on an NVIDIA H100 80GB HBM3 at 700 W: ResNet18-2D sound 4.27e-2, wrong
+# 0.558; NVTiny sound 4.24e-3, wrong 0.557, and its fp32 step 1.51e-2 from
+# the CPU's bf16. ResNet18-2D's fp32 step reads 4.05e-2 from the CPU's
+# bf16, no farther than the sound bf16 step: its bf16 gradient moves with
+# the summation order as much as with the roundings, so there the gate
+# holds the kernels, not the roundings, which NVTiny's gate holds on the
+# same convs. The
+# leaf whose exact gradient is 0 (the 3D models' last bias: the soft-argmin
+# ignores a shift) within this share of the model's largest gradient
+TRAIN_SLICE_CROP = (64, 128)
+TRAIN_FP32_RTOL, TRAIN_ZERO_SHARE = 1e-3, 1e-3
+TRAIN_BF16_GATE = {"resnet18_2d": 0.1, "nvtiny": 8e-3}
+ZERO_GRAD_LEAF = "decoder3D/deconv3D_3/biases"
+TRAIN_TIMED_STEPS = 10
+
+
+def bwd_ok(torch, got, want):
+    atol = BWD_RTOL * (want.float().abs().max().item() + 1.0)
+    if got.dtype == torch.float32:
+        return bool(((got - want).abs() <= atol).all())
+    return bf16_ulp_ok(torch, got, want, atol)
+
+
+def phase_corr_bwd(torch, corr, gen):
+    """9a: the corr backward kernel against its plain version at every
+    case, both dtypes, for the fused soft-argmax (the main path) and both
+    volume layouts; then each timed at the ResNet18-2D training call."""
+    max_err = {"softargmax": 0.0, "dlast": 0.0, "hdw": 0.0}
+    for name, shape, d in CORR_BWD_CASES:
+        n, h, w, _ = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            left, right = (_randn(torch, gen, shape, dtype)
+                           * shape[-1] ** -0.5 for _ in range(2))
+            errs = []
+            for mode, gshape in (("softargmax", (n, h, w)),
+                                 ("dlast", (n, h, w, d)),
+                                 ("hdw", (n, h, d, w))):
+                g = _randn(torch, gen, gshape, dtype if mode == "hdw"
+                           else torch.float32)
+                if mode == "softargmax":
+                    got = corr.corr_softargmax_bwd(left, right, g, d)
+                    torch.cuda.synchronize()
+                    want = corr.corr_softargmax_bwd_plain(left, right, g, d)
+                else:
+                    got = corr.corr_cost_volume_bwd(left, right, g, d,
+                                                    layout=mode)
+                    torch.cuda.synchronize()
+                    want = corr.corr_cost_volume_bwd_plain(left, right, g, d,
+                                                           layout=mode)
+                for a, b in zip(got, want):
+                    check(a.shape == b.shape == shape and a.dtype == b.dtype
+                          == dtype, f"corr bwd {name} {mode}: {a.shape} "
+                          f"{a.dtype} vs {b.shape} {b.dtype}")
+                    err = (a.float() - b.float()).abs().max().item()
+                    check(bwd_ok(torch, a, b), f"corr bwd {name} {dtype} "
+                          f"{mode}: max abs err {err} past the gate")
+                    errs.append(f"{mode} {err:.2e}")
+                    if dtype == torch.float32:
+                        max_err[mode] = max(max_err[mode], err)
+            print(f"9a corr bwd {name:17s} {str(shape):18s} D={d:<3d} "
+                  f"{str(dtype):15s} dL, dR max abs err: {', '.join(errs)} "
+                  f"(gate {BWD_RTOL} x (max + 1), bf16 + 1 step)")
+
+    _, shape, d = CORR_BWD_CASES[0]
+    n, h, w, c = shape
+    left, right = (_randn(torch, gen, shape, torch.bfloat16)
+                   * c ** -0.5 for _ in range(2))
+    feats = 4 * left.numel() * left.element_size()  # L, R in; dL, dR out
+    valid = n * h * sum(max(w - k, 0) for k in range(d))
+    modes = []
+    for mode, g_bytes, flops, gshape, gdtype in (
+            ("softargmax", n * h * w * 4, 6 * c * valid, (n, h, w),
+             torch.float32),
+            ("dlast", n * h * w * d * 4, 4 * c * valid, (n, h, w, d),
+             torch.float32),
+            ("hdw", n * h * w * d * 2, 4 * c * valid, (n, h, d, w),
+             torch.bfloat16)):
+        g = _randn(torch, gen, gshape, gdtype)
+        if mode == "softargmax":
+            kernel = lambda: corr.corr_softargmax_bwd(left, right, g, d)  # noqa
+            plain = lambda: corr.corr_softargmax_bwd_plain(  # noqa: E731
+                left, right, g, d)
+        else:
+            kernel = lambda: corr.corr_cost_volume_bwd(  # noqa: E731
+                left, right, g, d, layout=mode)
+            plain = lambda: corr.corr_cost_volume_bwd_plain(  # noqa: E731
+                left, right, g, d, layout=mode)
+        # recomputed volume (softargmax), dL and dR: bf16 products
+        timed = time_kernel(torch, f"9a corr bwd {mode} at {shape} D={d} "
+                            f"bf16", kernel, plain, feats + g_bytes, flops,
+                            peak_flops=PEAK_BF16_FLOPS)
+        modes.append({"mode": mode, "max_abs_err": max_err[mode], **timed})
+    entry = {"name": "corr_bwd", "route": "cuda",
+             "source": "redtail_tpu_torch/csrc/corr_cost_volume_bwd.cu",
+             "replaces": "redtail_tpu/kernels/cost_volume_pallas.py:113",
+             "launches": None, "max_abs_err": max_err["softargmax"]}
+    entry.update({k: v for k, v in modes[0].items()
+                  if k not in ("mode", "max_abs_err")})
+    entry["modes"] = modes
+    return entry
+
+
+def phase_concat_bwd(torch, concat, gen):
+    """9a: the concat backward kernel against its plain version, both
+    dtypes, then timed at NVTiny's training call (the main path's) and
+    NVSmall's."""
+    max_err = 0.0
+    for name, shape, d in CONCAT_BWD_CASES:
+        n, h, w, c = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            g = _randn(torch, gen, (n, d, h, w, 2 * c), dtype)
+            got = concat.cost_volume_concat_bwd(g, d)
+            torch.cuda.synchronize()
+            want = concat.cost_volume_concat_bwd_plain(g, d)
+            errs = []
+            for a, b in zip(got, want):
+                check(a.shape == b.shape == shape and a.dtype == b.dtype
+                      == dtype, f"concat bwd {name}: {a.shape} {a.dtype}")
+                err = (a.float() - b.float()).abs().max().item()
+                check(bwd_ok(torch, a, b), f"concat bwd {name} {dtype}: max "
+                      f"abs err {err} past the gate")
+                errs.append(err)
+                if dtype == torch.float32:
+                    max_err = max(max_err, err)
+            print(f"9a concat bwd {name:14s} {str(shape):18s} D={d:<3d} "
+                  f"{str(dtype):15s} dL, dR max abs err {errs[0]:.2e}, "
+                  f"{errs[1]:.2e} (gate {BWD_RTOL} x (max + 1), bf16 + 1 "
+                  f"step)")
+    timed = {}
+    for name, shape, d in CONCAT_BWD_CASES[:2]:
+        n, h, w, c = shape
+        g = _randn(torch, gen, (n, d, h, w, 2 * c), torch.bfloat16)
+        nbytes = g.numel() * 2 + 2 * n * h * w * c * 2
+        adds = n * h * w * c * d + n * h * c * sum(max(w - k, 0)
+                                                   for k in range(d))
+        timed[name] = time_kernel(
+            torch, f"9a concat bwd {name} at {shape} D={d} bf16",
+            lambda: concat.cost_volume_concat_bwd(g, d),
+            lambda: concat.cost_volume_concat_bwd_plain(g, d), nbytes, adds)
+    first = CONCAT_BWD_CASES[0][0]
+    return {"name": "concat_bwd", "route": "cuda",
+            "source": "redtail_tpu_torch/csrc/cost_volume_concat_bwd.cu",
+            "replaces": "redtail_tpu/kernels/cost_volume_pallas.py:158",
+            "note": "the Pallas concat kernel has no VJP; the JAX package "
+                    "trains through XLA's gradient of "
+                    "redtail_tpu/ops/cost_volume.py:27",
+            "launches": None, "max_abs_err": max_err, **timed[first],
+            "shapes": [{"case": k, **v} for k, v in timed.items()]}
+
+
+def _leaves(tree, path=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{path}/{k}".lstrip("/"))
+        else:
+            yield f"{path}/{k}".lstrip("/"), v
+
+
+def train_batch(np, hw, n, seed):
+    """A seeded stereo batch: images in [0, 1], disparity targets in px,
+    a validity mask."""
+    rs = np.random.RandomState(seed)
+    left, right = (rs.rand(n, *hw, 3).astype(np.float32) for _ in range(2))
+    target = (rs.rand(n, *hw) * 12).astype(np.float32)
+    valid = (rs.rand(n, *hw) > 0.3).astype(np.float32)
+    return left, right, target, valid
+
+
+@contextlib.contextmanager
+def zero_dr(module, name):
+    """Inside the block the backward wrapper ``module.name`` returns (dL,
+    0): the wrong step 9b's bf16 gate must catch."""
+    right = getattr(module, name)
+
+    def wrong(*args):
+        dl, dr = right(*args)
+        return dl, dr.new_zeros(dr.shape)
+    wrong.launches = 0  # the wrapper counts on the name it is called by
+    setattr(module, name, wrong)
+    try:
+        yield
+    finally:
+        setattr(module, name, right)
+
+
+def leaf_rel_l2(np, got, want):
+    """{leaf: |got - want| / |want|} over the leaves of ``want`` but the
+    one whose exact gradient is 0."""
+    return {k: np.linalg.norm(got[k] - w) / np.linalg.norm(w)
+            for k, w in want.items() if k != ZERO_GRAD_LEAF}
+
+
+def phase_train_slice(np, torch, models, ptrain, counters, card="cuda"):
+    """9b: one train step's loss and gradients, card against CPU, fp32 and
+    bf16, ResNet18-2D and NVTiny at `TRAIN_SLICE_CROP`, batch 2, the same
+    numpy params; the step's backward kernel launched once on the card.
+    bf16 against the CPU's bf16 under `TRAIN_BF16_GATE`, which a step with
+    the backward kernel's dR zeroed must fail."""
+    from redtail_tpu_torch.kernels import corr_cost_volume, cost_volume_concat
+
+    batch = train_batch(np, TRAIN_SLICE_CROP, 2, 5)
+    for name, bwd, module in (
+            ("resnet18_2d", "corr_softargmax_bwd", corr_cost_volume),
+            ("nvtiny", "cost_volume_concat_bwd", cost_volume_concat)):
+        spec = dataclasses.replace(models.STEREO_SPECS[name],
+                                   input_hw=TRAIN_SLICE_CROP)
+        tree = conditioned_params(np, models.init_stereo_params(spec, seed=1),
+                                  2)
+
+        def step(dtype, dev):
+            init_fn, _ = ptrain.make_train_step(spec, compute_dtype=dtype,
+                                                device=dev)
+            state = init_fn(tree)
+            loss, _ = ptrain.stereo_loss(spec, state.params, *batch)
+            loss.backward()
+            return float(loss.detach()), dict(_leaves(
+                models.params_to_numpy(state.params, grads=True)))
+
+        out = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            for dev in ("cpu", card):
+                zero_counts(counters)
+                out[dtype, dev] = step(dtype, dev)
+                if dev != "cpu":
+                    torch.cuda.synchronize()
+                    counts = read_counts(counters)
+                    check(counts[bwd] == 1, f"9b {name}: {bwd} launched "
+                          f"{counts[bwd]} times in one step")
+        for dtype in (torch.float32, torch.bfloat16):
+            (l_cpu, g_cpu), (l_card, g_card) = (out[dtype, "cpu"],
+                                                out[dtype, card])
+            top = max(np.abs(v).max() for v in g_cpu.values())
+            if ZERO_GRAD_LEAF in g_cpu:
+                zero = max(np.abs(g[ZERO_GRAD_LEAF]).max()
+                           for g in (g_cpu, g_card))
+                check(zero <= TRAIN_ZERO_SHARE * top, f"9b {name} {dtype} "
+                      f"{ZERO_GRAD_LEAF}: {zero}, not near 0")
+            if dtype == torch.float32:
+                errs = {k: np.abs(g_card[k] - w).max() / np.abs(w).max()
+                        for k, w in g_cpu.items() if k != ZERO_GRAD_LEAF}
+                gate, kind = TRAIN_FP32_RTOL, "max abs / leaf max"
+            else:
+                errs = leaf_rel_l2(np, g_card, g_cpu)
+                gate, kind = TRAIN_BF16_GATE[name], "relative L2"
+            path = max(errs, key=errs.get)
+            check(errs[path] <= gate, f"9b {name} {dtype} {path}: card off "
+                  f"CPU by {errs[path]} (gate {gate})")
+            rel = abs(l_card - l_cpu) / abs(l_cpu)
+            check(rel <= (1e-4 if dtype == torch.float32 else 1e-2),
+                  f"9b {name} {dtype}: loss {l_card} vs CPU {l_cpu}")
+            print(f"9b train step {name} {TRAIN_SLICE_CROP[0]}x"
+                  f"{TRAIN_SLICE_CROP[1]} b2 {str(dtype):14s}: loss card "
+                  f"{l_card:.6f} CPU {l_cpu:.6f} (rel {rel:.2e}); worst "
+                  f"gradient leaf {kind} {errs[path]:.3e} ({path}; gate "
+                  f"{gate}), {len(g_cpu)} leaves; {bwd} once")
+
+        # the gate against wrong steps: dR zeroed must fail it; the fp32
+        # step and the CPU's own fp32 are printed beside it
+        g_bf16 = out[torch.bfloat16, "cpu"][1]
+        with zero_dr(module, bwd):
+            wrong = max(leaf_rel_l2(np, step(torch.bfloat16, card)[1],
+                                    g_bf16).values())
+        fp32 = max(leaf_rel_l2(np, out[torch.float32, card][1],
+                               g_bf16).values())
+        cpu = max(leaf_rel_l2(np, g_bf16,
+                              out[torch.float32, "cpu"][1]).values())
+        check(wrong > TRAIN_BF16_GATE[name], f"9b {name}: a step with {bwd}'s "
+              f"dR zeroed reads {wrong} from the CPU's bf16, inside the gate "
+              f"{TRAIN_BF16_GATE[name]}")
+        print(f"9b {name} bf16 gate {TRAIN_BF16_GATE[name]} against the "
+              f"CPU's bf16, worst leaf relative L2: {bwd}'s dR zeroed "
+              f"{wrong:.3e} (must fail); the card's fp32 step {fp32:.3e}; "
+              f"the CPU's bf16 from its fp32 {cpu:.3e}")
+
+
+def write_trails(np, root, per_class=6):
+    """A trails tree the net can learn: each class a horizontal ramp of its
+    own direction (left-dark, flat, right-dark) under noise, so a flip
+    maps one side class on the other as the label remap does."""
+    import cv2
+
+    rs = np.random.RandomState(0)
+    h, w = 180, 320
+    ramp = np.linspace(-1.0, 1.0, w)[None, :, None]
+    for label, cls in enumerate(("lc", "sc", "rc")):
+        d = root / "vid0" / cls
+        d.mkdir(parents=True, exist_ok=True)
+        for i in range(per_class):
+            img = 128 + 80 * (1 - label) * ramp + rs.randn(h, w, 3) * 30
+            cv2.imwrite(str(d / f"{i}.png"), np.clip(img, 0, 255).astype(
+                np.uint8))
+    return root
+
+
+def run_app(train_app, argv):
+    """`train_app.main(argv)` in this process, its JSON records parsed."""
+    buf = stdio.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train_app.main(argv)
+    secs = time.perf_counter() - t0
+    print(buf.getvalue().rstrip()[-1500:])
+    check(rc == 0, f"train_app {argv[0]} exited {rc}")
+    return [json.loads(s) for s in buf.getvalue().splitlines()
+            if s.startswith("{")], secs
+
+
+def time_train_steps(torch, step, label):
+    """9c: the median host time of ``step()`` (each ends in a sync) after 3
+    warm-up steps, peak device memory over them, and device busy / idle
+    share and the busiest kernels over 3 more in a `torch.profiler`
+    window."""
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    traced = trace_frames(torch, lambda: (step(), torch.cuda.synchronize()),
+                          [()] * 3, med)
+    busy, launches = traced if traced else (None, None)
+    print(f"9c {label}: step median {med:.3f} ms over {TRAIN_TIMED_STEPS} "
+          f"(min {min(times):.3f}, max {max(times):.3f}); device busy "
+          f"{busy if busy is None else round(busy, 3)} ms a step, idle share "
+          f"{None if busy is None else round(1 - busy / med, 3)}, "
+          f"{launches} device ops a step; peak device memory {peak:.3f} GiB "
+          f"({nvidia_smi('name,power.limit')})")
+    print_clocks(f"the {label} steps")
+    return {"step_ms": med, "busy_ms": busy,
+            "idle_share": None if busy is None else 1 - busy / med,
+            "device_ops": launches, "peak_gib": peak}
+
+
+def phase_train_main(np, torch, models, ptrain, tstereo, ttrail, train_app,
+                     kitti, nodes, ckpt, counters, card="cuda",
+                     crop=TRAIN_CROP, batch=TRAIN_BATCH, steps=TRAIN_STEPS):
+    """9c: the main path, `train_app` as a user runs it, at full width:
+    ResNet18-2D, then NVTiny, bf16, ``steps`` steps each on a synthetic
+    KITTI tree, the counts zeroed just before and read just after; the loss
+    on a fixed batch falls from the init to the trained params; --resume;
+    the --out params served; then TrailNet at 180x320, batch 16. Returns
+    {kernel counter: {path: launches}} and the figures."""
+    root = SMOKE_DIR / "train"
+    data = kitti.make_synthetic_kitti(
+        root / "kitti", n=2 * batch, hw=(crop[0] + 16, crop[1] + 32),
+        disp=(4.0, 20.0), seed=0, octaves=3)
+    dev = [] if card == "cuda" else ["--cpu"]
+    by_path, figures = {}, {}
+    for name, kernels in (("resnet18_2d", ("corr_softargmax",
+                                           "corr_softargmax_bwd")),
+                          ("nvtiny", ("cost_volume_concat",
+                                      "cost_volume_concat_bwd"))):
+        out, ck = root / f"{name}.npz", root / f"ck_{name}"
+        argv = ["stereo", "--data", str(data), "--model", name, "--crop",
+                f"{crop[0]}x{crop[1]}", "--batch", str(batch), "--dtype",
+                "bfloat16", "--lr", "1e-3", "--warmup", "5", "--ckpt-dir",
+                str(ck), "--out", str(out), *dev]
+        zero_counts(counters)
+        recs, secs = run_app(train_app, argv + ["--steps", str(steps)])
+        counts = read_counts(counters)
+        losses = [r["loss"] for r in recs if "loss" in r]
+        check(losses and all(np.isfinite(losses)),
+              f"9c {name}: losses {losses}")
+        fwd, bwd = (counts[k] for k in kernels)
+        print(f"9c train_app stereo {name} {crop[0]}x{crop[1]} b{batch} bf16 "
+              f"{steps} steps in {secs:.1f} s (data, eval and checkpoint "
+              f"included): logged losses {losses}; launches {kernels[0]} "
+              f"{fwd} (forward, its remat recompute, the final eval), "
+              f"{kernels[1]} {bwd}; all counts {counts}")
+        if card == "cuda":
+            check(bwd == steps and fwd >= 2 * steps,
+                  f"9c {name}: {kernels[1]} {bwd}, {kernels[0]} {fwd} in "
+                  f"{steps} steps")
+        for k in kernels:
+            by_path.setdefault(k, {})[f"9c {name} train"] = counts[k]
+        # the volume layouts' backward: no path of the port differentiates
+        # the `dlast` / `hdw` volumes, so its count is kept and must read 0
+        dense = counts["corr_cost_volume_bwd"]
+        check(dense == 0, f"9c {name}: corr_cost_volume_bwd launched "
+              f"{dense} times")
+        by_path.setdefault("corr_cost_volume_bwd", {})[
+            f"9c {name} train"] = dense
+
+        # the loss on one fixed batch, init params against trained
+        cfg = tstereo.StereoTrainConfig(model=name, crop_hw=crop,
+                                        batch_size=batch, dtype="bfloat16")
+        spec = tstereo._make_spec(cfg)
+        init_fn, step_fn = ptrain.make_train_step(
+            spec, tstereo._make_optimizer(cfg), compute_dtype=torch.bfloat16,
+            device=card)
+        fixed = next(kitti.KittiStereoDataset(data).batches(
+            batch, crop, shuffle=False))
+        before_after = []
+        for tree in (models.init_stereo_params(spec, seed=cfg.seed),
+                     models.params_from_npz(out)):
+            with torch.no_grad():
+                loss, _ = ptrain.stereo_loss(spec, init_fn(tree).params,
+                                             *fixed, remat=False)
+            before_after.append(float(loss))
+        check(before_after[1] < before_after[0],
+              f"9c {name}: loss on a fixed batch {before_after[0]} -> "
+              f"{before_after[1]}, no fall")
+        print(f"9c {name}: loss on a fixed batch, init {before_after[0]:.5f}"
+              f" -> trained {before_after[1]:.5f}")
+
+        # resume 2 more steps from the checkpoint
+        zero_counts(counters)
+        recs, _ = run_app(train_app, argv + ["--steps", str(steps + 2),
+                                             "--resume"])
+        counts = read_counts(counters)
+        check([r["step"] for r in recs if "loss" in r] == [steps + 2],
+              f"9c {name} --resume: logged {recs}")
+        if card == "cuda":
+            check(counts[kernels[1]] == 2,
+                  f"9c {name} --resume: {counts[kernels[1]]} backwards")
+
+        # the trained params served
+        node = nodes.StereoNode(spec, models.params_from_npz(out),
+                                dtype=torch.bfloat16, device=card)
+        img = (fixed[0][0] * 255).astype(np.uint8)
+        disp = node(img, (fixed[1][0] * 255).astype(np.uint8))
+        check(disp.shape == crop and np.isfinite(disp).all(),
+              f"9c {name}: served {disp.shape}, finite "
+              f"{np.isfinite(disp).all()}")
+
+        # step time, busy, idle, peak memory: the app's step on one batch
+        figures[name] = {"loss_fixed_batch": before_after}
+        if card == "cuda":
+            state = init_fn(models.init_stereo_params(spec, seed=cfg.seed))
+            figures[name].update(time_train_steps(
+                torch, lambda: step_fn(state, *fixed),
+                f"{name} train step {crop[0]}x{crop[1]} b{batch} bf16"))
+
+    # TrailNet: no kernel of the port on its path
+    trails = write_trails(np, root / "trails")
+    out, prefix = root / "trailnet.npz", root / "trailnet_caffe" / "trail"
+    zero_counts(counters)
+    t_batch = 16 if card == "cuda" else 2
+    recs, secs = run_app(train_app, [
+        "trailnet", "--data", str(trails), "--batch", str(t_batch),
+        "--steps", str(steps), "--lr", "1e-3", "--warmup", "5", "--out",
+        str(out), "--export-caffe", str(prefix), *dev])
+    counts = read_counts(counters)
+    check(not any(counts.values()), f"9c trailnet launched a kernel: "
+          f"{counts}")
+    tree = ckpt.load_params(out)
+    from redtail_tpu_torch.data.trails import TrailsDataset, build_trail_lists
+    images, labels = next(TrailsDataset(build_trail_lists(trails)["train"],
+                                        seed=0).batches(t_batch))
+    lab = torch.as_tensor(labels).long().to(card)
+    before_after = []
+    for params in (models.init_trailnet_params(0), tree):
+        net = models.trailnet.params_from_numpy(params, device=card)
+        with torch.no_grad():
+            loss, _ = ttrail.trailnet_loss(net, torch.as_tensor(images).to(
+                card), lab, lab)
+        before_after.append(float(loss))
+    check(np.isfinite(before_after).all() and before_after[1]
+          < before_after[0], f"9c trailnet: loss {before_after}")
+    probs = nodes.TrailNetNode(models.trailnet.params_from_numpy(
+        tree, device=card), device=card)(images[0].astype(np.uint8))
+    check(probs.shape == (6,) and np.allclose(
+        [probs[:3].sum(), probs[3:].sum()], 1.0, atol=1e-3),
+        f"9c trailnet served {probs}")
+    print(f"9c train_app trailnet 180x320 b{t_batch} {steps} steps in "
+          f"{secs:.1f} s: losses {[r['loss'] for r in recs if 'loss' in r]};"
+          f" loss on a fixed batch {before_after[0]:.5f} -> "
+          f"{before_after[1]:.5f}; kernel counts {counts}; served {probs}")
+    figures["trailnet"] = {"loss_fixed_batch": before_after}
+    if card == "cuda":
+        init_fn, step_fn = ttrail.make_trailnet_train_step(device=card)
+        state = init_fn(models.init_trailnet_params(0))
+        gen = torch.Generator().manual_seed(1)
+        figures["trailnet"].update(time_train_steps(
+            torch, lambda: step_fn(state, gen, images, labels, labels),
+            f"trailnet train step 180x320 b{t_batch} fp32"))
+    return by_path, figures
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2001,6 +2537,12 @@ def main() -> int:
         from redtail_tpu_torch.ops.softargmax import softargmax
         from redtail_tpu_torch.ops.space_to_depth import space_to_depth2_np
         from redtail_tpu_torch.runtime import nodes
+        from redtail_tpu_torch.apps import train_app
+        from redtail_tpu_torch.data import kitti
+        from redtail_tpu_torch.parallel import training as ptrain
+        from redtail_tpu_torch.training import stereo as tstereo
+        from redtail_tpu_torch.training import trailnet as ttrail
+        from redtail_tpu_torch.utils import checkpoint as ckpt
     except ImportError as e:
         raise SmokeFailure(f"redtail_tpu_torch is not beside chip_smoke.py "
                            f"({e})") from e
@@ -2090,12 +2632,38 @@ def main() -> int:
     phase_app(np, blobs["fp16"], golden, frame)
     print_repair_cost(figures)
 
+    # training: the backward kernels, a step card vs CPU, the main path
+    entries["corr_bwd"] = phase_corr_bwd(torch, corr, gen)
+    entries["concat_bwd"] = phase_concat_bwd(torch, concat, gen)
+    all_counters = counters + (corr.corr_cost_volume_bwd,
+                               corr.corr_softargmax_bwd,
+                               concat.cost_volume_concat_bwd)
+    phase_train_slice(np, torch, models, ptrain, all_counters)
+    train_paths, train_figures = phase_train_main(
+        np, torch, models, ptrain, tstereo, ttrail, train_app, kitti, nodes,
+        ckpt, all_counters)
+    for counter, entry in (("corr_softargmax", "corr_cost_volume"),
+                           ("cost_volume_concat", "cost_volume_concat"),
+                           ("corr_softargmax_bwd", "corr_bwd"),
+                           ("cost_volume_concat_bwd", "concat_bwd")):
+        by_path.setdefault(entry, {}).update(train_paths[counter])
+    print(f"9c train figures ({nvidia_smi('name,power.limit')}): "
+          f"{json.dumps(train_figures)}")
+
     for name, paths in by_path.items():
         check(all(paths.values()), f"{name} was not launched on {paths}")
         entries[name]["launches"] = sum(paths.values())
         entries[name]["launches_by_path"] = paths
     entries["corr_cost_volume"]["modes"][0]["launches"] = \
         entries["corr_cost_volume"]["launches"]
+    for mode in entries["corr_bwd"]["modes"]:
+        # the layouts' backward counts on its own counter, read in 9c
+        dense = train_paths["corr_cost_volume_bwd"]
+        if mode["mode"] == "softargmax":
+            mode["launches"] = entries["corr_bwd"]["launches"]
+        else:
+            mode["launches"] = sum(dense.values())
+            mode["launches_by_path"] = dense
 
     print(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({"ok": True, "device": {

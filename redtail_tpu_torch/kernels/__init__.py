@@ -3,8 +3,8 @@ version, its wrapper and the wrapper's launch counter.
 
 | module | replaces (TPU) | source |
 | --- | --- | --- |
-| `corr_cost_volume` | `redtail_tpu/kernels/cost_volume_pallas.py:43` `_corr_kernel` | `csrc/corr_cost_volume.cu` |
-| `cost_volume_concat` | `redtail_tpu/kernels/cost_volume_pallas.py:158` `_concat_kernel` | `csrc/cost_volume_concat.cu` |
+| `corr_cost_volume` | `redtail_tpu/kernels/cost_volume_pallas.py:43` `_corr_kernel`; its VJP `_corr_bwd` (:113) | `csrc/corr_cost_volume.cu`; backward `csrc/corr_cost_volume_bwd.cu` |
+| `cost_volume_concat` | `redtail_tpu/kernels/cost_volume_pallas.py:158` `_concat_kernel` (its gradient XLA's) | `csrc/cost_volume_concat.cu`; backward `csrc/cost_volume_concat_bwd.cu` |
 | `fused_cv_emit` | `redtail_tpu/kernels/fused_cv_emit_pallas.py:65` `_emit_kernel` (unpacked and dh-shifted packed layouts) | `csrc/fused_cv_emit.cu` |
 | `conv223` | `redtail_tpu/kernels/conv223_pallas.py:60` `_conv223_kernel` | `csrc/conv223.cu` |
 

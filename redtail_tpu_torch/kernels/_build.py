@@ -8,9 +8,11 @@ The library's file name carries a hash of its source, so an edited source
 is rebuilt and a stale library is never loaded. `build()` starts one `nvcc`
 per missing library, all at once, and waits for them together.
 
-No kernel has a backward yet: `refuse_autograd` makes each wrapper raise,
-before it launches, where autograd would otherwise lose the gradients of
-everything upstream.
+The correlation and concat volumes have backward kernels of their own
+(`csrc/*_bwd.cu`), bound into `torch.autograd.Function`s by their wrappers.
+The emission and conv223 kernels have none yet: `refuse_autograd` makes
+their wrappers raise, before they launch, where autograd would otherwise
+lose the gradients of everything upstream.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
 KERNELS = ("corr_cost_volume", "cost_volume_concat", "fused_cv_emit",
-           "conv223")
+           "conv223", "corr_cost_volume_bwd", "cost_volume_concat_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -94,7 +96,7 @@ def refuse_autograd(name: str, *tensors: Optional[torch.Tensor]) -> None:
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward yet (ROADMAP.md, module "
-            "queue item 9), and an input requires grad; run it under "
+            f"{name}: the CUDA kernel has no backward yet (ROADMAP.md, kernel "
+            "queue item 2), and an input requires grad; run it under "
             "torch.no_grad() or torch.inference_mode(), or on the CPU, whose "
             "plain version is differentiable")

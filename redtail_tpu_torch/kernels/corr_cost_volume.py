@@ -17,11 +17,20 @@ epilogues:
   ResNet18-2D model's use of it, without the volume in device memory.
 
 Each wrapper runs its plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises; nothing falls back. The kernel
-has no backward yet, so on CUDA tensors that require grad, with grad mode
-on, the wrappers raise (`_build.refuse_autograd`).
-`tile_plan` is the kernel's tiling, computed here so the CPU tests can
-emulate it.
+tensors it launches the kernel or raises; nothing falls back. Where grad
+mode is on and an input requires grad, the wrappers run as
+`torch.autograd.Function`s whose backward is the backward kernel of
+`csrc/corr_cost_volume_bwd.cu` (the VJP `_corr_bwd` of
+`redtail_tpu/kernels/cost_volume_pallas.py:113`):
+
+    dL[x, c] = sum_d g[x, d] R[x - d, c],  dR[y, c] = sum_d g[y + d, d] L[y + d, c]
+
+in fp32, rounded once to the input dtype; for `corr_softargmax` it first
+recomputes the volume and its softmax p (the forward keeps no volume) and
+forms g_vol[x, d] = g[x] p_d (d - sum_j p_j j). `corr_cost_volume_bwd` and
+`corr_softargmax_bwd` are those backward wrappers, each with its plain
+version and launch counter. `tile_plan` is the forward kernel's tiling,
+computed here so the CPU tests can emulate it.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import dataclasses
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from redtail_tpu_torch.kernels import _build
 
@@ -133,6 +143,37 @@ def corr_softargmax_plain(left: torch.Tensor, right: torch.Tensor,
         axis=-1)
 
 
+def corr_cost_volume_bwd_plain(left: torch.Tensor, right: torch.Tensor,
+                               g: torch.Tensor, max_disp: int, *,
+                               layout: str = "dlast"):
+    """Plain PyTorch version of the backward: (dL, dR) in the inputs'
+    dtype from the volume's cotangent ``g`` ((N, H, W, D) for `dlast`,
+    (N, H, D, W) for `hdw`), one shifted product per disparity in fp32."""
+    w = left.shape[2]
+    gv = g.float() if layout == "dlast" else g.float().permute(0, 1, 3, 2)
+    lf, rf = left.float(), right.float()
+    dl, dr = torch.zeros_like(lf), torch.zeros_like(rf)
+    for d in range(min(max_disp, w)):
+        gd = gv[:, :, d:, d, None]
+        dl[:, :, d:] += gd * rf[:, :, :w - d]
+        dr[:, :, :w - d] += gd * lf[:, :, d:]
+    return dl.to(left.dtype), dr.to(right.dtype)
+
+
+def corr_softargmax_bwd_plain(left: torch.Tensor, right: torch.Tensor,
+                              g: torch.Tensor, max_disp: int):
+    """Plain PyTorch version of the fused epilogue's backward: the volume
+    recomputed, g_vol = g p (d - mu) with p its softmax over D (the masked
+    zeros included) and mu = sum_d p_d d, then the volume's backward (which
+    reads no entry x < d)."""
+    vol = corr_cost_volume_plain(left, right, max_disp, layout="dlast")
+    p = torch.softmax(vol, dim=-1)
+    idx = torch.arange(max_disp, dtype=torch.float32, device=vol.device)
+    mu = (p * idx).sum(-1, keepdim=True)
+    gvol = g.float().unsqueeze(-1) * p * (idx - mu)
+    return corr_cost_volume_bwd_plain(left, right, gvol, max_disp)
+
+
 def _check(left, right, max_disp):
     if left.dim() != 4 or left.shape != right.shape:
         raise ValueError("left and right must be NHWC tensors of one shape; "
@@ -192,22 +233,153 @@ def _launch(left, right, max_disp, mode) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.load("corr_cost_volume_bwd")
+    lib.corr_cost_volume_bwd_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    lib.corr_cost_volume_bwd_launch.restype = ctypes.c_int
+    lib.corr_cost_volume_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.corr_cost_volume_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _grad_input(g, left, max_disp, mode):
+    """The cotangent as the backward kernel reads it: contiguous, in the
+    input dtype for `hdw` and fp32 otherwise (both exact casts of what
+    the forward returned), of the forward's output shape."""
+    n, h, w, _ = left.shape
+    shape, dtype = {"dlast": ((n, h, w, max_disp), torch.float32),
+                    "hdw": ((n, h, max_disp, w), left.dtype),
+                    "softargmax": ((n, h, w), torch.float32)}[mode]
+    if tuple(g.shape) != shape:
+        raise ValueError(f"the {mode} cotangent must be {shape}; got "
+                         f"{tuple(g.shape)}")
+    if g.device != left.device:
+        raise ValueError(f"the cotangent lies on {g.device}, the features "
+                         f"on {left.device}")
+    return g.to(dtype).contiguous()
+
+
+def _launch_bwd(left, right, g, max_disp, mode):
+    n, h, w, c = left.shape
+    g = _grad_input(g, left, max_disp, mode)
+    dleft, dright = torch.empty_like(left), torch.empty_like(right)
+    scratch = (torch.empty((n, h, w, max_disp), dtype=torch.float32,
+                           device=left.device)
+               if mode == "softargmax" else None)
+    lib = _lib_bwd()
+    err = lib.corr_cost_volume_bwd_launch(
+        left.data_ptr(), right.data_ptr(), g.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), dleft.data_ptr(),
+        dright.data_ptr(), n, h, w, c, int(max_disp),
+        int(left.dtype == torch.bfloat16), MODES[mode], left.device.index,
+        torch.cuda.current_stream(left.device).cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"corr_cost_volume backward kernel launch failed ({mode}): CUDA "
+            f"error {err} "
+            f"({lib.corr_cost_volume_bwd_error_string(err).decode()})")
+    return dleft, dright
+
+
+def corr_cost_volume_bwd(left: torch.Tensor, right: torch.Tensor,
+                         g: torch.Tensor, max_disp: int, *,
+                         layout: str = "dlast"):
+    """The volume's backward: (dL, dR) in the inputs' dtype from its
+    cotangent ``g`` (see the module docstring).
+
+    CPU tensors take `corr_cost_volume_bwd_plain`. CUDA tensors launch the
+    backward kernel on the current stream and add one to
+    ``corr_cost_volume_bwd.launches``."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    _check(left, right, max_disp)
+    if _on_cpu(left, right):
+        return corr_cost_volume_bwd_plain(
+            left, right, _grad_input(g, left, max_disp, layout), max_disp,
+            layout=layout)
+    out = _launch_bwd(left, right, g, max_disp, layout)
+    corr_cost_volume_bwd.launches += 1
+    return out
+
+
+def corr_softargmax_bwd(left: torch.Tensor, right: torch.Tensor,
+                        g: torch.Tensor, max_disp: int):
+    """The fused epilogue's backward: (dL, dR) in the inputs' dtype from
+    the (N, H, W) cotangent ``g``, the volume recomputed (see the module
+    docstring).
+
+    CPU tensors take `corr_softargmax_bwd_plain`. CUDA tensors launch the
+    backward kernel's two passes on the current stream and add one to
+    ``corr_softargmax_bwd.launches``."""
+    _check(left, right, max_disp)
+    if _on_cpu(left, right):
+        return corr_softargmax_bwd_plain(
+            left, right, _grad_input(g, left, max_disp, "softargmax"),
+            max_disp)
+    out = _launch_bwd(left, right, g, max_disp, "softargmax")
+    corr_softargmax_bwd.launches += 1
+    return out
+
+
+def _forward(left, right, max_disp, mode):
+    """One forward call: the plain version on the CPU, else the kernel,
+    counted on its wrapper."""
+    if _on_cpu(left, right):
+        if mode == "softargmax":
+            return corr_softargmax_plain(left, right, max_disp)
+        return corr_cost_volume_plain(left, right, max_disp, layout=mode)
+    out = _launch(left, right, max_disp, mode)
+    if mode == "softargmax":
+        corr_softargmax.launches += 1
+    else:
+        corr_cost_volume.launches += 1
+    return out
+
+
+class _Corr(torch.autograd.Function):
+    """The kernel (or, on the CPU, its plain version) with the backward
+    kernel (or its plain version) as its gradient. Both are deterministic,
+    so a recompute under activation checkpointing gives the same bits."""
+
+    @staticmethod
+    def forward(ctx, left, right, max_disp, mode):
+        ctx.save_for_backward(left, right)
+        ctx.max_disp, ctx.mode = max_disp, mode
+        return _forward(left, right, max_disp, mode)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        left, right = ctx.saved_tensors
+        if ctx.mode == "softargmax":
+            dl, dr = corr_softargmax_bwd(left, right, g, ctx.max_disp)
+        else:
+            dl, dr = corr_cost_volume_bwd(left, right, g, ctx.max_disp,
+                                          layout=ctx.mode)
+        return dl, dr, None, None
+
+
+def _call(left, right, max_disp, mode):
+    if torch.is_grad_enabled() and (left.requires_grad
+                                    or right.requires_grad):
+        return _Corr.apply(left, right, max_disp, mode)
+    return _forward(left, right, max_disp, mode)
+
+
 def corr_cost_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
                      *, layout: str = "dlast") -> torch.Tensor:
     """NHWC pair -> correlation volume (see the module docstring).
 
     CPU tensors take `corr_cost_volume_plain`. CUDA tensors launch the
     kernel on the current stream and add one to ``corr_cost_volume.launches``;
-    they must be contiguous NHWC on one device."""
+    they must be contiguous NHWC on one device. Differentiable: the
+    gradient is `corr_cost_volume_bwd`."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
     _check(left, right, max_disp)
-    if _on_cpu(left, right):
-        return corr_cost_volume_plain(left, right, max_disp, layout=layout)
-    _build.refuse_autograd("corr_cost_volume", left, right)
-    out = _launch(left, right, max_disp, layout)
-    corr_cost_volume.launches += 1
-    return out
+    return _call(left, right, max_disp, layout)
 
 
 def corr_softargmax(left: torch.Tensor, right: torch.Tensor,
@@ -218,15 +390,12 @@ def corr_softargmax(left: torch.Tensor, right: torch.Tensor,
     CPU tensors take `corr_softargmax_plain`. CUDA tensors launch the
     kernel's fused epilogue on the current stream and add one to
     ``corr_softargmax.launches``; they must be contiguous NHWC on one
-    device."""
+    device. Differentiable: the gradient is `corr_softargmax_bwd`."""
     _check(left, right, max_disp)
-    if _on_cpu(left, right):
-        return corr_softargmax_plain(left, right, max_disp)
-    _build.refuse_autograd("corr_softargmax", left, right)
-    out = _launch(left, right, max_disp, "softargmax")
-    corr_softargmax.launches += 1
-    return out
+    return _call(left, right, max_disp, "softargmax")
 
 
 corr_cost_volume.launches = 0
 corr_softargmax.launches = 0
+corr_cost_volume_bwd.launches = 0
+corr_softargmax_bwd.launches = 0

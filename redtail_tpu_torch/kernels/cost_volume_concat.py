@@ -12,9 +12,17 @@ design notes are in `redtail_tpu_torch/csrc/cost_volume_concat.cu`. A pure
 copy: kernel and plain version agree bit for bit.
 
 The wrapper runs the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises; nothing falls back. The kernel
-has no backward yet, so on CUDA tensors that require grad, with grad mode
-on, the wrapper raises (`_build.refuse_autograd`).
+tensors it launches the kernel or raises; nothing falls back. Where grad
+mode is on and an input requires grad, the wrapper runs as a
+`torch.autograd.Function` whose backward is the kernel of
+`csrc/cost_volume_concat_bwd.cu` (`cost_volume_concat_bwd`, with its plain
+version and launch counter): from the volume's cotangent g,
+
+    dL[n, h, x, c] = sum_d g[n, d, h, x, c]
+    dR[n, h, y, c] = sum_d g[n, d, h, y + d, C + c]   (y + d < W)
+
+in fp32, rounded once, the gradient XLA derives for the JAX package's
+`ops/cost_volume.py:cost_volume` (the Pallas kernel has no VJP).
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from redtail_tpu_torch.kernels import _build
 
@@ -38,6 +47,19 @@ def cost_volume_concat_plain(left: torch.Tensor, right: torch.Tensor,
     for d in range(min(max_disp, w)):
         out[:, d, :, d:, c:] = right[:, :, :w - d]
     return out
+
+
+def cost_volume_concat_bwd_plain(g: torch.Tensor, max_disp: int):
+    """Plain PyTorch version of the backward: (dL, dR) in g's dtype from
+    the (N, D, H, W, 2C) cotangent, summed over D in fp32."""
+    n, _, h, w, c2 = g.shape
+    c = c2 // 2
+    gf = g.float()
+    dl = gf[..., :c].sum(1)
+    dr = gf.new_zeros((n, h, w, c))
+    for d in range(min(max_disp, w)):
+        dr[:, :, :w - d] += gf[:, d, :, d:, c:]
+    return dl.to(g.dtype), dr.to(g.dtype)
 
 
 def _check(left, right, max_disp):
@@ -77,19 +99,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def cost_volume_concat(left: torch.Tensor, right: torch.Tensor,
-                       max_disp: int) -> torch.Tensor:
-    """NHWC pair -> (N, D, H, W, 2C) concat volume (see the module
-    docstring).
-
-    CPU tensors take `cost_volume_concat_plain`. CUDA tensors launch the
-    kernel on the current stream and add one to
-    ``cost_volume_concat.launches``; they must be contiguous NHWC on one
-    device."""
-    _check(left, right, max_disp)
+def _forward(left, right, max_disp):
+    """One forward call: the plain version on the CPU, else the kernel,
+    counted on the wrapper."""
     if _on_cpu(left, right):
         return cost_volume_concat_plain(left, right, max_disp)
-    _build.refuse_autograd("cost_volume_concat", left, right)
     n, h, w, c = left.shape
     if n > 65535 or h > 65535:
         raise ValueError(f"N and H must be <= 65535 (grid limit); got {n}, {h}")
@@ -115,4 +129,79 @@ def cost_volume_concat(left: torch.Tensor, right: torch.Tensor,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.load("cost_volume_concat_bwd")
+    lib.cost_volume_concat_bwd_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.cost_volume_concat_bwd_launch.restype = ctypes.c_int
+    lib.cost_volume_concat_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.cost_volume_concat_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def cost_volume_concat_bwd(g: torch.Tensor, max_disp: int):
+    """The volume's backward: (dL, dR), (N, H, W, C) in g's dtype, from the
+    (N, D, H, W, 2C) cotangent ``g`` (see the module docstring).
+
+    A CPU ``g`` takes `cost_volume_concat_bwd_plain`. A CUDA one launches
+    the backward kernel on the current stream and adds one to
+    ``cost_volume_concat_bwd.launches``."""
+    if g.dim() != 5 or g.shape[1] != max_disp or g.shape[-1] % 2:
+        raise ValueError(f"g must be (N, {max_disp}, H, W, 2C); got "
+                         f"{tuple(g.shape)}")
+    if g.dtype not in DTYPES:
+        raise TypeError(f"g must be float32 or bfloat16; got {g.dtype}")
+    g = g.contiguous()
+    if _on_cpu(g, g):
+        return cost_volume_concat_bwd_plain(g, max_disp)
+    n, _, h, w, c2 = g.shape
+    dleft = torch.empty((n, h, w, c2 // 2), dtype=g.dtype, device=g.device)
+    dright = torch.empty_like(dleft)
+    lib = _lib_bwd()
+    err = lib.cost_volume_concat_bwd_launch(
+        g.data_ptr(), dleft.data_ptr(), dright.data_ptr(), n, h, w, c2 // 2,
+        int(max_disp), int(g.dtype == torch.bfloat16), g.device.index,
+        torch.cuda.current_stream(g.device).cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"cost_volume_concat backward kernel launch failed: CUDA error "
+            f"{err} ({lib.cost_volume_concat_bwd_error_string(err).decode()})")
+    cost_volume_concat_bwd.launches += 1
+    return dleft, dright
+
+
+class _Concat(torch.autograd.Function):
+    """The kernel (or, on the CPU, its plain version) with the backward
+    kernel (or its plain version) as its gradient."""
+
+    @staticmethod
+    def forward(ctx, left, right, max_disp):
+        ctx.max_disp = max_disp
+        return _forward(left, right, max_disp)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        dl, dr = cost_volume_concat_bwd(g, ctx.max_disp)
+        return dl, dr, None
+
+
+def cost_volume_concat(left: torch.Tensor, right: torch.Tensor,
+                       max_disp: int) -> torch.Tensor:
+    """NHWC pair -> (N, D, H, W, 2C) concat volume (see the module
+    docstring).
+
+    CPU tensors take `cost_volume_concat_plain`. CUDA tensors launch the
+    kernel on the current stream and add one to
+    ``cost_volume_concat.launches``; they must be contiguous NHWC on one
+    device. Differentiable: the gradient is `cost_volume_concat_bwd`."""
+    _check(left, right, max_disp)
+    if torch.is_grad_enabled() and (left.requires_grad
+                                    or right.requires_grad):
+        return _Concat.apply(left, right, max_disp)
+    return _forward(left, right, max_disp)
+
+
 cost_volume_concat.launches = 0
+cost_volume_concat_bwd.launches = 0

@@ -382,24 +382,32 @@ def _carrier(a, device, dtype) -> torch.Tensor:
 
 
 class _Weights(nn.Module):
-    """A layer's weight and bias as fp32 carriers of the net's dtype, made
-    once at load (exact: every bf16 value is an fp32 value): the operands
-    of every frame's round-once conv, and what `params_to_numpy` reads."""
+    """A layer's weight and bias, what `params_to_numpy` reads.
 
-    def __init__(self, w, b, device, dtype):
+    Serving: fp32 carriers of the net's dtype, made once at load (exact:
+    every bf16 value is an fp32 value), the operands of every frame's
+    round-once conv, frozen. Training (``trainable``): fp32 master
+    parameters that require grad, which the convs round to the net's dtype
+    on every call (`ops/convolution.py:_ConvSum`, `_add_bias`), as the JAX
+    package's train step casts its params; the gradient comes back to the
+    masters in fp32."""
+
+    def __init__(self, w, b, device, dtype, trainable: bool = False):
         super().__init__()
-        self.weight = nn.Parameter(_carrier(w, device, dtype),
-                                   requires_grad=False)
-        self.bias = nn.Parameter(_carrier(b, device, dtype),
-                                 requires_grad=False)
+        held = torch.float32 if trainable else dtype
+        self.weight = nn.Parameter(_carrier(w, device, held),
+                                   requires_grad=trainable)
+        self.bias = nn.Parameter(_carrier(b, device, held),
+                                 requires_grad=trainable)
 
 
 class _Conv(_Weights):
     """TF-SAME conv layer, 2D or 3D: the HWIO / DHWIO kernel held as
     OIHW / OIDHW."""
 
-    def __init__(self, w, b, stride: int, device, dtype):
-        super().__init__(_torch_layout(w), b, device, dtype)
+    def __init__(self, w, b, stride: int, device, dtype,
+                 trainable: bool = False):
+        super().__init__(_torch_layout(w), b, device, dtype, trainable)
         self.stride = stride
 
     def forward(self, x):
@@ -479,8 +487,8 @@ class _ConvTranspose(_Weights):
     """TF conv{2,3}d_transpose layer, stride 2: the HWIO / DHWIO kernel
     (I = output channels) held as PyTorch's (in, out, *k)."""
 
-    def __init__(self, w, b, device, dtype):
-        super().__init__(_torch_layout(w), b, device, dtype)
+    def __init__(self, w, b, device, dtype, trainable: bool = False):
+        super().__init__(_torch_layout(w), b, device, dtype, trainable)
 
     def forward(self, x, out_spatial):
         conv = (conv3d_transpose_ncdhw if self.weight.dim() == 5
@@ -673,13 +681,22 @@ class StereoNet(nn.Module):
     Submodules follow the JAX param paths (`encoder2D.resblock1.res_conv1`,
     `encoder3D.conv3D_1`, `decoder3D.deconv3D_1`, ...); `conv1_s2d` is the
     stem's exact 3x3 stride-1 form for space-to-depth packed input at
-    ``spec.input_hw``."""
+    ``spec.input_hw``.
+
+    ``trainable``: the layers hold fp32 master parameters that require grad
+    and cast them to ``dtype`` on every call (`_Weights`). Such a net runs
+    the plain lowering only (the explicit concat volume and dense conv3D_1,
+    as the JAX package trains): no fused conv3D_1, packed head or s2d stem,
+    whose kernels would be derived once from weights that training moves;
+    no int8 leaves."""
 
     def __init__(self, spec: StereoSpec, params: Params, *,
-                 device: torch.device, dtype: torch.dtype):
+                 device: torch.device, dtype: torch.dtype,
+                 trainable: bool = False):
         super().__init__()
         self.spec = spec
         self._dtype = dtype
+        self.trainable = trainable
         strides = {f"bneck_encoder2D/{name}": s
                    for name, _, s in spec.bneck_channels}
         strides["encoder2D/conv1"] = 2
@@ -691,6 +708,9 @@ class StereoNet(nn.Module):
             for p in path.split("/"):
                 leaf = leaf[p]
             if "weights_q" in leaf:
+                if trainable:
+                    raise ValueError(f"{path}: an int8 leaf is a serving "
+                                     "rung, not trainable")
                 if path.startswith(("bneck_decoder2D/", "decoder3D/",
                                     "encoder3D/")):
                     raise ValueError(f"{path}: only 2D convs take int8 "
@@ -708,14 +728,15 @@ class StereoNet(nn.Module):
                 raise ValueError(f"{path}: kernel shape {tuple(w.shape)}, "
                                  f"spec wants {kshape}")
             if path.startswith(("bneck_decoder2D/", "decoder3D/")):
-                layer = _ConvTranspose(w, b, device, dtype)
-            elif path in fused and strides[path] == 1:
+                layer = _ConvTranspose(w, b, device, dtype, trainable)
+            elif path in fused and strides[path] == 1 and not trainable:
                 layer = _FusedConv3D1(w, b, device, dtype)
             else:
-                layer = _Conv(w, b, strides.get(path, 1), device, dtype)
+                layer = _Conv(w, b, strides.get(path, 1), device, dtype,
+                              trainable)
             self._add(path, layer)
         self._steps = ()
-        if spec.enc3d and spec.enc3d[0].stride == 1:
+        if spec.enc3d and spec.enc3d[0].stride == 1 and not trainable:
             self._steps = _packed_plan(spec)
             self.packed3D = nn.ModuleDict()
             for step in self._steps:
@@ -737,7 +758,7 @@ class StereoNet(nn.Module):
                 self.packed3D[step.name] = layer
         stem = params["encoder2D"]["conv1"]
         # an int8 stem takes only raw frames (no int8 s2d form), as in JAX
-        self.conv1_s2d = None if "weights_q" in stem else _Conv(
+        self.conv1_s2d = None if "weights_q" in stem or trainable else _Conv(
             conv5s2_kernel_to_s2d(np.asarray(stem["weights"], np.float32),
                                   spec.input_hw),
             stem["biases"], 1, device, dtype)
@@ -766,7 +787,8 @@ class StereoNet(nn.Module):
         if x.shape[1] == 12:
             if self.conv1_s2d is None:
                 raise ValueError("s2d-packed input unsupported with int8 "
-                                 "conv1: feed raw (N, H, W, 3) frames")
+                                 "conv1 or trainable weights: feed raw "
+                                 "(N, H, W, 3) frames")
             return elu(self.conv1_s2d(x))
         return elu(self.encoder2D.conv1(x))
 
@@ -903,15 +925,19 @@ class StereoNet(nn.Module):
 
 
 def params_from_numpy(spec: StereoSpec, params: Params, *, device=None,
-                      dtype: torch.dtype = torch.float32) -> StereoNet:
+                      dtype: torch.dtype = torch.float32,
+                      trainable: bool = False) -> StereoNet:
     """Build the model from the JAX package's nested param dict of numpy
-    arrays (HWIO). ``device=None`` is the card (see `resolve_device`)."""
-    return StereoNet(spec, params, device=resolve_device(device), dtype=dtype)
+    arrays (HWIO). ``device=None`` is the card (see `resolve_device`);
+    ``trainable``: fp32 master parameters (see `StereoNet`)."""
+    return StereoNet(spec, params, device=resolve_device(device), dtype=dtype,
+                     trainable=trainable)
 
 
-def params_to_numpy(net: StereoNet) -> Params:
+def params_to_numpy(net: StereoNet, *, grads: bool = False) -> Params:
     """The inverse of `params_from_numpy`: the nested HWIO / DHWIO param
-    dict as float32 numpy (an int8 layer as its int8 leaf)."""
+    dict as float32 numpy (an int8 layer as its int8 leaf). ``grads``: the
+    masters' gradients of a trainable net in the same layout instead."""
     params: Params = {}
     for path, _, _ in _spec_layer_shapes(net.spec):
         layer = net.get_submodule(path.replace("/", "."))
@@ -926,11 +952,15 @@ def params_to_numpy(net: StereoNet) -> Params:
                 "x_scale": np.float32(layer.x_scale.item()),
                 "biases": layer.bias.float().cpu().numpy()}
             continue
-        nd = layer.weight.dim()
+        w, b = layer.weight, layer.bias
+        if grads:
+            w, b = w.grad, b.grad
+        nd = w.dim()
+        # copies: a CPU net's arrays would otherwise alias its parameters
         node[name] = {
-            "weights": layer.weight.permute(*range(2, nd), 1, 0)
-            .float().cpu().numpy(),
-            "biases": layer.bias.float().cpu().numpy()}
+            "weights": w.detach().permute(*range(2, nd), 1, 0)
+            .float().cpu().numpy().copy(),
+            "biases": b.detach().float().cpu().numpy().copy()}
     return params
 
 

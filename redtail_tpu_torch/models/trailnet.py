@@ -205,8 +205,10 @@ def params_to_numpy(net: TrailNet) -> Params:
     for name, w in net.weight.items():
         w = w.detach().float().cpu()
         w = w.permute(2, 3, 1, 0) if w.dim() == 4 else w.t()
-        out[name] = {"w": w.numpy(),
-                     "b": net.bias[name].detach().float().cpu().numpy()}
+        # copies: a CPU net's arrays would otherwise alias its parameters
+        out[name] = {"w": w.numpy().copy(),
+                     "b": net.bias[name].detach().float().cpu().numpy()
+                     .copy()}
     return out
 
 

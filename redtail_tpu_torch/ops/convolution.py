@@ -32,6 +32,16 @@ What is TF's is arranged around them:
   after. Those flags are process-wide: one lock (`_FLAGS_LOCK`) spans
   each set, launch and restore, so a node thread's conv never launches
   under another node thread's setting.
+- the convolutions are differentiable with JAX's mixed-precision rule
+  (`redtail_tpu/ops/convolution.py:_mixed_accum_conv`): where an operand
+  requires grad, the fp32 sum is `_ConvSum`, whose backward casts the
+  cotangent to the layer's dtype, runs cuDNN's input and weight gradients
+  on fp32 copies under the same switches (taken inside the backward, on
+  whatever thread autograd runs it: the lock is never held across
+  ``loss.backward()``), and rounds each gradient once to the operand
+  dtype. A trainable net's fp32 master weight is rounded to the layer's
+  dtype inside `_ConvSum` (its gradient rounded there too), its bias in
+  `_add_bias`. The bias and the final cast stay autograd's.
 
 `plain_lowering` is the JAX package's switch to the spec-literal forms; in
 the port it selects the explicit concat volume + dense conv3D_1 over the
@@ -52,6 +62,7 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 Strides = Union[int, Sequence[int]]
 
@@ -146,6 +157,65 @@ def _fp32_accumulate(x: torch.Tensor):
     return _tf32(x, x.dtype != torch.float32)
 
 
+_CONV = {4: F.conv2d, 5: F.conv3d}
+_CONV_T = {4: F.conv_transpose2d, 5: F.conv_transpose3d}
+
+
+def _conv_fp32(x, w, stride, padding, transposed):
+    fn = (_CONV_T if transposed else _CONV)[x.dim()]
+    with _fp32_accumulate(x):
+        return fn(x.float(), w.float(), stride=stride, padding=padding)
+
+
+class _ConvSum(torch.autograd.Function):
+    """The fp32 sum of a conv (or transposed conv) over fp32 copies of its
+    operands, differentiable as JAX's `_mixed_accum_conv` is: the
+    cotangent cast to x's dtype, the input and weight gradients as fp32
+    sums (cuDNN, the forward's TF32 and determinism switches, taken here,
+    inside the backward), each rounded once to x's dtype. A weight held in
+    another dtype (a trainable net's fp32 master) is rounded to x's dtype
+    here, in the forward, and its gradient returned in its own dtype: the
+    one cast each way that JAX's train step makes of its params."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, transposed):
+        wc = w.to(x.dtype).float()
+        ctx.save_for_backward(x, wc)
+        ctx.conf = (stride, padding, transposed, w.dtype)
+        return _conv_fp32(x, wc, stride, padding, transposed)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, wc = ctx.saved_tensors
+        stride, padding, transposed, w_dtype = ctx.conf
+        nd = x.dim() - 2
+        g = g.to(x.dtype).float()
+        with _fp32_accumulate(x):
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                g, x.float(), wc, None, _tuple(stride, nd),
+                _tuple(padding, nd), (1,) * nd, transposed, (0,) * nd, 1,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        if dx is not None:
+            dx = dx.to(x.dtype)
+        if dw is not None:
+            dw = dw.to(x.dtype).to(w_dtype)
+        return dx, dw, None, None, None
+
+
+def _conv_sum(x: torch.Tensor, w: torch.Tensor, stride, padding,
+              transposed: bool = False) -> torch.Tensor:
+    """The fp32 conv sum of x and w (no bias), through `_ConvSum` where
+    grad mode is on and an operand requires grad. A weight that requires
+    grad (a trainable master) is rounded to x's dtype; a frozen one is a
+    carrier made at load and taken as it is."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _ConvSum.apply(x, w, stride, padding, transposed)
+    if w.requires_grad:
+        w = w.to(x.dtype)
+    return _conv_fp32(x, w, stride, padding, transposed)
+
+
 def conv2d_round_once(x: torch.Tensor, w: torch.Tensor,
                       b: Optional[torch.Tensor], stride: Strides,
                       padding: Tuple[int, int]) -> torch.Tensor:
@@ -153,11 +223,9 @@ def conv2d_round_once(x: torch.Tensor, w: torch.Tensor,
     caffe_net.py:_conv`, `trailnet.py:c2d`): x (N, C, H, W), w (O, I, kh,
     kw), symmetric explicit ``padding``, floor output dims; the conv runs on
     fp32 copies of the operands (fp32 sums), the bias is added in fp32 and
-    the result is rounded once to x's dtype."""
-    with _fp32_accumulate(x):
-        out = F.conv2d(x.float(), w.float(),
-                       None if b is None else b.float(), stride, padding)
-    return out.to(x.dtype)
+    the result is rounded once to x's dtype. The bias is added after the
+    sum, as JAX's `c2d` adds it."""
+    return _add_bias(_conv_sum(x, w, stride, padding), b, x.dtype)
 
 
 def linear_fp32(x: torch.Tensor, w: torch.Tensor,
@@ -175,12 +243,10 @@ def _add_bias(out: torch.Tensor, b: Optional[torch.Tensor],
     to ``dtype``."""
     if b is None:
         return out.to(dtype)
+    if b.requires_grad:  # a trainable master: rounded to the net's dtype
+        b = b.to(dtype)
     return (out.float() + b.float().reshape(-1, *[1] * (out.dim() - 2))
             ).to(dtype)
-
-
-_CONV = {4: F.conv2d, 5: F.conv3d}
-_CONV_T = {4: F.conv_transpose2d, 5: F.conv_transpose3d}
 
 
 def _tuple(strides: Strides, n: int) -> Tuple[int, ...]:
@@ -205,10 +271,7 @@ def _conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     else:
         x = F.pad(x, [p for pair in reversed(pads) for p in pair])
         conv_pad = 0
-    with _fp32_accumulate(x):
-        out = _CONV[x.dim()](x.float(), w.float(), stride=strides,
-                             padding=conv_pad)
-    return _add_bias(out, b, x.dtype)
+    return _add_bias(_conv_sum(x, w, strides, conv_pad), b, x.dtype)
 
 
 def _conv_transpose(y: torch.Tensor, w: torch.Tensor,
@@ -218,8 +281,7 @@ def _conv_transpose(y: torch.Tensor, w: torch.Tensor,
     maps ``out_spatial`` to y's size. y (N, K, *Y), w (K, C, *k)."""
     padding = _padding(padding)
     strides = _tuple(strides, y.dim() - 2)
-    with _fp32_accumulate(y):
-        full = _CONV_T[y.dim()](y.float(), w.float(), stride=strides)
+    full = _conv_sum(y, w, strides, 0, transposed=True)
     crop = []
     for size, full_size, k, s in zip(out_spatial, full.shape[2:],
                                      w.shape[2:], strides):

@@ -1,1 +1,2 @@
-"""Utilities: checkpoint bundles, disparity metrics."""
+"""Utilities: checkpoint bundles, disparity metrics, the typed config
+bridge, logging setup."""

@@ -440,12 +440,79 @@ def test_stereo_node_packed_head_serves_through_the_kernels(cuda_device):
     assert np.abs(disp - unpacked).mean() < 0.1
 
 
-# ------------------------------------------- autograd refusal (ROADMAP)
+# ------------------------------- backward kernels and the autograd refusal
+
+# The training path's features: the 160x512 crop at half resolution, batch
+# 4 (ResNet18-2D: C = 32, D = 48; NVTiny: C = 8, D = 24).
+TRAIN_CORR = ((4, 80, 256, 32), 48)
+TRAIN_CONCAT = [((4, 80, 256, 8), 24), ((4, 80, 256, 32), 48)]
+
+
+def _bwd_ok(got, want):
+    """fp32: within 1e-5 of the largest magnitude (summation order only);
+    bf16: both round an fp32 sum once, so within one bf16 step plus that."""
+    atol = 1e-5 * (want.float().abs().max().item() + 1.0)
+    if got.dtype == torch.float32:
+        return bool(((got - want).abs() <= atol).all())
+    return _ulp_ok(got, want, atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["dlast", "hdw", "softargmax"])
+@pytest.mark.parametrize("shape,d", SHAPES + CORR_EDGES + [TRAIN_CORR])
+def test_corr_bwd_kernel_matches_plain_on_card(cuda_device, shape, d, dtype,
+                                               mode):
+    left, right = _pair(cuda_device, shape, dtype, seed=2)
+    # scaled by 1/sqrt(C): the volume is O(1), as trained features make it
+    left, right = (t * shape[-1] ** -0.5 for t in (left, right))
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(3)
+    n, h, w, _ = shape
+    gshape = {"dlast": (n, h, w, d), "hdw": (n, h, d, w),
+              "softargmax": (n, h, w)}[mode]
+    g = torch.randn(gshape, generator=gen, device=cuda_device)
+    if mode == "hdw":
+        g = g.to(dtype)
+    if mode == "softargmax":
+        counter = corr.corr_softargmax_bwd
+        before = counter.launches
+        got = corr.corr_softargmax_bwd(left, right, g, d)
+        want = corr.corr_softargmax_bwd_plain(left, right, g, d)
+    else:
+        counter = corr.corr_cost_volume_bwd
+        before = counter.launches
+        got = corr.corr_cost_volume_bwd(left, right, g, d, layout=mode)
+        want = corr.corr_cost_volume_bwd_plain(left, right, g, d,
+                                               layout=mode)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape == shape
+        assert _bwd_ok(a, b), float((a.float() - b.float()).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,d", CONCAT_SHAPES + TRAIN_CONCAT)
+def test_concat_bwd_kernel_matches_plain_on_card(cuda_device, shape, d,
+                                                 dtype):
+    n, h, w, c = shape
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(4)
+    g = torch.randn((n, d, h, w, 2 * c), generator=gen,
+                    device=cuda_device).to(dtype)
+    before = concat.cost_volume_concat_bwd.launches
+    got = concat.cost_volume_concat_bwd(g, d)
+    torch.cuda.synchronize()
+    assert concat.cost_volume_concat_bwd.launches == before + 1
+    want = concat.cost_volume_concat_bwd_plain(g, d)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape == shape
+        assert _bwd_ok(a, b), float((a.float() - b.float()).abs().max())
 
 
 def _kernel_calls(device, requires_grad):
-    """(counter, call) of each of the five wrapper entry points on CUDA
-    inputs that require grad (or not)."""
+    """(counter, call, backward counter) of each of the five wrapper entry
+    points on CUDA inputs that require grad (or not)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(5)
 
@@ -458,33 +525,68 @@ def _kernel_calls(device, requires_grad):
     xp, k, kb = t(1, 3, 4, 9, 16), t(2, 2, 3, 16, 16), t(16)
     return {
         "corr_cost_volume": (corr.corr_cost_volume,
-                             lambda: corr.corr_cost_volume(left, right, 5)),
+                             lambda: corr.corr_cost_volume(left, right, 5),
+                             corr.corr_cost_volume_bwd),
         "corr_softargmax": (corr.corr_softargmax,
-                            lambda: corr.corr_softargmax(left, right, 5)),
+                            lambda: corr.corr_softargmax(left, right, 5),
+                            corr.corr_softargmax_bwd),
         "cost_volume_concat": (concat.cost_volume_concat,
                                lambda: concat.cost_volume_concat(left, right,
-                                                                 5)),
+                                                                 5),
+                               concat.cost_volume_concat_bwd),
         "fused_cv_emit": (emit.fused_cv_emit,
-                          lambda: emit.fused_cv_emit(la, rb, b, 5)),
-        "conv223": (c223.conv223, lambda: c223.conv223(xp, k, kb))}
+                          lambda: emit.fused_cv_emit(la, rb, b, 5), None),
+        "conv223": (c223.conv223, lambda: c223.conv223(xp, k, kb), None)}
 
 
-@pytest.mark.parametrize("name", ["corr_cost_volume", "corr_softargmax",
-                                  "cost_volume_concat", "fused_cv_emit",
-                                  "conv223"])
+@pytest.mark.parametrize("name", ["fused_cv_emit", "conv223"])
 def test_kernel_wrappers_refuse_autograd_on_card(cuda_device, name):
-    counter, call = _kernel_calls(cuda_device, True)[name]
+    counter, call, _ = _kernel_calls(cuda_device, True)[name]
     before = counter.launches
-    with pytest.raises(RuntimeError, match=r"no backward yet.*item 9"):
+    with pytest.raises(RuntimeError, match=r"no backward yet.*item 2"):
         call()
     assert counter.launches == before
     for ctx in (torch.no_grad, torch.inference_mode):
         with ctx():
             assert call().is_cuda
-    counter, call = _kernel_calls(cuda_device, False)[name]
+    counter, call, _ = _kernel_calls(cuda_device, False)[name]
     assert call().is_cuda  # grad mode on, no input requires grad
     torch.cuda.synchronize()
     assert counter.launches == before + 3
+
+
+@pytest.mark.parametrize("name", ["corr_cost_volume", "corr_softargmax",
+                                  "cost_volume_concat"])
+def test_kernel_wrappers_backward_on_card(cuda_device, name, monkeypatch):
+    """Through autograd on the card: the forward kernel, then the backward
+    kernel, never a plain version; the grads are the plain backward's."""
+    left, right = (t.requires_grad_() for t in
+                   _pair(cuda_device, (1, 3, 40, 8), seed=6))
+    fwd, bwd, plain_bwd = {
+        "corr_cost_volume": (corr.corr_cost_volume, corr.corr_cost_volume_bwd,
+                             lambda g: corr.corr_cost_volume_bwd_plain(
+                                 left.detach(), right.detach(), g, 5)),
+        "corr_softargmax": (corr.corr_softargmax, corr.corr_softargmax_bwd,
+                            lambda g: corr.corr_softargmax_bwd_plain(
+                                left.detach(), right.detach(), g, 5)),
+        "cost_volume_concat": (concat.cost_volume_concat,
+                               concat.cost_volume_concat_bwd,
+                               lambda g: concat.cost_volume_concat_bwd_plain(
+                                   g, 5))}[name]
+    before = (fwd.launches, bwd.launches)
+    out = fwd(left, right, 5)
+    g = torch.randn_like(out)
+    module = concat if name == "cost_volume_concat" else corr
+    with monkeypatch.context() as m:
+        for attr in dir(module):
+            if attr.endswith("_plain"):
+                m.setattr(module, attr, lambda *a, **k: pytest.fail(
+                    "a CUDA tensor reached a plain version"))
+        out.backward(g)
+        torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    for got, want in zip((left.grad, right.grad), plain_bwd(g)):
+        assert _bwd_ok(got, want)
 
 
 # ---------------------------------------------------------- TrailNet / YOLO

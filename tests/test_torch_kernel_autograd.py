@@ -1,15 +1,20 @@
-"""The CUDA kernel wrappers refuse autograd, on the CPU.
+"""The CUDA kernel wrappers under autograd, on the CPU.
 
-No kernel has a backward yet, and each writes its output through a raw
-pointer, so on the card a loss through one would silently lose the
-gradients of every layer upstream. Each of the five wrapper entry points
-must raise before it launches when grad mode is on and an input requires
-grad, and launch as before under `torch.no_grad()` / `inference_mode()`.
-Here the CUDA route is taken on CPU tensors by monkeypatching the
-wrapper's `_on_cpu`, with `_lib` replaced by a stand-in that records the
-launch; `tests/test_torch_cuda.py` holds the same on the card. The CPU
+The correlation and concat volumes have backward kernels: where grad mode
+is on and an input requires grad, their wrappers run as autograd functions
+whose backward launches the backward kernel on CUDA tensors. The emission
+and conv223 kernels have none yet, and each writes its output through a
+raw pointer, so on the card a loss through one would silently lose the
+gradients of every layer upstream: those two wrappers must raise before
+they launch when grad mode is on and an input requires grad. All five
+launch as before under `torch.no_grad()` / `inference_mode()`. Here the
+CUDA route is taken on CPU tensors by monkeypatching the wrapper's
+`_on_cpu`, with `_lib` (and `_lib_bwd`) replaced by stand-ins that record
+the launch; `tests/test_torch_cuda.py` holds the same on the card. The CPU
 plain versions stay differentiable.
 """
+
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -56,13 +61,73 @@ def cuda_route(monkeypatch):
         monkeypatch.setattr(module, "_lib", launch)
 
 
-@pytest.mark.parametrize("name", list(ENTRY))
+@pytest.mark.parametrize("name", ["fused_cv_emit", "conv223"])
 def test_refuses_before_launch_when_grad_is_needed(name, cuda_route):
     _, fn = ENTRY[name]
     before = fn.launches
-    with pytest.raises(RuntimeError, match=r"no backward yet.*item 9"):
+    with pytest.raises(RuntimeError, match=r"no backward yet.*item 2"):
         fn(*_inputs(name, True))
     assert fn.launches == before
+
+
+class FakeLib:
+    """A stand-in kernel library: each ``*_launch`` records its arguments
+    and returns 0 (success) without touching the output."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.endswith("_launch"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+# (entry, keywords, backward counter, the backward kernel's mode argument)
+BACKWARD = {
+    "corr_cost_volume-dlast": ("corr_cost_volume", {"layout": "dlast"},
+                               corr.corr_cost_volume_bwd, 1),
+    "corr_cost_volume-hdw": ("corr_cost_volume", {"layout": "hdw"},
+                             corr.corr_cost_volume_bwd, 0),
+    "corr_softargmax": ("corr_softargmax", {}, corr.corr_softargmax_bwd, 2),
+    "cost_volume_concat": ("cost_volume_concat", {},
+                           concat.cost_volume_concat_bwd, None),
+}
+
+
+@pytest.mark.parametrize("case", list(BACKWARD))
+def test_cuda_route_launches_the_backward_kernel(case, monkeypatch):
+    """With grad needed, the forward launches its kernel once and the
+    backward the backward kernel once, on the cotangent and the saved
+    features; the grads come back in the inputs' shapes and dtype."""
+    name, kw, bwd, mode = BACKWARD[case]
+    module, fn = ENTRY[name]
+    lib, lib_bwd = FakeLib(), FakeLib()
+    monkeypatch.setattr(module, "_on_cpu", lambda *args: False)
+    monkeypatch.setattr(module, "_lib", lambda: lib)
+    monkeypatch.setattr(module, "_lib_bwd", lambda: lib_bwd)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    left, right, d = _inputs(name, True)
+    before = (fn.launches, bwd.launches)
+    out = fn(left, right, d, **kw)
+    assert [c[0] for c in lib.calls] == [f"{module.__name__.rsplit('.')[-1]}"
+                                         "_launch"]
+    g = torch.ones_like(out)
+    out.backward(g)
+    assert (fn.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert len(lib_bwd.calls) == 1
+    call, args = lib_bwd.calls[0]
+    assert call.endswith("_bwd_launch")
+    if mode is None:  # concat: (g, dL, dR, n, h, w, c, D, bf16, ...)
+        assert args[0] == g.data_ptr() and args[3:8] == (1, 3, 8, 4, d)
+    else:  # corr: (L, R, g, scratch, dL, dR, n, h, w, c, D, bf16, mode, ...)
+        assert args[:2] == (left.data_ptr(), right.data_ptr())
+        assert args[6:11] == (1, 3, 8, 4, d) and args[12] == mode
+        assert (args[3] is None) == (mode != 2)
+    for t in (left, right):
+        assert t.grad is not None and t.grad.shape == t.shape
+        assert t.grad.dtype == t.dtype
 
 
 @pytest.mark.parametrize("mode", ["no_grad", "inference_mode",

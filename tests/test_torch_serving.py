@@ -248,11 +248,16 @@ def _port_files():
 
 def test_port_scan_covers_the_weight_and_quant_modules():
     """The scan below walks every module of the package; these are the
-    ones the weight loaders and the quantized rungs added."""
+    ones the weight loaders, the quantized rungs and the training slice
+    added."""
     scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
     for name in ("io/trt_weights.py", "io/tf_checkpoint.py",
                  "quant/ptq.py", "quant/stereo_int8.py",
-                 "utils/metrics.py"):
+                 "utils/metrics.py", "utils/checkpoint.py",
+                 "utils/config.py", "utils/logging.py", "data/kitti.py",
+                 "data/trails.py", "parallel/training.py",
+                 "training/stereo.py", "training/trailnet.py",
+                 "apps/train_app.py"):
         assert f"redtail_tpu_torch/{name}" in scanned
 
 
