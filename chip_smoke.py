@@ -2012,13 +2012,19 @@ TRAIN_FEATS = {"resnet18_2d": ((4, 80, 256, 32), 48),
                "nvtiny": ((4, 80, 256, 8), 24),
                "nvsmall": ((4, 80, 256, 32), 48)}
 # 9a: the corr backward at the training shape, then the forward kernel's
-# edges (phase 3's); the concat backward at NVTiny's and NVSmall's training
-# shapes, then the forward's edges
+# edges (phase 3's), then its own plan's (`bwd_tile_plan`): rows of several
+# segments with their halos, C = 12 (no 16-byte loads in bf16), D = 70 in
+# two disparity chunks; the concat backward at NVTiny's and NVSmall's
+# training shapes, then the forward's edges, then C not a multiple of 8
+# (8-, 4- and 2-byte words)
 CORR_BWD_CASES = (("resnet18_2d train",) + TRAIN_FEATS["resnet18_2d"],) \
-    + CORR_CASES[1:]
+    + CORR_CASES[1:] + (("segments", (2, 3, 150, 32), 48),
+                        ("C=12 segments", (1, 2, 200, 12), 20),
+                        ("D=70 segments", (1, 2, 300, 16), 70))
 CONCAT_BWD_CASES = (("nvtiny train",) + TRAIN_FEATS["nvtiny"],
                     ("nvsmall train",) + TRAIN_FEATS["nvsmall"]) \
-    + CONCAT_CASES[2:]
+    + CONCAT_CASES[2:] + (("C=12", (1, 3, 40, 12), 9),
+                          ("C=5", (2, 5, 70, 5), 7))
 # the backwards against their plain versions: fp32 within this share of the
 # largest magnitude (+1), the summation order only; bf16 within one bf16
 # step on top (both round one fp32 sum once)
@@ -2055,7 +2061,8 @@ def bwd_ok(torch, got, want):
 def phase_corr_bwd(torch, corr, gen):
     """9a: the corr backward kernel against its plain version at every
     case, both dtypes, for the fused soft-argmax (the main path) and both
-    volume layouts; then each timed at the ResNet18-2D training call."""
+    volume layouts, and a second launch on the same inputs bit-equal to the
+    first; then each timed at the ResNet18-2D training call."""
     max_err = {"softargmax": 0.0, "dlast": 0.0, "hdw": 0.0}
     for name, shape, d in CORR_BWD_CASES:
         n, h, w, _ = shape
@@ -2069,15 +2076,19 @@ def phase_corr_bwd(torch, corr, gen):
                 g = _randn(torch, gen, gshape, dtype if mode == "hdw"
                            else torch.float32)
                 if mode == "softargmax":
-                    got = corr.corr_softargmax_bwd(left, right, g, d)
+                    got, again = (corr.corr_softargmax_bwd(left, right, g, d)
+                                  for _ in range(2))
                     torch.cuda.synchronize()
                     want = corr.corr_softargmax_bwd_plain(left, right, g, d)
                 else:
-                    got = corr.corr_cost_volume_bwd(left, right, g, d,
-                                                    layout=mode)
+                    got, again = (corr.corr_cost_volume_bwd(
+                        left, right, g, d, layout=mode) for _ in range(2))
                     torch.cuda.synchronize()
                     want = corr.corr_cost_volume_bwd_plain(left, right, g, d,
                                                            layout=mode)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"corr bwd {name} {dtype} {mode}: two launches on the "
+                      f"same inputs differ")
                 for a, b in zip(got, want):
                     check(a.shape == b.shape == shape and a.dtype == b.dtype
                           == dtype, f"corr bwd {name} {mode}: {a.shape} "
@@ -2090,7 +2101,8 @@ def phase_corr_bwd(torch, corr, gen):
                         max_err[mode] = max(max_err[mode], err)
             print(f"9a corr bwd {name:17s} {str(shape):18s} D={d:<3d} "
                   f"{str(dtype):15s} dL, dR max abs err: {', '.join(errs)} "
-                  f"(gate {BWD_RTOL} x (max + 1), bf16 + 1 step)")
+                  f"(gate {BWD_RTOL} x (max + 1), bf16 + 1 step); two "
+                  f"launches bit-equal")
 
     _, shape, d = CORR_BWD_CASES[0]
     n, h, w, c = shape
@@ -2099,13 +2111,14 @@ def phase_corr_bwd(torch, corr, gen):
     feats = 4 * left.numel() * left.element_size()  # L, R in; dL, dR out
     valid = n * h * sum(max(w - k, 0) for k in range(d))
     modes = []
-    for mode, g_bytes, flops, gshape, gdtype in (
-            ("softargmax", n * h * w * 4, 6 * c * valid, (n, h, w),
+    # dL and dR: 4 c flops a volume entry, fp32 products on CUDA cores; the
+    # fused form's recompute: 2 c more, bf16 on the tensor cores
+    grad_flops = 4 * c * valid
+    for mode, g_bytes, rec_flops, gshape, gdtype in (
+            ("softargmax", n * h * w * 4, 2 * c * valid, (n, h, w),
              torch.float32),
-            ("dlast", n * h * w * d * 4, 4 * c * valid, (n, h, w, d),
-             torch.float32),
-            ("hdw", n * h * w * d * 2, 4 * c * valid, (n, h, d, w),
-             torch.bfloat16)):
+            ("dlast", n * h * w * d * 4, 0, (n, h, w, d), torch.float32),
+            ("hdw", n * h * w * d * 2, 0, (n, h, d, w), torch.bfloat16)):
         g = _randn(torch, gen, gshape, gdtype)
         if mode == "softargmax":
             kernel = lambda: corr.corr_softargmax_bwd(left, right, g, d)  # noqa
@@ -2116,11 +2129,22 @@ def phase_corr_bwd(torch, corr, gen):
                 left, right, g, d, layout=mode)
             plain = lambda: corr.corr_cost_volume_bwd_plain(  # noqa: E731
                 left, right, g, d, layout=mode)
-        # recomputed volume (softargmax), dL and dR: bf16 products
+        # the operations term in fp32-rate time: the recompute's bf16
+        # flops count at the fp32 / bf16 rate ratio
         timed = time_kernel(torch, f"9a corr bwd {mode} at {shape} D={d} "
-                            f"bf16", kernel, plain, feats + g_bytes, flops,
-                            peak_flops=PEAK_BF16_FLOPS)
-        modes.append({"mode": mode, "max_abs_err": max_err[mode], **timed})
+                            f"bf16", kernel, plain, feats + g_bytes,
+                            grad_flops + rec_flops * PEAK_FP32_FLOPS
+                            / PEAK_BF16_FLOPS)
+        # the bound with every flop at the bf16 tensor-core rate
+        bf16_ms, _ = bound(feats + g_bytes, grad_flops + rec_flops,
+                           PEAK_BF16_FLOPS)
+        print(f"9a corr bwd {mode}: operations {grad_flops / 1e9:.3f} GFLOP "
+              f"fp32 + {rec_flops / 1e9:.3f} GFLOP bf16; with every flop at "
+              f"the bf16 rate the bound is {bf16_ms:.5f} ms, share "
+              f"{bf16_ms / timed['ms']:.3f}")
+        modes.append({"mode": mode, "max_abs_err": max_err[mode], **timed,
+                      "bound_ms_bf16_rate": bf16_ms,
+                      "bound_share_bf16_rate": bf16_ms / timed["ms"]})
     entry = {"name": "corr_bwd", "route": "cuda",
              "source": "redtail_tpu_torch/csrc/corr_cost_volume_bwd.cu",
              "replaces": "redtail_tpu/kernels/cost_volume_pallas.py:113",
@@ -2133,15 +2157,19 @@ def phase_corr_bwd(torch, corr, gen):
 
 def phase_concat_bwd(torch, concat, gen):
     """9a: the concat backward kernel against its plain version, both
-    dtypes, then timed at NVTiny's training call (the main path's) and
-    NVSmall's."""
+    dtypes, and a second launch on the same inputs bit-equal to the first;
+    then timed at NVTiny's training call (the main path's) and NVSmall's."""
     max_err = 0.0
     for name, shape, d in CONCAT_BWD_CASES:
         n, h, w, c = shape
         for dtype in (torch.bfloat16, torch.float32):
             g = _randn(torch, gen, (n, d, h, w, 2 * c), dtype)
-            got = concat.cost_volume_concat_bwd(g, d)
+            got, again = (concat.cost_volume_concat_bwd(g, d)
+                          for _ in range(2))
             torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"concat bwd {name} {dtype}: two launches on the same "
+                  f"inputs differ")
             want = concat.cost_volume_concat_bwd_plain(g, d)
             errs = []
             for a, b in zip(got, want):
@@ -2156,7 +2184,7 @@ def phase_concat_bwd(torch, concat, gen):
             print(f"9a concat bwd {name:14s} {str(shape):18s} D={d:<3d} "
                   f"{str(dtype):15s} dL, dR max abs err {errs[0]:.2e}, "
                   f"{errs[1]:.2e} (gate {BWD_RTOL} x (max + 1), bf16 + 1 "
-                  f"step)")
+                  f"step); two launches bit-equal")
     timed = {}
     for name, shape, d in CONCAT_BWD_CASES[:2]:
         n, h, w, c = shape

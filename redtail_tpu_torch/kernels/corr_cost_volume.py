@@ -27,10 +27,11 @@ mode is on and an input requires grad, the wrappers run as
 
 in fp32, rounded once to the input dtype; for `corr_softargmax` it first
 recomputes the volume and its softmax p (the forward keeps no volume) and
-forms g_vol[x, d] = g[x] p_d (d - sum_j p_j j). `corr_cost_volume_bwd` and
+forms g_vol[x, d] = g[x] p_d (d - sum_j p_j j), in shared memory only: one
+launch, no scratch volume. `corr_cost_volume_bwd` and
 `corr_softargmax_bwd` are those backward wrappers, each with its plain
-version and launch counter. `tile_plan` is the forward kernel's tiling,
-computed here so the CPU tests can emulate it.
+version and launch counter. `tile_plan` and `bwd_tile_plan` are the two
+kernels' tilings, computed here so the CPU tests can emulate them.
 """
 
 from __future__ import annotations
@@ -115,6 +116,114 @@ def tile_plan(w: int, c: int, d: int, dtype: torch.dtype) -> TilePlan:
     ``dtype`` and ``d`` disparities."""
     return TilePlan(w=w, c=c, d=d,
                     elt=torch.empty((), dtype=dtype).element_size())
+
+
+# The backward kernel's tiling (`csrc/corr_cost_volume_bwd.cu`).
+BWD_THREADS = 256     # threads a block, each owning one unit
+BWD_TX = 8            # columns (x for dL, y for dR) a unit
+# channels a unit, by form: 4 for the fused soft-argmax (each staged g_vol
+# value serves twice the products and its recompute halo is shared by
+# twice the columns), 2 for the volume forms (64 registers, 4 blocks an SM)
+BWD_TC = {"softargmax": 4, "dlast": 2, "hdw": 2}
+BWD_SMEM_MAX = 232448  # a block's shared memory with the opt-in
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdTilePlan:
+    """The backward kernel's tiling of rows of width ``w``, ``c`` channels
+    and ``d`` disparities for one form: a block of `BWD_THREADS` threads
+    owns ``seg`` columns [s0, s0 + seg) of one row and writes dL and dR
+    there; its units (`BWD_TX` columns by ``tc`` channels: the dL units,
+    then the dR units) are one a thread. Disparities go in chunks of
+    `DC`; a chunk stages its g_vol as gvL[d][x - s0] and gvR[d][y - s0] =
+    g_vol[y + d, d], R from y = s0 - d0 - db + 1 and L from x = s0 + d0,
+    seg + db rows each (the D - 1 columns past the segment are its
+    halo)."""
+
+    w: int
+    c: int
+    d: int
+    elt: int
+    tc: int
+    seg: int
+
+    @property
+    def cg(self) -> int:
+        """Channel groups of ``tc``."""
+        return -(-self.c // self.tc)
+
+    @property
+    def segs(self) -> int:
+        return -(-self.w // self.seg)
+
+    @property
+    def tiles(self) -> int:
+        return self.seg // BWD_TX
+
+    @property
+    def units(self) -> int:
+        return 2 * self.tiles * self.cg
+
+    @property
+    def passes(self) -> int:
+        return -(-self.units // BWD_THREADS)
+
+    @property
+    def db(self) -> int:
+        """Disparity rows a chunk stages."""
+        return min(-(-self.d // 4) * 4, DC)
+
+    @property
+    def d_chunks(self) -> int:
+        return -(-self.d // DC)
+
+    def chunk(self, i: int):
+        """Disparity chunk ``i`` -> (d0, dc, rows summed: dc rounded up to
+        4, the rows past dc zero)."""
+        d0 = i * DC
+        dc = min(DC, self.d - d0)
+        return d0, dc, -(-dc // 4) * 4
+
+    def unit(self, u: int):
+        """Unit ``u`` -> ("dl" or "dr", first column offset in the segment,
+        first channel)."""
+        half = self.units // 2
+        kind, u = ("dl", u) if u < half else ("dr", u - half)
+        tile, cg = divmod(u, self.cg)
+        return kind, BWD_TX * tile, self.tc * cg
+
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of a block: gvL and gvR, Ls and Rs, the
+        per-x softmax state (`softargmax` with D > `DC`)."""
+        return 4 * bwd_smem_floats(self.seg, self.cg, self.tc, self.db,
+                                   self.d)
+
+
+def bwd_smem_floats(seg: int, cg: int, tc: int, db: int, d: int) -> int:
+    stats = -(-(seg + d) // 4) * 4
+    return 2 * db * (seg + 4) + 2 * (seg + db) * tc * cg + 3 * stats
+
+
+def bwd_tile_plan(w: int, c: int, d: int, dtype: torch.dtype,
+                  mode: str = "softargmax") -> BwdTilePlan:
+    """The backward kernel's tiling for the form ``mode``: the widest
+    segment whose units fill one thread each (at C = 32, 128 columns for
+    `softargmax`, 64 for `dlast` / `hdw`), at most the row, narrowed until
+    its shared memory fits a block. Raises ValueError where no segment
+    fits (D in the thousands)."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    tc = BWD_TC[mode]
+    cg = -(-c // tc)
+    seg = BWD_TX * max(1, BWD_THREADS // (2 * cg))
+    seg = min(seg, -(-w // BWD_TX) * BWD_TX)
+    db = min(-(-d // 4) * 4, DC)
+    while (seg > BWD_TX
+           and 4 * bwd_smem_floats(seg, cg, tc, db, d) > BWD_SMEM_MAX):
+        seg -= BWD_TX
+    if 4 * bwd_smem_floats(seg, cg, tc, db, d) > BWD_SMEM_MAX:
+        raise ValueError(f"the backward kernel's shared memory cannot hold "
+                         f"C={c}, D={d}")
+    return BwdTilePlan(w=w, c=c, d=d, elt=elt, tc=tc, seg=seg)
 
 
 def corr_cost_volume_plain(left: torch.Tensor, right: torch.Tensor,
@@ -237,7 +346,7 @@ def _launch(left, right, max_disp, mode) -> torch.Tensor:
 def _lib_bwd() -> ctypes.CDLL:
     lib = _build.load("corr_cost_volume_bwd")
     lib.corr_cost_volume_bwd_launch.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     lib.corr_cost_volume_bwd_launch.restype = ctypes.c_int
     lib.corr_cost_volume_bwd_error_string.argtypes = [ctypes.c_int]
     lib.corr_cost_volume_bwd_error_string.restype = ctypes.c_char_p
@@ -264,17 +373,17 @@ def _grad_input(g, left, max_disp, mode):
 def _launch_bwd(left, right, g, max_disp, mode):
     n, h, w, c = left.shape
     g = _grad_input(g, left, max_disp, mode)
+    plan = bwd_tile_plan(w, c, int(max_disp), left.dtype, mode)
+    if n * h * plan.segs > 2 ** 31 - 1:
+        raise ValueError(f"N * H * {plan.segs} segments must be < 2**31; "
+                         f"got N={n}, H={h}")
     dleft, dright = torch.empty_like(left), torch.empty_like(right)
-    scratch = (torch.empty((n, h, w, max_disp), dtype=torch.float32,
-                           device=left.device)
-               if mode == "softargmax" else None)
     lib = _lib_bwd()
     err = lib.corr_cost_volume_bwd_launch(
-        left.data_ptr(), right.data_ptr(), g.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), dleft.data_ptr(),
+        left.data_ptr(), right.data_ptr(), g.data_ptr(), dleft.data_ptr(),
         dright.data_ptr(), n, h, w, c, int(max_disp),
-        int(left.dtype == torch.bfloat16), MODES[mode], left.device.index,
-        torch.cuda.current_stream(left.device).cuda_stream)
+        int(left.dtype == torch.bfloat16), MODES[mode], plan.seg,
+        left.device.index, torch.cuda.current_stream(left.device).cuda_stream)
     if err:
         raise RuntimeError(
             f"corr_cost_volume backward kernel launch failed ({mode}): CUDA "
@@ -311,7 +420,7 @@ def corr_softargmax_bwd(left: torch.Tensor, right: torch.Tensor,
     docstring).
 
     CPU tensors take `corr_softargmax_bwd_plain`. CUDA tensors launch the
-    backward kernel's two passes on the current stream and add one to
+    backward kernel once on the current stream and add one to
     ``corr_softargmax_bwd.launches``."""
     _check(left, right, max_disp)
     if _on_cpu(left, right):

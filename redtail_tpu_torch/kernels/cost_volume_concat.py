@@ -23,11 +23,14 @@ version and launch counter): from the volume's cotangent g,
 
 in fp32, rounded once, the gradient XLA derives for the JAX package's
 `ops/cost_volume.py:cost_volume` (the Pallas kernel has no VJP).
+`bwd_tile_plan` is that kernel's division of the work, computed here so the
+CPU tests can emulate it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -36,6 +39,49 @@ from torch.autograd.function import once_differentiable
 from redtail_tpu_torch.kernels import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
+
+
+BWD_THREADS = 256  # threads a block of the backward kernel
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdTilePlan:
+    """The backward kernel's division of rows of width ``w``, ``c``
+    channels of ``elt`` bytes and ``d`` disparities: a thread (unit) owns
+    one ``word`` of bytes, ``v`` channels, of column y of one row and writes
+    both dL[y] and dR[y] there; it sums, over ascending d, the word of the
+    left half of record (d, y) and, where y + d < w, that of the right half
+    of record (d, y + d). Units run channel word fastest, then y, then the
+    row, `BWD_THREADS` a block."""
+
+    w: int
+    c: int
+    d: int
+    elt: int
+    word: int
+
+    @property
+    def v(self) -> int:
+        """Channels a word."""
+        return self.word // self.elt
+
+    @property
+    def units_per_row(self) -> int:
+        return self.w * (self.c // self.v)
+
+    def unit(self, u: int):
+        """Unit ``u`` -> (row n * H + h, column y, first channel)."""
+        px, k = divmod(u, self.c // self.v)
+        row, y = divmod(px, self.w)
+        return row, y, k * self.v
+
+
+def bwd_tile_plan(w: int, c: int, d: int, dtype: torch.dtype) -> BwdTilePlan:
+    """The backward kernel's plan: the widest word (16, 8, 4 or 2 bytes,
+    at least one element) that divides a half record of ``c`` channels."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    word = next(b for b in (16, 8, 4, 2) if b >= elt and c * elt % b == 0)
+    return BwdTilePlan(w=w, c=c, d=d, elt=elt, word=word)
 
 
 def cost_volume_concat_plain(left: torch.Tensor, right: torch.Tensor,
@@ -133,7 +179,7 @@ def _forward(left, right, max_disp):
 def _lib_bwd() -> ctypes.CDLL:
     lib = _build.load("cost_volume_concat_bwd")
     lib.cost_volume_concat_bwd_launch.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.cost_volume_concat_bwd_launch.restype = ctypes.c_int
     lib.cost_volume_concat_bwd_error_string.argtypes = [ctypes.c_int]
     lib.cost_volume_concat_bwd_error_string.restype = ctypes.c_char_p
@@ -156,12 +202,16 @@ def cost_volume_concat_bwd(g: torch.Tensor, max_disp: int):
     if _on_cpu(g, g):
         return cost_volume_concat_bwd_plain(g, max_disp)
     n, _, h, w, c2 = g.shape
+    plan = bwd_tile_plan(w, c2 // 2, int(max_disp), g.dtype)
     dleft = torch.empty((n, h, w, c2 // 2), dtype=g.dtype, device=g.device)
     dright = torch.empty_like(dleft)
+    word = plan.word  # narrower where a storage offset breaks its alignment
+    while any(t.data_ptr() % word for t in (g, dleft, dright)):
+        word //= 2
     lib = _lib_bwd()
     err = lib.cost_volume_concat_bwd_launch(
         g.data_ptr(), dleft.data_ptr(), dright.data_ptr(), n, h, w, c2 // 2,
-        int(max_disp), int(g.dtype == torch.bfloat16), g.device.index,
+        int(max_disp), int(g.dtype == torch.bfloat16), word, g.device.index,
         torch.cuda.current_stream(g.device).cuda_stream)
     if err:
         raise RuntimeError(

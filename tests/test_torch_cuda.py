@@ -446,6 +446,13 @@ def test_stereo_node_packed_head_serves_through_the_kernels(cuda_device):
 # 4 (ResNet18-2D: C = 32, D = 48; NVTiny: C = 8, D = 24).
 TRAIN_CORR = ((4, 80, 256, 32), 48)
 TRAIN_CONCAT = [((4, 80, 256, 8), 24), ((4, 80, 256, 32), 48)]
+# The corr backward's plan (`bwd_tile_plan`): rows of several segments with
+# their halos; C = 12 (no 16-byte loads in bf16) over two segments; D = 70
+# in two disparity chunks over three. The concat backward's words: C = 12
+# (8 bytes in bf16).
+CORR_BWD_EDGES = [((2, 3, 150, 32), 48), ((1, 2, 200, 12), 20),
+                  ((1, 2, 300, 16), 70)]
+CONCAT_BWD_EDGES = [((1, 3, 40, 12), 9)]
 
 
 def _bwd_ok(got, want):
@@ -459,7 +466,8 @@ def _bwd_ok(got, want):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["dlast", "hdw", "softargmax"])
-@pytest.mark.parametrize("shape,d", SHAPES + CORR_EDGES + [TRAIN_CORR])
+@pytest.mark.parametrize("shape,d",
+                         SHAPES + CORR_EDGES + CORR_BWD_EDGES + [TRAIN_CORR])
 def test_corr_bwd_kernel_matches_plain_on_card(cuda_device, shape, d, dtype,
                                                mode):
     left, right = _pair(cuda_device, shape, dtype, seed=2)
@@ -492,7 +500,8 @@ def test_corr_bwd_kernel_matches_plain_on_card(cuda_device, shape, d, dtype,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,d", CONCAT_SHAPES + TRAIN_CONCAT)
+@pytest.mark.parametrize("shape,d",
+                         CONCAT_SHAPES + CONCAT_BWD_EDGES + TRAIN_CONCAT)
 def test_concat_bwd_kernel_matches_plain_on_card(cuda_device, shape, d,
                                                  dtype):
     n, h, w, c = shape
@@ -508,6 +517,41 @@ def test_concat_bwd_kernel_matches_plain_on_card(cuda_device, shape, d,
     for a, b in zip(got, want):
         assert a.dtype == b.dtype == dtype and a.shape == b.shape == shape
         assert _bwd_ok(a, b), float((a.float() - b.float()).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["softargmax", "dlast", "hdw", "concat"])
+def test_bwd_kernels_repeat_bit_for_bit_on_card(cuda_device, form, dtype):
+    """No atomics: two launches on the same inputs give the same bits (a
+    remat recompute or a repeated step does), at the training shapes and a
+    segmented row."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(6)
+    cases = (TRAIN_CONCAT if form == "concat"
+             else [TRAIN_CORR, CORR_BWD_EDGES[0]])
+    for shape, d in cases:
+        n, h, w, c = shape
+        if form == "concat":
+            g = torch.randn((n, d, h, w, 2 * c), generator=gen,
+                            device=cuda_device).to(dtype)
+            runs = [concat.cost_volume_concat_bwd(g, d) for _ in range(2)]
+        else:
+            left, right = _pair(cuda_device, shape, dtype, seed=7)
+            gshape = {"dlast": (n, h, w, d), "hdw": (n, h, d, w),
+                      "softargmax": (n, h, w)}[form]
+            g = torch.randn(gshape, generator=gen, device=cuda_device)
+            if form == "hdw":
+                g = g.to(dtype)
+            if form == "softargmax":
+                runs = [corr.corr_softargmax_bwd(left, right, g, d)
+                        for _ in range(2)]
+            else:
+                runs = [corr.corr_cost_volume_bwd(left, right, g, d,
+                                                  layout=form)
+                        for _ in range(2)]
+        torch.cuda.synchronize()
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
 
 
 def _kernel_calls(device, requires_grad):

@@ -119,12 +119,16 @@ def test_cuda_route_launches_the_backward_kernel(case, monkeypatch):
     assert len(lib_bwd.calls) == 1
     call, args = lib_bwd.calls[0]
     assert call.endswith("_bwd_launch")
-    if mode is None:  # concat: (g, dL, dR, n, h, w, c, D, bf16, ...)
+    if mode is None:  # concat: (g, dL, dR, n, h, w, c, D, bf16, word, ...)
         assert args[0] == g.data_ptr() and args[3:8] == (1, 3, 8, 4, d)
-    else:  # corr: (L, R, g, scratch, dL, dR, n, h, w, c, D, bf16, mode, ...)
+        assert args[9] == concat.bwd_tile_plan(8, 4, d, left.dtype).word
+    else:  # corr: (L, R, g, dL, dR, n, h, w, c, D, bf16, mode, seg, ...)
         assert args[:2] == (left.data_ptr(), right.data_ptr())
-        assert args[6:11] == (1, 3, 8, 4, d) and args[12] == mode
-        assert (args[3] is None) == (mode != 2)
+        assert args[5:10] == (1, 3, 8, 4, d) and args[11] == mode
+        # one launch, no scratch volume: the pointers are L, R, g, dL, dR
+        form = {v: k for k, v in corr.MODES.items()}[mode]
+        assert args[12] == corr.bwd_tile_plan(8, 4, d, left.dtype, form).seg
+        assert len(args) == 15 and all(a is not None for a in args[:5])
     for t in (left, right):
         assert t.grad is not None and t.grad.shape == t.shape
         assert t.grad.dtype == t.dtype
