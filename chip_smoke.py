@@ -156,6 +156,32 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
       by `TrailNetNode`; for each, the step's median time, device busy,
       idle share and peak device memory.
 
+10. layer profiling and serialized engines, each path driven with every
+    launch count set to 0 just before and read just after:
+    a. `stereo_app --profile-layers` in this process on ResNet18-2D bf16 at
+       321x1025 (random conditioned weights, s2d frames) and on NVSmall
+       bf16 at 321x1025 with the repo's real weights under the packed head:
+       the plan check passes on the card, the tables (the sum of the layers
+       and the eager end-to-end figure among their lines) printed beside the
+       card's name and power limit, and each kernel's row launched its
+       kernel;
+    b. five engines built by `stereo_app --save-engine` (the pristine
+       builder, `runtime/engine_builder.py`), the five apps at once, each in
+       a process of its own (`--app-child`): ResNet18-2D bf16 at 321x1025
+       on s2d frames (the corr kernel), NVSmall bf16 at 321x1025 with the
+       real weights under the fused head (the emission) and under the
+       packed head (the packed emission and conv223), NVTiny fp32 at 65x129
+       under `plain_lowering()` (the concat kernel), and ResNet18-2D int8
+       at 129x257; a fresh process for each (the script runs itself with
+       `--engine-child`, the five at once, timed one at a time) runs it
+       with `stereo_app --engine`'s flow, imports no model module and
+       counts each expected kernel at least once; each engine's disparity
+       against the eager model's on the same pair (fp32 within 1e-4 px,
+       bf16 within the gates of phases 4 and 5d), with the export and
+       compile seconds, package size, load and first-call ms, and the
+       engine's and the eager model's device time a frame and synced host
+       time a call printed.
+
 Then one JSON line describing every ported kernel, and last the line
 `{"ok": true, "device": {...}}`.
 """
@@ -167,6 +193,8 @@ import dataclasses
 import importlib.util
 import io as stdio
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2542,6 +2570,368 @@ def phase_train_main(np, torch, models, ptrain, tstereo, ttrail, train_app,
     return by_path, figures
 
 
+# ----------------------------------------------------------------- phase 10
+
+ENGINE_CHILD = "--engine-child"  # chip_smoke runs itself so for 10b
+APP_CHILD = "--app-child"  # and so for 10b's builds
+# The engines of 10b: (label, model, (H, W), dtype, head, quantize,
+# weights: "conditioned" random or the repo's "real" NVSmall weights, the
+# kernel counters its run must move)
+ENGINES = (
+    ("resnet18_2d", "resnet18_2d", FULL_HW, "bf16", "default", None,
+     "conditioned", ("corr_softargmax",)),
+    ("nvsmall fused", "nvsmall", FULL_HW, "bf16", "default", None, "real",
+     ("fused_cv_emit",)),
+    ("nvsmall packed", "nvsmall", FULL_HW, "bf16", "packed", None, "real",
+     ("fused_cv_emit.packed", "conv223")),
+    ("nvtiny plain", "nvtiny", SLICE_3D_HW, "fp32", "plain", None,
+     "conditioned", ("cost_volume_concat",)),
+    ("resnet18_2d int8", "resnet18_2d", (129, 257), "bf16", "default",
+     "int8", "conditioned", ("corr_softargmax",)),
+)
+# 10b, an engine's disparity against the eager model's on the same pair:
+# fp32 (TF32 off on both sides) max abs, px; bf16 3D mean and max px (the
+# packed head's gates of 5d); bf16 ResNet18-2D mean, sigmoid units (the
+# bf16 slice gate of phase 4)
+ENGINE_FP32_ATOL = 1e-4
+ENGINE_2D_BF16_MEAN = 1e-2
+# counter -> the kernels line's entry
+COUNTER_ENTRY = {"corr_softargmax": "corr_cost_volume",
+                 "cost_volume_concat": "cost_volume_concat",
+                 "fused_cv_emit": "fused_cv_emit",
+                 "fused_cv_emit.packed": "fused_cv_emit",
+                 "conv223": "conv223"}
+
+
+def write_pair(np, hw, tag, seed):
+    """A random-texture uint8 BGR pair at ``hw`` as lossless PNGs under
+    `SMOKE_DIR`; returns (frames, left path, right path)."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    left = rng.integers(0, 256, tuple(hw) + (3,), dtype=np.uint8)
+    frames = (left, np.roll(left, -5, axis=1))
+    paths = []
+    for side, frame in zip(("left", "right"), frames):
+        path = SMOKE_DIR / f"{tag}_{side}.png"
+        cv2.imwrite(str(path), frame)
+        paths.append(str(path))
+    return frames, paths[0], paths[1]
+
+
+def smoke_weights(np, models, ckpt, model, hw, kind):
+    """(npz path, tree): the repo's real NVSmall weights, or the model's
+    seeded init conditioned as phase 4 conditions it, written with
+    `save_params`."""
+    if kind == "real":
+        path = ROOT / NVSMALL_NPZ
+        return str(path), models.params_from_npz(path)
+    spec = dataclasses.replace(models.STEREO_SPECS[model], input_hw=hw)
+    tree = conditioned_params(np, models.init_stereo_params(spec, seed=1), 2)
+    path = SMOKE_DIR / f"{model}_conditioned.npz"
+    ckpt.save_params(tree, path)
+    return str(path), tree
+
+
+def run_stereo_app(stereo_app, argv, context):
+    """`stereo_app.main(argv)` in this process under ``context``; returns
+    its stderr (the layer table), its stdout dropped."""
+    out, err = stdio.StringIO(), stdio.StringIO()
+    with context(), contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(err):
+        stereo_app.main(argv)
+    return err.getvalue()
+
+
+def phase_profile(np, torch, models, ckpt, stereo_app, counters,
+                  packed3d_lowering, card="cuda"):
+    """10a: `stereo_app --profile-layers` in this process: ResNet18-2D bf16
+    at the full width (conditioned random weights; s2d frames, as the app
+    profiles the serving form) and NVSmall bf16 with the repo's real
+    weights under the packed head, each driven with every launch count
+    set to 0 just before and read just after. The plan check runs on the
+    card (the app raises if it fails). Returns the launches by path."""
+    name = nvidia_smi("name,power.limit") if card == "cuda" else "cpu"
+    paths = {}
+    for label, model, kind, context, rows in (
+            ("resnet18_2d", "resnet18_2d", "conditioned",
+             contextlib.nullcontext, {"corr_cost_volume+softargmax":
+                                      ("corr_softargmax",)}),
+            ("nvsmall packed", "nvsmall", "real", packed3d_lowering,
+             {"cost_volume+conv3D_1[pk]": ("fused_cv_emit.packed",),
+              "conv3D_2[pk]": ("conv223",)})):
+        weights, _ = smoke_weights(np, models, ckpt, model, FULL_HW, kind)
+        _, left, right = write_pair(np, FULL_HW, f"profile_{model}", 10)
+        argv = [model, "--weights", weights, "--dtype", "bf16", "--hw",
+                *map(str, FULL_HW), "--left", left, "--right", right,
+                "--out", str(SMOKE_DIR / f"profile_{model}"),
+                "--profile-layers"] + (["--cpu"] if card == "cpu" else [])
+        torch.cuda.synchronize()
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        err = run_stereo_app(stereo_app, argv, context)
+        torch.cuda.synchronize()
+        counts = read_counts(counters)
+        table = [line for line in err.splitlines() if line.strip()]
+        print(f"10a stereo_app {model} --dtype bf16 --hw {FULL_HW[0]} "
+              f"{FULL_HW[1]} --profile-layers ({label}, "
+              f"{time.perf_counter() - t0:.1f} s; {name}): launches {counts}")
+        print("\n".join(table))
+        # `format_layer_table`: the name in 34 columns, then the ms in 9
+        summary = {line[:34].strip(): float(line[34:44]) for line in table
+                   if line.startswith(("sum of layers", "end-to-end"))}
+        print(f"10a {label}: {summary} ms ({name})")
+        check(len(summary) == 2, f"10a {label}: no sum / e2e in the table")
+        names = {line.split()[0] for line in table}
+        for row, kernels in rows.items():
+            check(row in names, f"10a {label}: no row {row} in the table")
+            for kernel in kernels:
+                check(counts[kernel] > 0, f"10a {label}: row {row} did not "
+                      f"launch {kernel}: {counts}")
+                paths.setdefault(COUNTER_ENTRY[kernel], {})[
+                    f"10a {label} profile"] = counts[kernel]
+    return paths
+
+
+def synced_ms(torch, fn, args, reps=20):
+    """Median host ms of one call that ends in a sync, after 3 warm-up
+    calls: what a caller waits for a frame."""
+    for _ in range(3):
+        fn(*args)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def engine_child(payload):
+    """10b, a fresh process (`ENGINE_CHILD`), one of five at once:
+    `stereo_app --engine`'s flow (`stereo_app.run_engine`: load the engine,
+    run it on the pair, write the disparity) with every launch count set to
+    0 just before and read just after; then, once every engine process is
+    ready and one at a time (a lock file), the engine's device time a
+    frame (`layer_profiler.device_time_fn`) and its synced host time a
+    call. Checks that no model module was imported; prints one JSON line
+    last."""
+    import fcntl
+
+    import torch
+
+    from redtail_tpu_torch.apps import stereo_app
+    from redtail_tpu_torch.kernels import conv223 as c223
+    from redtail_tpu_torch.kernels import corr_cost_volume as corr
+    from redtail_tpu_torch.kernels import cost_volume_concat as concat
+    from redtail_tpu_torch.kernels import fused_cv_emit as emit
+    from redtail_tpu_torch.runtime import StageProfiler
+    from redtail_tpu_torch.runtime.layer_profiler import device_time_fn
+
+    counters = (corr.corr_cost_volume, corr.corr_softargmax,
+                concat.cost_volume_concat, emit.fused_cv_emit, c223.conv223)
+    device = torch.device(payload["device"])
+    args = stereo_app.build_argparser().parse_args(
+        [payload["model"], "--engine", payload["engine"], "--left",
+         payload["left"], "--right", payload["right"], "--out",
+         payload["out"], "--no-cache"])
+    prof = StageProfiler()
+    zero_counts(counters)
+    call, inputs = stereo_app.run_engine(args, device, prof)
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    barrier = Path(payload["barrier"])
+    (barrier / f"{payload['tag']}.ready").touch()
+    deadline = time.monotonic() + 600
+    while len(list(barrier.glob("*.ready"))) < payload["count"]:
+        check(time.monotonic() < deadline, "10b: the other engine processes "
+              "never became ready")
+        time.sleep(0.2)
+    with open(barrier / "timing.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)   # the card to this process alone
+        device_ms = 1e3 * device_time_fn(call, inputs)
+        call_ms = synced_ms(torch, call, inputs)
+    models = sorted(m for m in sys.modules
+                    if m.startswith("redtail_tpu_torch.models"))
+    stats = prof.stats()
+    print(json.dumps({"load_ms": stats["load_engine"]["mean_ms"],
+                      "first_call_ms": stats["execute"]["mean_ms"],
+                      "launches": counts, "device_ms": device_ms,
+                      "host_ms": call_ms, "models": models}))
+
+
+def argparse_namespace(payload):
+    import argparse
+
+    return argparse.Namespace(left=payload["left"], right=payload["right"])
+
+
+def app_child(payload, stereo_app, heads):
+    """10b, a process of its own (`APP_CHILD`): `stereo_app.main` under the
+    engine's head (a context variable, so it cannot cross a process
+    boundary as an argument would); the app's stderr passes through."""
+    with heads[payload["head"]]():
+        stereo_app.main(payload["argv"])
+
+
+def usable_cores() -> int:
+    import os
+
+    return len(os.sched_getaffinity(0))
+
+
+def phase_engines(np, torch, models, nodes, ckpt, stereo_app, plain_lowering,
+                  packed3d_lowering, card="cuda"):
+    """10b: every engine of `ENGINES` built with `stereo_app --save-engine`
+    (the pristine builder), the five apps at once, each in a process of its
+    own (`APP_CHILD`); then each run by a fresh process with `--engine`
+    (`engine_child`, the five at once, timed one at a time), its launches
+    counted there; then, here, its disparity held against the eager
+    model's on the same pair:
+    `StereoNode`, or for the int8 rung (which the app calibrates on the pair
+    in its dtype, the node in fp32) the app's own quantized net. Returns the
+    launches by path and the figures."""
+    import os
+
+    from redtail_tpu_torch.io import read_bin
+    from redtail_tpu_torch.runtime.cache import read_sidecar
+    from redtail_tpu_torch.runtime.layer_profiler import device_time_fn
+
+    heads = {"default": contextlib.nullcontext, "plain": plain_lowering,
+             "packed": packed3d_lowering}
+    name = nvidia_smi("name,power.limit") if card == "cuda" else "cpu"
+    env = dict(os.environ)
+    # the builds share this machine's cores
+    env["TORCHINDUCTOR_COMPILE_THREADS"] = str(
+        max(1, usable_cores() // len(ENGINES)))
+    builds = []
+    t0 = time.perf_counter()
+    for label, model, hw, dtype, head, quantize, kind, _ in ENGINES:
+        tag = label.replace(" ", "_")
+        weights, tree = smoke_weights(np, models, ckpt, model, hw, kind)
+        frames, left, right = write_pair(np, hw, f"engine_{tag}", 11)
+        engine = SMOKE_DIR / f"{tag}.pt2"
+        argv = [model, "--weights", weights, "--dtype", dtype, "--hw",
+                *map(str, hw), "--left", left, "--right", right, "--out",
+                str(SMOKE_DIR / f"{tag}_eager"), "--save-engine",
+                str(engine)] + (
+                    ["--quantize", quantize] if quantize else []) + (
+                    ["--cpu"] if card == "cpu" else [])
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), APP_CHILD,
+             json.dumps({"head": head, "argv": argv})], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        builds.append((proc, tree, frames, left, right, engine))
+    outputs = [proc.communicate(timeout=900) for proc, *_ in builds]
+    print(f"10b: {len(ENGINES)} engines built at once in "
+          f"{time.perf_counter() - t0:.1f} s ({usable_cores()} cores, "
+          f"{env['TORCHINDUCTOR_COMPILE_THREADS']} compile thread(s) each)")
+
+    barrier = SMOKE_DIR / "engine_barrier"
+    shutil.rmtree(barrier, ignore_errors=True)
+    barrier.mkdir(parents=True)
+    runs = []
+    t0 = time.perf_counter()
+    for spec_row, build, (_, err) in zip(ENGINES, builds, outputs):
+        label, model = spec_row[:2]
+        proc, engine = build[0], build[5]
+        check(proc.returncode == 0, f"10b {label}: stereo_app --save-engine "
+              f"exited {proc.returncode}:\n{err[-3000:]}")
+        tag = label.replace(" ", "_")
+        payload = {"model": model, "engine": str(engine), "left": build[3],
+                   "right": build[4], "out": str(SMOKE_DIR / f"{tag}_engine"),
+                   "device": card, "barrier": str(barrier), "tag": tag,
+                   "count": len(ENGINES)}
+        runs.append((payload, subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), ENGINE_CHILD,
+             json.dumps(payload)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=ROOT)))
+    reports = [child.communicate(timeout=900) for _, child in runs]
+    print(f"10b: {len(ENGINES)} fresh engine processes at once, "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    paths, figures = {}, {}
+    for spec_row, build, (_, err), (payload, child), (out, child_err) in zip(
+            ENGINES, builds, outputs, runs, reports):
+        label, model, hw, dtype, head, quantize, kind, kernels = spec_row
+        proc, tree, frames, left, right, engine = build
+        summary = next(line for line in err.splitlines()
+                       if line.startswith("engine written to"))
+        meta = read_sidecar(engine)
+        tag = payload["tag"]
+        check(child.returncode == 0, f"10b {label}: the engine process "
+              f"exited {child.returncode}:\n{child_err[-3000:]}")
+        report = json.loads(out.strip().splitlines()[-1])
+        check(report["models"] == [], f"10b {label}: the engine process "
+              f"imported {report['models']}")
+        for kernel in kernels:
+            check(report["launches"][kernel] >= 1, f"10b {label}: the engine "
+                  f"did not launch {kernel}: {report['launches']}")
+            paths.setdefault(COUNTER_ENTRY[kernel], {})[
+                f"10b {label} engine"] = report["launches"][kernel]
+
+        # the eager model on the same pair
+        spec = dataclasses.replace(models.STEREO_SPECS[model], input_hw=hw)
+        tdtype = torch.bfloat16 if dtype == "bf16" else torch.float32
+        got = read_bin(SMOKE_DIR / f"{tag}_engine.bin")
+        pair = stereo_app.read_pair(argparse_namespace(payload), *hw, tdtype)
+        with heads[head](), torch.inference_mode():
+            if quantize == "int8":
+                net = stereo_app.quantized_net(spec, tree, quantize, tdtype,
+                                               card, *pair)
+                inputs = tuple(torch.from_numpy(a).to(card, tdtype)
+                               for a in pair)
+                want = net(*inputs).float().cpu().numpy()[0]
+            else:
+                node = nodes.StereoNode(spec, tree, dtype=tdtype,
+                                        device=card)
+                net = node.net
+                want = node(*frames) / (hw[1] if spec.corr else 1.0)
+                inputs = tuple(
+                    torch.from_numpy(f).to(card, tdtype) for f in
+                    stereo_app.serving_frames(*pair, s2d=True))
+            eager_ms = 1e3 * device_time_fn(net, inputs)
+            eager_host_ms = synced_ms(torch, net, inputs)
+        err_map = np.abs(got - want)
+        unit = "" if spec.corr else " px"
+        print(f"10b {label} ({model} {hw[0]}x{hw[1]} {dtype}, head {head}, "
+              f"{quantize or 'no'} quantization; {name}): {summary}; package "
+              f"{engine.stat().st_size / 2**20:.1f} MiB; fresh process: load "
+              f"{report['load_ms']:.0f} ms, first call "
+              f"{report['first_call_ms']:.0f} ms; launches "
+              f"{report['launches']}; device time a frame: engine "
+              f"{report['device_ms']:.4f} ms, eager {eager_ms:.4f} ms; "
+              f"synced host time a call: engine {report['host_ms']:.3f} ms, "
+              f"eager {eager_host_ms:.3f} ms; engine vs eager mean "
+              f"{err_map.mean():.3e}{unit}, max {err_map.max():.3e}{unit}")
+        check(got.shape == tuple(hw) and np.isfinite(got).all(),
+              f"10b {label}: engine disparity {got.shape} not finite/shaped")
+        if dtype == "fp32":
+            check(err_map.max() <= ENGINE_FP32_ATOL, f"10b {label}: fp32 "
+                  f"engine off eager by {err_map.max()}")
+        elif spec.corr:
+            check(err_map.mean() < ENGINE_2D_BF16_MEAN, f"10b {label}: bf16 "
+                  f"engine off eager by mean {err_map.mean()}")
+        else:
+            check(err_map.mean() < PACKED_MEAN and err_map.max() < PACKED_MAX,
+                  f"10b {label}: bf16 engine off eager by mean "
+                  f"{err_map.mean()}, max {err_map.max()}")
+        figures[label] = {"export_s": meta["export_s"],
+                          "compile_s": meta["compile_s"],
+                          "package_mib": engine.stat().st_size / 2 ** 20,
+                          "load_ms": report["load_ms"],
+                          "first_call_ms": report["first_call_ms"],
+                          "engine_ms": report["device_ms"],
+                          "eager_ms": eager_ms,
+                          "engine_host_ms": report["host_ms"],
+                          "eager_host_ms": eager_host_ms,
+                          "err_mean": float(err_map.mean()),
+                          "err_max": float(err_map.max())}
+    print(f"10b engine figures ({name}): {json.dumps(figures)}")
+    return paths, figures
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2550,6 +2940,17 @@ def main() -> int:
         raise SmokeFailure("torch.cuda.is_available() is false: this "
                            "smoke test needs an NVIDIA card")
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:2] == [ENGINE_CHILD]:  # before any model import
+        engine_child(json.loads(sys.argv[2]))
+        return 0
+    if sys.argv[1:2] == [APP_CHILD]:
+        from redtail_tpu_torch.apps import stereo_app
+        from redtail_tpu_torch.ops.convolution import (packed3d_lowering,
+                                                       plain_lowering)
+        app_child(json.loads(sys.argv[2]), stereo_app,
+                  {"default": contextlib.nullcontext, "plain": plain_lowering,
+                   "packed": packed3d_lowering})
+        return 0
     try:
         from redtail_tpu_torch import (io, kernels, models, native,
                                        seeded_generator)
@@ -2565,7 +2966,7 @@ def main() -> int:
         from redtail_tpu_torch.ops.softargmax import softargmax
         from redtail_tpu_torch.ops.space_to_depth import space_to_depth2_np
         from redtail_tpu_torch.runtime import nodes
-        from redtail_tpu_torch.apps import train_app
+        from redtail_tpu_torch.apps import stereo_app, train_app
         from redtail_tpu_torch.data import kitti
         from redtail_tpu_torch.parallel import training as ptrain
         from redtail_tpu_torch.training import stereo as tstereo
@@ -2677,6 +3078,16 @@ def main() -> int:
         by_path.setdefault(entry, {}).update(train_paths[counter])
     print(f"9c train figures ({nvidia_smi('name,power.limit')}): "
           f"{json.dumps(train_figures)}")
+
+    # layer profiling and serialized engines
+    for entry, paths in phase_profile(np, torch, models, ckpt, stereo_app,
+                                      counters, packed3d_lowering).items():
+        by_path[entry].update(paths)
+    engine_paths, _ = phase_engines(np, torch, models, nodes, ckpt,
+                                    stereo_app, plain_lowering,
+                                    packed3d_lowering)
+    for entry, paths in engine_paths.items():
+        by_path[entry].update(paths)
 
     for name, paths in by_path.items():
         check(all(paths.values()), f"{name} was not launched on {paths}")

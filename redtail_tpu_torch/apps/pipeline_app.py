@@ -175,16 +175,17 @@ def main(argv=None):
     from redtail_tpu_torch.models import (STEREO_SPECS, init_stereo_params,
                                           load_stereo_params)
     from redtail_tpu_torch.models.trailnet import load_trailnet
-    from redtail_tpu_torch.runtime import NodeGraph, StageProfiler
+    from redtail_tpu_torch.runtime import (NodeGraph, StageProfiler,
+                                           enable_compilation_cache)
     from redtail_tpu_torch.runtime.nodes import (StereoNode, TrailNetNode,
                                                  YoloNode)
     from redtail_tpu_torch.runtime.sources import (SyntheticSource,
                                                    VideoFileSource)
 
-    # XLA's persistent compilation cache (the JAX app's engine-cache
-    # parity) has no counterpart: the CUDA kernels are cached by the hash
-    # of their source at first use (kernels/_build.py).
     device = resolve_device("cpu" if args.cpu else None)
+    # engine-cache parity (`tensor_net.cpp:194`): Inductor's persistent
+    # cache; the CUDA kernels are cached by the hash of their source
+    enable_compilation_cache(device=device)
     prof = StageProfiler()
     g = NodeGraph()
 

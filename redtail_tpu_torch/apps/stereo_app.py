@@ -26,8 +26,16 @@ is scaled by the width) and one JSON line of rows. "packed" is
 fused and H-packed 2D towers are TPU layouts the port does not have, so
 ``resnet18_2d``'s ``bf16+packed`` row runs its ``bf16`` path again. The w8
 and int8 rows run under the packed head too, as in the JAX app.
-``--profile-layers``, ``--save-engine`` and ``--engine`` are not ported
-(ROADMAP.md, module queue item 8).
+
+``--profile-layers`` prints the per-layer device-time table
+(`runtime/layer_profiler.py`) to stderr, on the frames in the form
+`StereoNode` serves them: space-to-depth packed for the 3x3 stem, raw for
+an int8 stem. ``--save-engine PATH`` builds an AOTInductor engine of the
+configuration (dtype, rung, head) for that same input form in a pristine
+subprocess (`runtime/engine_builder.py`); ``--engine PATH`` runs one on the
+pair with no weights and no model code (`runtime/cache.load_engine`) and
+adds ``"engine"`` to the JSON line. Inductor's persistent cache is on
+(`runtime.enable_compilation_cache`) unless ``--no-cache``.
 
 Usage:
   python -m redtail_tpu_torch.apps.stereo_app nvsmall \\
@@ -96,6 +104,21 @@ def build_argparser():
                    help="run on the CPU instead of the card")
     p.add_argument("--profile", action="store_true",
                    help="print per-stage times")
+    p.add_argument("--profile-layers", action="store_true",
+                   help="print the per-layer ms table (each layer timed on "
+                   "its real activations on the device, the reference's "
+                   "printLayerTimes, main.cpp:52-81)")
+    p.add_argument("--no-cache", action="store_true",
+                   help="leave Inductor's persistent compilation cache off")
+    p.add_argument("--save-engine", metavar="PATH",
+                   help="build an AOTInductor engine of this configuration "
+                   "(weights inside) at PATH, for the serving input form "
+                   "(the TRT .plan equivalent, main.cpp:269-275; "
+                   "device-specific)")
+    p.add_argument("--engine", metavar="PATH",
+                   help="run a --save-engine package: no weights, no model "
+                   "code, no compilation (main.cpp:198-220); the dtype, "
+                   "size and input form are the engine's")
     return p
 
 
@@ -134,11 +157,10 @@ def load_tree(args, spec):
     return init_stereo_params(spec, args.seed)
 
 
-def quantized_net(spec, tree, quantize, dtype, device, left, right):
-    """The model of one serving configuration: ``tree`` rounded to
+def quantized_tree(spec, tree, quantize, dtype, device, left, right):
+    """The param tree of one serving configuration: ``tree`` rounded to
     ``dtype``, then quantized (``'w8'``, or ``'int8'`` calibrated on the
-    pair in ``dtype``) or not, built on ``device``."""
-    from redtail_tpu_torch.models import params_from_numpy
+    pair in ``dtype`` on ``device``) or not."""
     from redtail_tpu_torch.quant import (calibrate_stereo, dequantize_tree,
                                          quantize_stereo_params_int8,
                                          quantize_stereo_params_w8)
@@ -150,7 +172,27 @@ def quantized_net(spec, tree, quantize, dtype, device, left, right):
         scales = calibrate_stereo(spec, tree, [(left[0], right[0])],
                                   device=device, dtype=dtype)
         tree = quantize_stereo_params_int8(tree, scales)
-    return params_from_numpy(spec, tree, device=device, dtype=dtype)
+    return tree
+
+
+def quantized_net(spec, tree, quantize, dtype, device, left, right):
+    """The model of one serving configuration (`quantized_tree`), built on
+    ``device``."""
+    from redtail_tpu_torch.models import params_from_numpy
+
+    return params_from_numpy(
+        spec, quantized_tree(spec, tree, quantize, dtype, device, left,
+                             right), device=device, dtype=dtype)
+
+
+def serving_frames(left, right, s2d: bool):
+    """The pair as `StereoNode` feeds the net: space-to-depth packed for
+    the 3x3 stem (``s2d``), else raw."""
+    if not s2d:
+        return left, right
+    from redtail_tpu_torch.ops.space_to_depth import space_to_depth2_np
+
+    return space_to_depth2_np(left), space_to_depth2_np(right)
 
 
 def run_accuracy_table(spec, tree, left_f32, right_f32, golden_px,
@@ -190,40 +232,117 @@ def read_golden(path) -> np.ndarray:
     return np.squeeze(read_bin(path))
 
 
+def write_outputs(disp, out, corr: bool, w: int):
+    """The disparity as `.bin` and as a 16-bit PNG (`main.cpp:325-327`: the
+    3D models' pixels x 256, the correlation model's [0, 1] x the width);
+    returns the `.bin` path."""
+    import cv2
+
+    from redtail_tpu_torch.io import write_bin
+
+    out = Path(out)
+    write_bin(disp, out.with_suffix(".bin"))
+    scale = w if corr else 256.0
+    png = np.clip(disp * scale, 0, 65535).astype(np.uint16)
+    cv2.imwrite(str(out.with_suffix(".png")), png)
+    return out.with_suffix(".bin")
+
+
+def read_pair(args, h: int, w: int, dtype: torch.dtype):
+    """The pair at (h, w) in ``dtype``, carried as float32 numpy (1, h, w,
+    3)."""
+    import cv2
+
+    from redtail_tpu_torch.ops.preprocess import preprocess_stereo_host
+
+    return tuple(
+        torch.from_numpy(preprocess_stereo_host(cv2.imread(p), w, h)[None])
+        .to(dtype).float().numpy() for p in (args.left, args.right))
+
+
+def run_engine(args, device, prof):
+    """The plan-file flow (`main.cpp:198-220`): load the engine, run it on
+    the pair in its own dtype, size and input form; imports no model code.
+    Returns the engine's call and the inputs it ran on."""
+    from redtail_tpu_torch.runtime.cache import load_engine
+
+    with prof.stage("load_engine"):
+        call, extras = load_engine(args.engine, device)
+    if extras["model"] != args.model:
+        raise ValueError(f"engine {args.engine} runs {extras['model']}, not "
+                         f"{args.model}")
+    dtype = torch.bfloat16 if extras["dtype"] == "bf16" else torch.float32
+    h, w = extras["input_hw"]
+    with prof.stage("preprocess"):
+        left, right = serving_frames(*read_pair(args, h, w, dtype),
+                                     s2d=extras["input_shape"][-1] == 12)
+    inputs = tuple(torch.from_numpy(a).to(device=device, dtype=dtype)
+                   for a in (left, right))
+    with prof.stage("execute"):
+        disp = call(*inputs).float().cpu().numpy()[0]
+    out = write_outputs(disp, args.out, args.model == "resnet18_2d", w)
+    if args.profile:
+        print(prof.report(), file=sys.stderr)
+    print(json.dumps({"model": args.model, "shape": list(disp.shape),
+                      "disp_mean": float(disp.mean()),
+                      "engine": args.engine, "out": str(out)}))
+    return call, inputs
+
+
 def main(argv=None):
     args = build_argparser().parse_args(argv)
 
     from redtail_tpu_torch import resolve_device
+    from redtail_tpu_torch.runtime import StageProfiler, enable_compilation_cache
 
     device = resolve_device("cpu" if args.cpu else None)
+    if not args.no_cache:
+        enable_compilation_cache(device=device)
+    prof = StageProfiler()
+    if args.engine:
+        run_engine(args, device, prof)
+        return
 
-    import cv2
-
-    from redtail_tpu_torch.io import write_bin
-    from redtail_tpu_torch.models import STEREO_SPECS
-    from redtail_tpu_torch.ops.preprocess import preprocess_stereo_host
-    from redtail_tpu_torch.runtime import StageProfiler
+    from redtail_tpu_torch.models import STEREO_SPECS, params_from_numpy
 
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     spec = STEREO_SPECS[args.model]
     if args.hw:
         spec = dataclasses.replace(spec, input_hw=tuple(args.hw))
-    prof = StageProfiler()
     with prof.stage("load_weights"):
         tree = load_tree(args, spec)
     h, w = spec.input_hw
     with prof.stage("preprocess"):
-        # the pair in the compute dtype, carried as float32 numpy
-        left, right = (
-            torch.from_numpy(preprocess_stereo_host(cv2.imread(p), w, h)[None])
-            .to(dtype).float().numpy() for p in (args.left, args.right))
+        left, right = read_pair(args, h, w, dtype)
     with prof.stage("calibrate" if args.quantize == "int8"
                     else "build"):
-        net = quantized_net(spec, tree, args.quantize, dtype, device, left,
-                            right)
+        qtree = quantized_tree(spec, tree, args.quantize, dtype, device,
+                               left, right)
+        net = params_from_numpy(spec, qtree, device=device, dtype=dtype)
     with prof.stage("execute"), torch.inference_mode():
         disp = net(*(torch.from_numpy(a).to(device=device, dtype=dtype)
                      for a in (left, right))).float().cpu().numpy()[0]
+
+    # the serving input form: an int8 stem has no s2d form (StereoNode)
+    served = serving_frames(left, right, s2d=args.quantize != "int8")
+    if args.save_engine:
+        from redtail_tpu_torch.runtime.engine_builder import (
+            build_stereo_engine)
+        with prof.stage("save_engine"):
+            summary = build_stereo_engine(args.save_engine, spec, qtree,
+                                          served[0].shape, dtype=args.dtype,
+                                          cpu=device.type == "cpu")
+        print(summary, file=sys.stderr)
+
+    if args.profile_layers:
+        from redtail_tpu_torch.runtime.layer_profiler import (
+            device_peaks, format_layer_table, profile_stereo_layers)
+        with prof.stage("profile_layers"):
+            rows, e2e = profile_stereo_layers(
+                net, *(torch.from_numpy(a).to(device=device, dtype=dtype)
+                       for a in served))
+        print(format_layer_table(rows, e2e, device_peaks(device)),
+              file=sys.stderr)
 
     if args.accuracy:
         golden = read_golden(args.accuracy)
@@ -236,16 +355,11 @@ def main(argv=None):
                   f"{r['epe']:8.4f} {r['err_max']:8.3f}", file=sys.stderr)
         print(json.dumps({"model": args.model, "accuracy": rows}))
 
-    out = Path(args.out)
-    write_bin(disp, out.with_suffix(".bin"))
-    scale = w if spec.corr else 256.0  # `main.cpp:325-327`
-    png = np.clip(disp * scale, 0, 65535).astype(np.uint16)
-    cv2.imwrite(str(out.with_suffix(".png")), png)
+    out = write_outputs(disp, args.out, spec.corr, w)
     if args.profile:
         print(prof.report(), file=sys.stderr)
     print(json.dumps({"model": args.model, "shape": list(disp.shape),
-                      "disp_mean": float(disp.mean()),
-                      "out": str(out.with_suffix(".bin"))}))
+                      "disp_mean": float(disp.mean()), "out": str(out)}))
 
 
 if __name__ == "__main__":

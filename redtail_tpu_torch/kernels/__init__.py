@@ -9,9 +9,12 @@ version, its wrapper and the wrapper's launch counter.
 | `conv223` | `redtail_tpu/kernels/conv223_pallas.py:60` `_conv223_kernel` | `csrc/conv223.cu` |
 
 Kernels are compiled from `csrc/` at first use (`_build.build`), never at
-import, so the CPU tests import every module without `nvcc`.
+import, so the CPU tests import every module without `nvcc`. Importing the
+package registers the four forward kernels as `torch.library` custom ops
+(`_ops.py`), which the wrappers call.
 """
 
+from redtail_tpu_torch.kernels import _ops  # noqa: F401  (registers the ops)
 from redtail_tpu_torch.kernels._build import KERNELS, build
 
 __all__ = ["KERNELS", "build"]

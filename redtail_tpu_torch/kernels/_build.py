@@ -8,11 +8,13 @@ The library's file name carries a hash of its source, so an edited source
 is rebuilt and a stale library is never loaded. `build()` starts one `nvcc`
 per missing library, all at once, and waits for them together.
 
-The correlation and concat volumes have backward kernels of their own
-(`csrc/*_bwd.cu`), bound into `torch.autograd.Function`s by their wrappers.
-The emission and conv223 kernels have none yet: `refuse_autograd` makes
-their wrappers raise, before they launch, where autograd would otherwise
-lose the gradients of everything upstream.
+The forward kernels are also `torch.library` custom ops (`_ops.py`), so
+`torch.export` can trace a model through them. The correlation and concat
+volumes have backward kernels of their own (`csrc/*_bwd.cu`), bound into
+`torch.autograd.Function`s by their wrappers. The emission and conv223
+kernels have none yet: `refuse_autograd` makes their wrappers raise, before
+they launch, where autograd would otherwise lose the gradients of
+everything upstream.
 """
 
 from __future__ import annotations
@@ -87,14 +89,19 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build((name,))[name]))
 
 
+def needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether grad mode is on and an input requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def refuse_autograd(name: str, *tensors: Optional[torch.Tensor]) -> None:
     """Raise where grad mode is on and an input requires grad: the kernel
     writes its output through a raw pointer, so the output would have no
     ``grad_fn`` and a loss through it would silently drop the gradients of
     every layer upstream. Under `torch.no_grad()` / `torch.inference_mode()`
     (serving) nothing changes."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+    if needs_grad(*tensors):
         raise RuntimeError(
             f"{name}: the CUDA kernel has no backward yet (ROADMAP.md, kernel "
             "queue item 2), and an input requires grad; run it under "

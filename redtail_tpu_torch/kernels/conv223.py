@@ -21,7 +21,9 @@ packed head does it at load, `ops/packed3d.py:prepare`) and
 handed to it.
 
 The wrapper runs the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises; nothing falls back. The kernel
+tensors it launches the kernel or raises; nothing falls back. It calls the
+custom op `redtail_torch::conv223` (`_ops.py`), whose body is `_forward`,
+so `torch.export` traces through it. The kernel
 has no backward yet, so on CUDA tensors that require grad, with grad mode
 on, the wrapper raises (`_build.refuse_autograd`).
 """
@@ -197,23 +199,9 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def conv223(xp: torch.Tensor, k: torch.Tensor, bias: Optional[torch.Tensor],
-            k_layout: str = "ck") -> torch.Tensor:
-    """(N, Dp, Hp, W, C) x k [+ (K,) bias] -> (N, Dp - 1, Hp - 1, W, K)
-    (see the module docstring); k is (2, 2, 3, C, K) (``k_layout="ck"``)
-    or `kernel_weights`' (2, 2, 3, K, C) (``"kc"``).
-
-    CPU tensors take `conv223_plain`. CUDA tensors launch the kernel on the
-    current stream and add one to ``conv223.launches``; they must be
-    contiguous, on one device, 32-byte aligned, with C and K multiples of
-    16 and C <= 256. The bf16 kernel reads the "kc" form, the fp32 one the
-    "ck" form: the other form is converted per call."""
-    kk = _check(xp, k, bias, k_layout)
-    if _on_cpu(xp, k, bias):
-        return conv223_plain(
-            xp, k if k_layout == "ck" else contract_weights(k), bias)
-    _build.refuse_autograd("conv223", xp, k, bias)
+def _launch(xp, k, bias, k_layout) -> torch.Tensor:
     n, dp, hp, w, c = xp.shape
+    kk = k.shape[4] if k_layout == "ck" else k.shape[3]
     if c % 16 or kk % 16 or c > MAX_C:
         raise ValueError(f"the CUDA kernel takes C and K multiples of 16 and "
                          f"C <= {MAX_C} (the packed head's 64 or 128); got "
@@ -246,6 +234,39 @@ def conv223(xp: torch.Tensor, k: torch.Tensor, bias: Optional[torch.Tensor],
             f"({lib.conv223_error_string(err).decode()})")
     conv223.launches += 1
     return out
+
+
+def _forward(xp, k, bias, k_layout) -> torch.Tensor:
+    """One call, the body of the op `redtail_torch::conv223` (`_ops.py`):
+    the plain version on the CPU, else the kernel (its tile plan and SM
+    count taken here, never while tracing), counted on the wrapper."""
+    if _on_cpu(xp, k, bias):
+        return conv223_plain(
+            xp, k if k_layout == "ck" else contract_weights(k), bias)
+    return _launch(xp, k, bias, k_layout)
+
+
+def conv223(xp: torch.Tensor, k: torch.Tensor, bias: Optional[torch.Tensor],
+            k_layout: str = "ck") -> torch.Tensor:
+    """(N, Dp, Hp, W, C) x k [+ (K,) bias] -> (N, Dp - 1, Hp - 1, W, K)
+    (see the module docstring); k is (2, 2, 3, C, K) (``k_layout="ck"``)
+    or `kernel_weights`' (2, 2, 3, K, C) (``"kc"``).
+
+    CPU tensors take `conv223_plain`. CUDA tensors launch the kernel on the
+    current stream and add one to ``conv223.launches``; they must be
+    contiguous, on one device, 32-byte aligned, with C and K multiples of
+    16 and C <= 256. The bf16 kernel reads the "kc" form, the fp32 one the
+    "ck" form: the other form is converted per call. Both go through the
+    custom op `redtail_torch::conv223`, except a CPU call that needs grad,
+    which runs the differentiable plain version itself."""
+    _check(xp, k, bias, k_layout)
+    if _on_cpu(xp, k, bias):
+        if _build.needs_grad(xp, k, bias):
+            return conv223_plain(
+                xp, k if k_layout == "ck" else contract_weights(k), bias)
+    else:
+        _build.refuse_autograd("conv223", xp, k, bias)
+    return torch.ops.redtail_torch.conv223(xp, k, bias, k_layout)
 
 
 conv223.launches = 0

@@ -17,7 +17,10 @@ epilogues:
   ResNet18-2D model's use of it, without the volume in device memory.
 
 Each wrapper runs its plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises; nothing falls back. Where grad
+tensors it launches the kernel or raises; nothing falls back. Without grad
+the wrappers call the custom op `redtail_torch::corr_cost_volume`
+(`_ops.py`), whose body is `_forward`, so `torch.export` traces through
+them and an exported engine launches the kernel and counts it. Where grad
 mode is on and an input requires grad, the wrappers run as
 `torch.autograd.Function`s whose backward is the backward kernel of
 `csrc/corr_cost_volume_bwd.cu` (the VJP `_corr_bwd` of
@@ -433,8 +436,9 @@ def corr_softargmax_bwd(left: torch.Tensor, right: torch.Tensor,
 
 
 def _forward(left, right, max_disp, mode):
-    """One forward call: the plain version on the CPU, else the kernel,
-    counted on its wrapper."""
+    """One forward call, the body of the op
+    `redtail_torch::corr_cost_volume` (`_ops.py`): the plain version on the
+    CPU, else the kernel, counted on its wrapper."""
     if _on_cpu(left, right):
         if mode == "softargmax":
             return corr_softargmax_plain(left, right, max_disp)
@@ -471,10 +475,11 @@ class _Corr(torch.autograd.Function):
 
 
 def _call(left, right, max_disp, mode):
-    if torch.is_grad_enabled() and (left.requires_grad
-                                    or right.requires_grad):
+    if _build.needs_grad(left, right):
         return _Corr.apply(left, right, max_disp, mode)
-    return _forward(left, right, max_disp, mode)
+    _on_cpu(left, right)  # raises on a pair the kernel does not take
+    return torch.ops.redtail_torch.corr_cost_volume(left, right,
+                                                    int(max_disp), mode)
 
 
 def corr_cost_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,

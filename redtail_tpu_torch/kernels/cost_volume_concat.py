@@ -12,7 +12,9 @@ design notes are in `redtail_tpu_torch/csrc/cost_volume_concat.cu`. A pure
 copy: kernel and plain version agree bit for bit.
 
 The wrapper runs the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises; nothing falls back. Where grad
+tensors it launches the kernel or raises; nothing falls back. Without grad
+it calls the custom op `redtail_torch::cost_volume_concat` (`_ops.py`),
+whose body is `_forward`, so `torch.export` traces through it. Where grad
 mode is on and an input requires grad, the wrapper runs as a
 `torch.autograd.Function` whose backward is the kernel of
 `csrc/cost_volume_concat_bwd.cu` (`cost_volume_concat_bwd`, with its plain
@@ -146,8 +148,9 @@ def _lib() -> ctypes.CDLL:
 
 
 def _forward(left, right, max_disp):
-    """One forward call: the plain version on the CPU, else the kernel,
-    counted on the wrapper."""
+    """One forward call, the body of the op
+    `redtail_torch::cost_volume_concat` (`_ops.py`): the plain version on
+    the CPU, else the kernel, counted on the wrapper."""
     if _on_cpu(left, right):
         return cost_volume_concat_plain(left, right, max_disp)
     n, h, w, c = left.shape
@@ -247,10 +250,11 @@ def cost_volume_concat(left: torch.Tensor, right: torch.Tensor,
     ``cost_volume_concat.launches``; they must be contiguous NHWC on one
     device. Differentiable: the gradient is `cost_volume_concat_bwd`."""
     _check(left, right, max_disp)
-    if torch.is_grad_enabled() and (left.requires_grad
-                                    or right.requires_grad):
+    if _build.needs_grad(left, right):
         return _Concat.apply(left, right, max_disp)
-    return _forward(left, right, max_disp)
+    _on_cpu(left, right)  # raises on a pair the kernel does not take
+    return torch.ops.redtail_torch.cost_volume_concat(left, right,
+                                                      int(max_disp))
 
 
 cost_volume_concat.launches = 0

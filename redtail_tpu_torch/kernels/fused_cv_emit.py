@@ -23,7 +23,9 @@ boundary-column term are recomputed by a small second pass, so the bulk
 runs no boundary code.
 
 The wrapper runs the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises; nothing falls back. The kernel
+tensors it launches the kernel or raises; nothing falls back. It calls the
+custom op `redtail_torch::fused_cv_emit` (`_ops.py`), whose body is
+`_forward`, so `torch.export` traces through it. The kernel
 has no backward yet, so on CUDA tensors that require grad, with grad mode
 on, the wrapper raises (`_build.refuse_autograd`).
 """
@@ -147,22 +149,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def fused_cv_emit(la: torch.Tensor, rb: torch.Tensor,
-                  bias: Optional[torch.Tensor], max_disp: int, *,
-                  elu: bool = True, layout: str = "full") -> torch.Tensor:
-    """The six conv maps -> conv3D_1's output in ``layout`` (see the module
-    docstring).
-
-    CPU tensors take `fused_cv_emit_plain`. CUDA tensors launch the kernel
-    on the current stream and add one to ``fused_cv_emit.launches`` (and,
-    for the dh-shifted layout, to ``fused_cv_emit.packed_launches``); they
-    must be contiguous, 16-byte aligned and on one device, with at most
-    `MAX_GROUPS` threads to a column."""
-    _check(la, rb, bias, max_disp, layout)
-    if _on_cpu(la, rb, bias):
-        return fused_cv_emit_plain(la, rb, bias, max_disp, elu=elu,
-                                   layout=layout)
-    _build.refuse_autograd("fused_cv_emit", la, rb, bias)
+def _launch(la, rb, bias, max_disp, elu, layout) -> torch.Tensor:
     n, h, w, k3 = la.shape
     if n > 65535 or h > 65535:
         raise ValueError(f"N and H must be <= 65535 (grid limit); got {n}, {h}")
@@ -194,6 +181,40 @@ def fused_cv_emit(la: torch.Tensor, rb: torch.Tensor,
     fused_cv_emit.launches += 1
     fused_cv_emit.packed_launches += packed
     return out
+
+
+def _forward(la, rb, bias, max_disp, elu, layout) -> torch.Tensor:
+    """One call, the body of the op `redtail_torch::fused_cv_emit`
+    (`_ops.py`): the plain version on the CPU, else the kernel, counted on
+    the wrapper."""
+    if _on_cpu(la, rb, bias):
+        return fused_cv_emit_plain(la, rb, bias, max_disp, elu=elu,
+                                   layout=layout)
+    return _launch(la, rb, bias, max_disp, elu, layout)
+
+
+def fused_cv_emit(la: torch.Tensor, rb: torch.Tensor,
+                  bias: Optional[torch.Tensor], max_disp: int, *,
+                  elu: bool = True, layout: str = "full") -> torch.Tensor:
+    """The six conv maps -> conv3D_1's output in ``layout`` (see the module
+    docstring).
+
+    CPU tensors take `fused_cv_emit_plain`. CUDA tensors launch the kernel
+    on the current stream and add one to ``fused_cv_emit.launches`` (and,
+    for the dh-shifted layout, to ``fused_cv_emit.packed_launches``); they
+    must be contiguous, 16-byte aligned and on one device, with at most
+    `MAX_GROUPS` threads to a column. Both go through the custom op
+    `redtail_torch::fused_cv_emit`, except a CPU call that needs grad,
+    which runs the differentiable plain version itself."""
+    _check(la, rb, bias, max_disp, layout)
+    if _on_cpu(la, rb, bias):
+        if _build.needs_grad(la, rb, bias):
+            return fused_cv_emit_plain(la, rb, bias, max_disp, elu=elu,
+                                       layout=layout)
+    else:
+        _build.refuse_autograd("fused_cv_emit", la, rb, bias)
+    return torch.ops.redtail_torch.fused_cv_emit(la, rb, bias, int(max_disp),
+                                                 bool(elu), layout)
 
 
 fused_cv_emit.launches = 0

@@ -46,6 +46,11 @@ head stays the default.
 The 2D encoders are the JAX package's unpacked path (its CPU defaults):
 per-tower encoders, no H-packing, no block-diagonal towers. The two towers
 run as one batch-2 chain of convs, which is exact.
+
+`StereoNet.forward` is `StereoNet.layers(left, right, run)`, the network
+one named layer at a time with each layer computed as ``run(name, fn,
+*args)``: the forward passes a plain call, the per-layer profiler
+(`runtime/layer_profiler.py`) one that records the layer.
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ from __future__ import annotations
 import math
 import os
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -792,74 +797,86 @@ class StereoNet(nn.Module):
             return elu(self.conv1_s2d(x))
         return elu(self.encoder2D.conv1(x))
 
-    def _plain_encoder(self, x):
-        """NVTiny/NVSmall tower: conv1 5x5 s2 + conv2..4 + conv5 (no
-        activation on conv5)."""
+    def _towers_conv1(self, left, right):
+        """Both towers' stem as one batch of 2N: the NHWC pair in the
+        net's dtype, NCHW (`torch.channels_last`)."""
+        return self._conv1(torch.cat([left, right]).to(self.dtype)
+                           .permute(0, 3, 1, 2))
+
+    def _plain_encoder(self, x, run):
+        """NVTiny/NVSmall towers: conv2..4 + conv5 (no activation on
+        conv5) after the stem."""
         enc = self.encoder2D
-        x = self._conv1(x)
         for name in ("conv2", "conv3", "conv4"):
-            x = elu(enc[name](x))
-        return enc.conv5(x)
+            x = run(f"towers_{name}", lambda a, c=enc[name]: elu(c(a)), x)
+        return run("towers_conv5", enc.conv5, x)
 
-    def _resnet_encoder(self, x):
-        """conv1 + 8 residual blocks + encoder2D_out (no final act);
-        returns (features, conv1 activation)."""
+    def _resnet_encoder(self, x, run):
+        """8 residual blocks + encoder2D_out (no final act) after the
+        stem."""
         enc = self.encoder2D
-        x = self._conv1(x)
-        conv1_act = x
         for i in range(1, 9):
-            blk = enc[f"resblock{i}"]
-            y = elu(blk.res_conv1(x))
-            x = elu(blk.res_conv2(y) + x)
-        return enc.encoder2D_out(x), conv1_act
+            x = run(f"towers_resblock{i}", lambda a, blk=enc[f"resblock{i}"]:
+                    elu(blk.res_conv2(elu(blk.res_conv1(a))) + a), x)
+        return run("towers_encoder2D_out", enc.encoder2D_out, x)
 
-    def _bneck_head(self, d, conv1_act, full_hw):
+    def _bneck_head(self, d, conv1_act, full_hw, run):
         """Feature concat + 2D bottleneck over the soft-argmax map ``d``
-        (N, H', W') -> (N, H, W) in [0, 1]."""
-        x = torch.cat([conv1_act, d.to(conv1_act.dtype).unsqueeze(1)], dim=1)
+        (N, H', W'), ``conv1_act`` both towers' stem output -> (N, H, W) in
+        [0, 1]."""
+        n = d.shape[0]
+        x = run("concat_conv1", lambda c, dd: torch.cat(
+            [c[:n], dd.to(c.dtype).unsqueeze(1)], dim=1), conv1_act, d)
         acts = {}
         for name, _out_ch, _stride in self.spec.bneck_channels:
-            x = elu(self.bneck_encoder2D[name](x))
+            x = run(name, lambda a, c=self.bneck_encoder2D[name]: elu(c(a)),
+                    x)
             acts[name] = x
-        return self._bneck_decode(x, acts, full_hw)
-
-    def _bneck_decode(self, x, acts, full_hw):
         for name, _out_ch, skip in self.spec.bneck_dec:
-            target = acts[skip].shape[2:] if skip is not None else full_hw
-            x = self.bneck_decoder2D[name](x, tuple(target))
+            layer = self.bneck_decoder2D[name]
             if skip is not None:
-                x = elu(x + acts[skip])
-        return sigmoid(x)[:, 0]
+                x = run(name, lambda a, sk, c=layer: elu(
+                    c(a, tuple(sk.shape[2:])) + sk), x, acts[skip])
+            else:
+                x = run(name, lambda a, c=layer: c(a, full_hw), x)
+        return run("sigmoid", lambda a: sigmoid(a)[:, 0], x)
 
-    def _volume_head(self, fl, fr, full_hw):
+    def _volume_head(self, feats, full_hw, run):
         """Cost volume + conv3D_1 (fused, or explicit under
         `plain_lowering()`), the 3D encoder/decoder and the soft-argmin:
-        (N, C, H', W') feature maps -> (N, H, W) disparity in pixels."""
+        both towers' (2N, C, H', W') features -> (N, H, W) disparity in
+        pixels."""
         spec = self.spec
         enc, first = self.encoder3D, spec.enc3d[0]
+        n = feats.shape[0] // 2
         if self._steps and use_packed3d():
-            return self._volume_head_packed(fl, fr, full_hw)
+            return self._volume_head_packed(feats, full_hw, run)
         if isinstance(enc[first.name], _FusedConv3D1) \
                 and not use_plain_lowering():
-            x = enc[first.name].fused(fl, fr, spec.max_disp)
+            x = run(f"cost_volume+{first.name}", lambda f: enc[
+                first.name].fused(f[:n], f[n:], spec.max_disp), feats)
         else:
-            vol = cost_volume(fl.permute(0, 2, 3, 1).contiguous(),
-                              fr.permute(0, 2, 3, 1).contiguous(),
-                              spec.max_disp)
-            x = elu(enc[first.name](vol.permute(0, 4, 1, 2, 3)))
+            vol = run("cost_volume", lambda f: cost_volume(
+                f[:n].permute(0, 2, 3, 1).contiguous(),
+                f[n:].permute(0, 2, 3, 1).contiguous(), spec.max_disp),
+                feats)
+            x = run(first.name, lambda v: elu(
+                enc[first.name](v.permute(0, 4, 1, 2, 3))), vol)
         acts = {first.name: x}
         for layer in spec.enc3d[1:]:
-            x = elu(enc[layer.name](x))
+            x = run(layer.name, lambda a, c=enc[layer.name]: elu(c(a)), x)
             acts[layer.name] = x
         for name, _out_ch, skip in spec.dec3d:
-            target = (acts[skip].shape[2:] if skip is not None
-                      else (spec.full_max_disp, *full_hw))
-            x = self.decoder3D[name](x, tuple(target))
+            layer = self.decoder3D[name]
             if skip is not None:
-                x = elu(x + acts[skip])
-        return softargmin(x[:, 0], axis=1)
+                x = run(name, lambda a, sk, c=layer: elu(
+                    c(a, tuple(sk.shape[2:])) + sk), x, acts[skip])
+            else:
+                x = run(name, lambda a, c=layer: c(
+                    a, (spec.full_max_disp, *full_hw)), x)
+        return run("softargmin", lambda a: softargmin(a[:, 0], axis=1), x)
 
-    def _volume_head_packed(self, fl, fr, full_hw):
+    def _volume_head_packed(self, feats, full_hw, run):
         """The packed head (`_packed_plan`): the emission kernel's
         dh-shifted conv3D_1 output through the packed 3D stack to the
         final deconv: dfold + fused soft-argmin on the card (or with
@@ -867,31 +884,40 @@ class StereoNet(nn.Module):
         soft-argmin, the JAX package's off-accelerator branch. NDHWC
         activations throughout; (N, H, W) disparity in pixels."""
         spec = self.spec
-        x = self.encoder3D[spec.enc3d[0].name].fused_packed(fl, fr,
-                                                            spec.max_disp)
-        spatial = (spec.max_disp, fl.shape[2], fl.shape[3])
+        n = feats.shape[0] // 2
+        first = self.encoder3D[spec.enc3d[0].name]
+        x = run(f"cost_volume+{spec.enc3d[0].name}[pk]", lambda f:
+                first.fused_packed(f[:n], f[n:], spec.max_disp), feats)
+        spatial = (spec.max_disp, feats.shape[2], feats.shape[3])
         acts = {}
         for step in self._steps:
             if step.op == "final":
                 target = (spec.full_max_disp, *full_hw)
                 if step.name in self.packed3D and _use_dfold(x):
-                    return self.packed3D[step.name](x, target)
+                    return run(f"{step.name}+softargmin[pk]", lambda a, c=(
+                        self.packed3D[step.name]): c(a, target), x)
                 if step.layout != "none":
-                    x = P.unpack_conv(x, spatial,
-                                      packed_h=step.layout == "dh")
-                x = self.decoder3D[step.name](x.permute(0, 4, 1, 2, 3),
-                                              target)
-                return softargmin(x[:, 0], axis=1)
+                    x = run("unpack[pk]", lambda a, sp=spatial, ph=(
+                        step.layout == "dh"): P.unpack_conv(
+                            a, sp, packed_h=ph), x)
+                x = run(step.name, lambda a, c=self.decoder3D[step.name]:
+                        c(a.permute(0, 4, 1, 2, 3), target), x)
+                return run("softargmin",
+                           lambda a: softargmin(a[:, 0], axis=1), x)
             if step.op == "deconv":
                 sk, spatial = acts[step.skip]
-                x = elu(self.packed3D[step.name](x, spatial) + sk)
+                x = run(f"{step.name}[pk]", lambda a, s_, c=(
+                    self.packed3D[step.name]), sp=spatial: elu(
+                        c(a, sp) + s_), x, sk)
                 continue
             if step.op == "native":
-                layer = self.encoder3D[step.name]
-                x = elu(layer(x.permute(0, 4, 1, 2, 3))).permute(0, 2, 3, 4,
-                                                                  1)
+                x = run(step.name, lambda a, c=self.encoder3D[step.name]:
+                        elu(c(a.permute(0, 4, 1, 2, 3))).permute(
+                            0, 2, 3, 4, 1), x)
             else:
-                x = elu(self.packed3D[step.name](x, spatial))
+                x = run(f"{step.name}[pk]", lambda a, c=(
+                    self.packed3D[step.name]), sp=spatial: elu(c(a, sp)),
+                    x)
             if step.op != "conv" and self.encoder3D[step.name].stride == 2:
                 spatial = tuple(-(-v // 2) for v in spatial)
             acts[step.name] = (x, spatial)
@@ -900,6 +926,17 @@ class StereoNet(nn.Module):
     def forward(self, left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
         """``left``/``right``: (N, H, W, 3) RGB in [0, 1], or s2d-packed
         (N, ceil(H/2), ceil(W/2), 12) with (H, W) = ``spec.input_hw``."""
+        return self.layers(left, right, _call)
+
+    def layers(self, left: torch.Tensor, right: torch.Tensor,
+               run: Callable) -> torch.Tensor:
+        """The forward, one layer at a time: each layer is computed as
+        ``run(name, fn, *args)``, which must return ``fn(*args)``;
+        `forward` passes a plain call, and
+        `runtime/layer_profiler.stereo_layer_plan` one that records each
+        (name, fn, args). Both towers run as one batch of 2N (entries
+        ``towers_*``); the names follow the JAX package's layer plan
+        (`redtail_tpu/runtime/layer_profiler.py`)."""
         spec = self.spec
         if left.shape[-1] == 12:
             full_hw = spec.input_hw
@@ -911,17 +948,23 @@ class StereoNet(nn.Module):
         else:
             full_hw = tuple(left.shape[1:3])
         n = left.shape[0]
-        x = torch.cat([left, right]).to(self.dtype).permute(0, 3, 1, 2)
+        conv1_act = run("towers_conv1", self._towers_conv1, left, right)
         if spec.encoder2d == "plain":
-            feats = self._plain_encoder(x)
+            feats = self._plain_encoder(conv1_act, run)
         else:
-            feats, conv1_act = self._resnet_encoder(x)
+            feats = self._resnet_encoder(conv1_act, run)
         if not spec.corr:
-            return self._volume_head(feats[:n], feats[n:], full_hw)
-        feats = feats.permute(0, 2, 3, 1).contiguous()  # NHWC for the kernel
-        # the correlation volume and its soft-argmax over D, one kernel
-        d = corr_softargmax_dlast(feats[:n], feats[n:], spec.max_disp)
-        return self._bneck_head(d, conv1_act[:n], full_hw)
+            return self._volume_head(feats, full_hw, run)
+        # the correlation volume and its soft-argmax over D, one kernel,
+        # on NHWC features
+        d = run("corr_cost_volume+softargmax", lambda f: corr_softargmax_dlast(
+            f[:n].permute(0, 2, 3, 1).contiguous(),
+            f[n:].permute(0, 2, 3, 1).contiguous(), spec.max_disp), feats)
+        return self._bneck_head(d, conv1_act, full_hw, run)
+
+
+def _call(_name: str, fn: Callable, *args):
+    return fn(*args)
 
 
 def params_from_numpy(spec: StereoSpec, params: Params, *, device=None,

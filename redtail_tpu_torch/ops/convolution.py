@@ -117,6 +117,25 @@ def tf_same_padding(in_dim: int, kern_dim: int,
     return pad_start, pad_along - pad_start
 
 
+# The TF32 setting each CUDA conv asks for inside `record_switches()`.
+_SWITCH_LOG = contextvars.ContextVar("redtail_torch_switch_log",
+                                     default=None)
+
+
+@contextlib.contextmanager
+def record_switches():
+    """Yield a list that collects, inside the block, the TF32 setting
+    (``allow``) of each CUDA conv's `_tf32`: what an exported engine, whose
+    graph keeps the convs but not these Python-side switches, must set
+    around its calls (`runtime/cache.py`)."""
+    log = []
+    token = _SWITCH_LOG.set(log)
+    try:
+        yield log
+    finally:
+        _SWITCH_LOG.reset(token)
+
+
 # cuDNN's and cuBLAS's TF32 and determinism switches are process-wide, and
 # the serving nodes run on threads of their own (a bf16 StereoNode beside an
 # fp32 TrailNetNode in `pipeline_app`), with the GIL dropped inside a conv:
@@ -135,6 +154,9 @@ def _tf32(x: torch.Tensor, allow: bool):
     if not x.is_cuda:
         yield
         return
+    log = _SWITCH_LOG.get()
+    if log is not None:
+        log.append(allow)
     with _FLAGS_LOCK:
         saved = (torch.backends.cudnn.allow_tf32,
                  torch.backends.cuda.matmul.allow_tf32,
