@@ -182,6 +182,43 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
        engine's and the eager model's device time a frame and synced host
        time a call printed.
 
+11. multi-device (`redtail_tpu_torch/parallel/`): two ranks spawned by
+    `parallel/launch.py`, processes sharing cuda:0 over gloo (NCCL refuses
+    two ranks on one card; with two cards or more 11a-11c run again over
+    NCCL, a card a rank), the kernels built by phase 2 before the spawn;
+    every sharded case beside its unsharded reference, run by rank 0 of
+    the same spawn on the same card; the launches are counted in each
+    rank around the forward or step (`parallel/rank_checks.py`):
+    a. image mode (N over data, H over spatial, mesh (1, 2)): ResNet18-2D
+       bf16 at 321x1025 on s2d frames (1, 161, 513, 12), 161 rows split
+       80 / 81, conditioned random weights: mean within 1e-2 sigmoid units
+       of the unsharded forward (phase 4's gate) and max within one bf16
+       step at 1 (2^-8; a fault in the rows beside the shards' boundary
+       passes a mean gate); fp32 at 129x257 within 1e-4; the corr
+       kernel's fused soft-argmax launched in each rank;
+    b. disparity mode (mesh (1, 2)): NVSmall at 321x1025 with the real
+       weights, D = 48, 24 disparities a rank (phase 3 holds the concat
+       kernel at d_offset 0 and 24): bf16 mean within 0.1 px and max
+       within one bf16 step at the top of the disparity range (0.25 px),
+       fp32 within 1e-3 px of the unsharded plain-lowering forward; the
+       concat kernel launched in each rank;
+    c. `make_train_step(mesh=)` on meshes (2, 1) and (1, 2): ResNet18-2D
+       and NVTiny bf16 at 160x512, batch 4 (the loss within 1e-2 relative
+       and every gradient leaf within 9b's gates of the one-rank step), fp32
+       at 64x128 (loss within 1e-4 relative, every leaf within 1e-4 of its
+       largest value), the params bit-equal across ranks after the step;
+    d. `StereoNode` and `TrailNetNode` with an explicit device: cuda:0,
+       the caller's current card unchanged after the kernels launch; with
+       two cards the stereo stage on cuda:1 bit-equal to cuda:0's, with
+       one a line saying cuda:1 was not run (and that it raises there);
+    e. figures beside the card's name and power limit: each rank's time a
+       frame (CUDA events) for 11a and 11b, the halo bytes each rank
+       received against the bytes of the activations exchanged, and peak
+       device memory per rank against the unsharded forward's.
+    `python3 chip_smoke.py --parallel-only` runs phases 1-2, 3's concat
+    kernel and 11 alone and ends with a `{"partial": true, ...}` line, not
+    the `ok` line.
+
 Then one JSON line describing every ported kernel, and last the line
 `{"ok": true, "device": {...}}`.
 """
@@ -235,6 +272,14 @@ CONCAT_CASES = (("nvsmall", (1, 161, 513, 32), 48),
                 ("ragged", (2, 7, 37, 8), 6),
                 ("D>W", (1, 3, 5, 4), 9),
                 ("C=3", (1, 4, 9, 3), 5))
+# the concat kernel's blocks of disparities (d_offset, d_count), phase 11b's
+# two ranks' at NVSmall's shape first, then a block past W, a ragged one
+# and an empty one
+CONCAT_BLOCK_CASES = (("nvsmall rank 0", (1, 161, 513, 32), 48, 0, 24),
+                      ("nvsmall rank 1", (1, 161, 513, 32), 48, 24, 24),
+                      ("D>W block", (1, 3, 5, 4), 9, 5, 4),
+                      ("ragged block", (2, 7, 37, 8), 6, 3, 3),
+                      ("empty", (1, 3, 5, 4), 9, 3, 0))
 EMIT_CASES = (("nvsmall", (1, 161, 513, 32), 48),
               ("resnet18", (1, 161, 513, 32), 68),
               ("K=64", (1, 9, 513, 64), 48),
@@ -617,6 +662,23 @@ def phase_concat(torch, concat, gen):
                   f"concat {name} {dtype}: not bit-exact (max abs err {err})")
             print(f"concat {name:8s} {str(shape):18s} D={d:<3d} "
                   f"{str(dtype):15s} bit-exact (max_abs_err={err:.1e})")
+            del got, want
+    for name, shape, d, off, count in CONCAT_BLOCK_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            left, right = (_randn(torch, gen, shape, dtype) for _ in range(2))
+            before = concat.cost_volume_concat.launches
+            got = concat.cost_volume_concat(left, right, d, d_offset=off,
+                                            d_count=count)
+            torch.cuda.synchronize()
+            want = concat.cost_volume_concat_plain(left, right, d, off, count)
+            check(got.shape == want.shape and torch.equal(got, want),
+                  f"concat {name} [{off}, {off + count}) {dtype}: not "
+                  f"bit-exact")
+            check(concat.cost_volume_concat.launches - before == int(
+                count > 0), f"concat {name}: launches")
+            print(f"concat {name:14s} {str(shape):18s} D={d:<3d} "
+                  f"d_offset={off:<3d} d_count={count:<3d} {str(dtype):15s}"
+                  f" bit-exact")
             del got, want
 
     _, shape, d = CONCAT_CASES[0]
@@ -2932,6 +2994,290 @@ def phase_engines(np, torch, models, nodes, ckpt, stereo_app, plain_lowering,
     return paths, figures
 
 
+# ----------------------------------------------------------------- phase 11
+
+# Multi-device on one card: the ranks are processes sharing cuda:0 over
+# gloo (NCCL refuses two ranks on one card); with two cards or more the
+# same phases run again over NCCL, a card a rank. A mesh (data, spatial).
+PAR_RANKS = 2
+PARALLEL_ONLY = "--parallel-only"  # phases 1-2, 3's concat and 11 alone
+PAR_2D_FP32 = ((129, 257), 16)   # phase 4's ResNet18-2D slice
+PAR_2D_BF16_MEAN = 1e-2    # sigmoid units: sharded bf16 vs unsharded
+#                            (phase 4's bf16 gate)
+PAR_2D_FP32_ATOL = 1e-4    # sigmoid units: sharded fp32 vs unsharded
+# bf16 maxima, sharded vs unsharded: one bf16 step at the top of the
+# output's range (sigmoid units in [0.5, 1); px in [32, 64) for D = 48), so
+# a fault in the rows beside a shard boundary fails where the mean would
+# not (readings on the H100: 0 and 0.03125 px)
+PAR_2D_BF16_MAX = 2.0 ** -8
+PAR_3D_BF16_MAX = 0.25
+PAR_MESHES = ((2, 1), (1, 2))
+PAR_TRAIN_FP32_CROP = TRAIN_SLICE_CROP  # the fp32 step, 64x128
+PAR_TRAIN_FP32_TOL = 1e-4  # loss relative; each leaf, share of its max
+
+
+def par_frames(np, s2d, hw, seed):
+    """One s2d-packed RGB pair in [0, 1] at ``hw`` (random texture, the
+    right frame shifted), as the serving nodes feed the net."""
+    left, right = stereo_frames(np, seed, 1)[0]
+    left, right = (f[:hw[0], :hw[1], ::-1].astype(np.float32) / 255.0
+                   for f in (left, right))
+    return tuple(s2d(f[None]) for f in (left, right))
+
+
+def par_cases(np, models, s2d):
+    """The forward cases (11a, 11b) and the train cases (11c) of one
+    spawn: each sharded case beside its unsharded reference (rank 0)."""
+    fwd = []
+    for dtype, hw, max_disp in (("bfloat16", FULL_HW, 48),
+                                ("float32",) + PAR_2D_FP32):
+        spec = {"name": "resnet18_2d", "input_hw": hw, "max_disp": max_disp}
+        tree = conditioned_params(np, models.init_stereo_params(
+            dataclasses.replace(models.STEREO_SPECS["resnet18_2d"],
+                                input_hw=hw, max_disp=max_disp), seed=0), 2)
+        left, right = par_frames(np, s2d, hw, 11)
+        for extra in ({"mesh": (1, PAR_RANKS), "mode": "image"},
+                      {"unsharded": True}):
+            fwd.append(dict(spec=spec, params=tree, left=left, right=right,
+                            dtype=dtype, tag=f"11a resnet18_2d {dtype}",
+                            **extra))
+    tree = models.params_from_npz(ROOT / NVSMALL_NPZ)
+    left, right = par_frames(np, s2d, FULL_HW, 12)
+    for dtype in ("bfloat16", "float32"):
+        for extra in ({"mesh": (1, PAR_RANKS), "mode": "disparity"},
+                      {"unsharded": True}):
+            fwd.append(dict(spec={"name": "nvsmall", "input_hw": FULL_HW},
+                            params=tree, left=left,
+                            right=right, dtype=dtype,
+                            tag=f"11b nvsmall {dtype}", **extra))
+    train = []
+    for name in ("resnet18_2d", "nvtiny"):
+        for dtype, crop in (("bfloat16", TRAIN_CROP),
+                            ("float32", PAR_TRAIN_FP32_CROP)):
+            spec = dataclasses.replace(models.STEREO_SPECS[name],
+                                       input_hw=crop)
+            tree = conditioned_params(
+                np, models.init_stereo_params(spec, seed=1), 2)
+            batch = train_batch(np, crop, TRAIN_BATCH, 6)
+            for extra in [{"mesh": m} for m in PAR_MESHES] + [
+                    {"unsharded": True}]:
+                train.append(dict(spec={"name": name, "input_hw": crop},
+                                  params=tree, batch=batch, dtype=dtype,
+                                  tag=f"11c {name} {dtype}", **extra))
+    return fwd, train
+
+
+def par_forward_gates(np, fwd, results, backend, card="cuda"):
+    """11a / 11b: each sharded forward against its unsharded reference;
+    returns the launches by path and the figures."""
+    by_path, figures = {}, {}
+    ref = {c["tag"]: results[0][i] for i, c in enumerate(fwd)
+           if c.get("unsharded")}
+    for i, c in enumerate(fwd):
+        if c.get("unsharded"):
+            continue
+        want = ref[c["tag"]]["disp"]
+        corr = c["spec"]["name"] == "resnet18_2d"
+        fp32 = c["dtype"] == "float32"
+        unit = "" if corr else " px"
+        for rank, res in enumerate(results):
+            got = res[i]
+            err = np.abs(got["disp"] - want)
+            check(got["disp"].shape == want.shape and np.isfinite(
+                got["disp"]).all(), f"{c['tag']} rank {rank}: "
+                f"{got['disp'].shape} vs {want.shape} or not finite")
+            if corr:
+                gate = PAR_2D_FP32_ATOL if fp32 else PAR_2D_BF16_MEAN
+            else:
+                gate = SLICE_3D_FP32_ATOL if fp32 else SLICE_3D_BF16_MEAN
+            reading = err.max() if fp32 else err.mean()
+            check(reading <= gate, f"{c['tag']} rank {rank}: "
+                  f"{'max' if fp32 else 'mean'} {reading} off the unsharded "
+                  f"forward (gate {gate}{unit})")
+            top = PAR_2D_BF16_MAX if corr else PAR_3D_BF16_MAX
+            check(fp32 or err.max() <= top, f"{c['tag']} rank {rank}: max "
+                  f"{err.max()} off the unsharded forward (gate {top}{unit})")
+            kernel = "corr_launches" if corr else "concat_launches"
+            check(got[kernel] >= 1 or card == "cpu", f"{c['tag']} rank "
+                  f"{rank}: {kernel} {got[kernel]}")
+            entry = "corr_cost_volume" if corr else "cost_volume_concat"
+            by_path.setdefault(entry, {})[
+                f"{c['tag']} {c['mode']} {backend} rank {rank}"] = got[kernel]
+            print(f"{c['tag']} {c['mode']} mesh {c['mesh']} ({backend}) rank "
+                  f"{rank}: vs unsharded max {err.max():.3e} mean "
+                  f"{err.mean():.3e}{unit} (gate {gate}, "
+                  f"{'max' if fp32 else f'mean; max {top}'}); {kernel} "
+                  f"{got[kernel]}; "
+                  f"one frame {got['ms']:.3f} ms (CUDA events, the other "
+                  f"rank on the same card); halo bytes received "
+                  f"{got['moved_bytes']} for {got['held_bytes']} bytes of "
+                  f"activations; peak device memory {got['peak_bytes']}")
+            figures[f"{c['tag']} rank {rank}"] = {
+                "ms": got["ms"], "moved_bytes": got["moved_bytes"],
+                "held_bytes": got["held_bytes"],
+                "peak_bytes": got["peak_bytes"]}
+        r0 = ref[c["tag"]]
+        figures[f"{c['tag']} unsharded"] = {"ms": r0["ms"],
+                                            "peak_bytes": r0["peak_bytes"]}
+    return by_path, figures
+
+
+def par_train_gates(np, train, results, backend):
+    """11c: each sharded step against the one-rank step; the params
+    bit-equal across ranks; returns the launches by path."""
+    by_path = {}
+    ref = {c["tag"]: results[0][i] for i, c in enumerate(train)
+           if c.get("unsharded")}
+    for i, c in enumerate(train):
+        if c.get("unsharded"):
+            continue
+        want = ref[c["tag"]]
+        name = c["spec"]["name"]
+        fp32 = c["dtype"] == "float32"
+        g_want = dict(_leaves(want["grads"]))
+        for rank, res in enumerate(results):
+            got = res[i]
+            rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+            loss_gate = PAR_TRAIN_FP32_TOL if fp32 else 1e-2
+            check(rel <= loss_gate, f"{c['tag']} {c['mesh']} rank {rank}: "
+                  f"loss {got['loss']} vs one rank's {want['loss']}")
+            g_got = dict(_leaves(got["grads"]))
+            if fp32:
+                top = max(np.abs(v).max() for v in g_want.values())
+                errs = {k: np.abs(g_got[k] - w).max() / np.abs(w).max()
+                        for k, w in g_want.items() if k != ZERO_GRAD_LEAF}
+                gate = PAR_TRAIN_FP32_TOL
+                if ZERO_GRAD_LEAF in g_want:
+                    zero = np.abs(g_got[ZERO_GRAD_LEAF]).max()
+                    check(zero <= TRAIN_ZERO_SHARE * top, f"{c['tag']} "
+                          f"{ZERO_GRAD_LEAF}: {zero}, not near 0")
+            else:
+                errs = leaf_rel_l2(np, g_got, g_want)
+                gate = TRAIN_BF16_GATE[name]
+            path = max(errs, key=errs.get)
+            check(errs[path] <= gate, f"{c['tag']} {c['mesh']} rank {rank} "
+                  f"{path}: {errs[path]} off the one-rank step (gate {gate})")
+            first = dict(_leaves(results[0][i]["params"]))
+            for k, v in _leaves(got["params"]):
+                check(np.array_equal(v, first[k]), f"{c['tag']} {c['mesh']}:"
+                      f" rank {rank}'s {k} differs from rank 0's after the "
+                      "step")
+            for kernel, n in got["launches"].items():
+                if n:
+                    entry = {"corr_softargmax": "corr_cost_volume",
+                             "corr_softargmax_bwd": "corr_bwd",
+                             "cost_volume_concat": "cost_volume_concat",
+                             "cost_volume_concat_bwd": "concat_bwd"}[kernel]
+                    by_path.setdefault(entry, {})[
+                        f"{c['tag']} mesh {c['mesh'][0]}x{c['mesh'][1]} "
+                        f"{backend} rank {rank}"] = n
+            print(f"{c['tag']} mesh {c['mesh']} ({backend}) rank {rank}: "
+                  f"loss {got['loss']:.6f} vs one rank {want['loss']:.6f} "
+                  f"(rel {rel:.2e}); worst leaf "
+                  f"{'max / leaf max' if fp32 else 'relative L2'} "
+                  f"{errs[path]:.3e} ({path}; gate {gate}); params bit-equal "
+                  f"to rank 0's; launches {got['launches']}")
+    return by_path
+
+
+def phase_parallel(np, torch, models, s2d, backend="gloo", card="cuda"):
+    """11a-11c in one spawn of `PAR_RANKS` ranks (`parallel/launch.py`;
+    the kernels were built by phase 2, so the ranks load them); returns
+    the launches by path and 11e's figures. ``card="cpu"`` rehearses it
+    on CPU ranks."""
+    from redtail_tpu_torch.parallel import rank_checks
+    from redtail_tpu_torch.parallel.launch import spawn_ranks
+
+    fwd, train = par_cases(np, models, s2d)
+    t0 = time.perf_counter()
+    results = spawn_ranks(rank_checks.run_cases, PAR_RANKS, backend=backend,
+                          device_type=card,
+                          args=({"forward": fwd, "train": train}, card))
+    where = {"cpu": "the CPU", "gloo": "cuda:0", "nccl": "a card each"}[
+        "cpu" if card == "cpu" else backend]
+    print(f"11 {PAR_RANKS} {backend} ranks on {where}: "
+          f"{time.perf_counter() - t0:.1f} s, spawn and imports included")
+    by_path, figures = par_forward_gates(
+        np, fwd, [r["forward"] for r in results], backend, card)
+    for entry, paths in par_train_gates(
+            np, train, [r["train"] for r in results], backend).items():
+        by_path.setdefault(entry, {}).update(paths)
+    return by_path, figures
+
+
+def phase_stage_per_device(np, torch, models, nodes, trailnet, counters):
+    """11d: `StereoNode` and `TrailNetNode` pinned with an explicit device;
+    with two cards or more, stereo on cuda:1 bit-equal to cuda:0 with the
+    caller's current card unchanged; with one, cuda:1 raises."""
+    spec = dataclasses.replace(models.STEREO_SPECS["resnet18_2d"],
+                               input_hw=FULL_HW)
+    tree = models.init_stereo_params(spec, seed=0)
+    frames = stereo_frames(np, 13, 2)
+    trail = trailnet.params_from_numpy(
+        trailnet.params_from_w8_npz(ROOT / TRAILNET_W8), device="cuda:0")
+    current = torch.cuda.current_device()
+    outs = {}
+    cards = ["cuda:0"] + (["cuda:1"] if torch.cuda.device_count() >= 2
+                          else [])
+    for dev in cards:
+        node = nodes.StereoNode(spec, tree, dtype=torch.bfloat16, device=dev)
+        zero_counts(counters)
+        outs[dev] = [node(*f) for f in frames]
+        torch.cuda.synchronize(dev)
+        n = read_counts(counters)["corr_softargmax"]
+        check(n == len(frames), f"11d StereoNode on {dev}: corr launched {n}"
+              f" times for {len(frames)} frames")
+        check(torch.cuda.current_device() == current, f"11d StereoNode on "
+              f"{dev} moved the current card to "
+              f"{torch.cuda.current_device()}")
+        check(next(node.net.parameters()).device == torch.device(dev),
+              f"11d StereoNode's weights not on {dev}")
+        probs = nodes.TrailNetNode(trail.to(dev), device=dev)(
+            frames[0][0][:trailnet.INPUT_HW[0], :trailnet.INPUT_HW[1]])
+        check(probs.shape == (6,) and np.isfinite(probs).all(),
+              f"11d TrailNetNode on {dev}: {probs}")
+        print(f"11d StereoNode resnet18_2d bf16 on {dev}: {len(frames)} "
+              f"frames, corr launched {n}, current card still {current}; "
+              f"TrailNetNode on {dev}: {probs.round(4).tolist()}")
+    if len(cards) == 1:
+        try:
+            nodes.StereoNode(spec, tree, device="cuda:1")
+        except RuntimeError as e:
+            print(f"11d one card (torch.cuda.device_count() == 1): the "
+                  f"stage on cuda:1 was not run; StereoNode(device='cuda:1')"
+                  f" raised RuntimeError: {e}")
+        else:
+            raise SmokeFailure("11d StereoNode(device='cuda:1') did not "
+                               "raise on a one-card machine")
+        return {"11d stereo cuda:0": len(frames)}
+    for a, b in zip(outs["cuda:0"], outs["cuda:1"]):
+        check(np.array_equal(a, b), "11d StereoNode on cuda:1 differs from "
+              "cuda:0")
+    print("11d StereoNode on cuda:1 bit-equal to cuda:0 on "
+          f"{len(frames)} frames")
+    return {f"11d stereo {d}": len(frames) for d in cards}
+
+
+def phase_multi_device(np, torch, models, nodes, trailnet, s2d, counters):
+    """Phase 11 (11a-11c over gloo on cuda:0, again over NCCL where there
+    are two cards or more; 11d; 11e's figures); returns the launches by
+    path."""
+    by_path, figures = phase_parallel(np, torch, models, s2d)
+    if torch.cuda.device_count() >= 2:
+        paths, nccl = phase_parallel(np, torch, models, s2d, backend="nccl")
+        for entry, p in paths.items():
+            by_path.setdefault(entry, {}).update(p)
+        figures.update({f"{k} nccl": v for k, v in nccl.items()})
+    else:
+        print("11 one card: the NCCL ranks (a card each) were not run")
+    by_path.setdefault("corr_cost_volume", {}).update(phase_stage_per_device(
+        np, torch, models, nodes, trailnet, counters))
+    print(f"11e multi-device figures ({nvidia_smi('name,power.limit')}; "
+          f"{PAR_RANKS} ranks on one card: no speed-up is claimed): "
+          f"{json.dumps(figures)}")
+    return by_path
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3003,6 +3349,13 @@ def main() -> int:
                     print(f"  {name}: {line.strip()[:160]}")
 
     gen = seeded_generator(0)
+    if sys.argv[1:] == [PARALLEL_ONLY]:
+        phase_concat(torch, concat, gen)
+        phase_multi_device(np, torch, models, nodes, trailnet,
+                           space_to_depth2_np, counters)
+        # a partial run: not the contract's ok line
+        print(json.dumps({"partial": True, "phases": "1-2, 3 concat, 11"}))
+        return 0
     entries = {"corr_cost_volume": phase_corr(torch, corr, softargmax, gen),
                "cost_volume_concat": phase_concat(torch, concat, gen),
                "fused_cv_emit": phase_emit(torch, emit, gen),
@@ -3088,6 +3441,13 @@ def main() -> int:
                                     packed3d_lowering)
     for entry, paths in engine_paths.items():
         by_path[entry].update(paths)
+
+    # multi-device: sharded forwards and train steps in ranks sharing the
+    # card, stages pinned to cards
+    for entry, paths in phase_multi_device(np, torch, models, nodes,
+                                           trailnet, space_to_depth2_np,
+                                           counters).items():
+        by_path.setdefault(entry, {}).update(paths)
 
     for name, paths in by_path.items():
         check(all(paths.values()), f"{name} was not launched on {paths}")

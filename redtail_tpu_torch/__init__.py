@@ -10,9 +10,11 @@ Entry points run on the card unless the caller asks for the CPU with
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["resolve_device", "seeded_generator"]
+__all__ = ["on_device", "resolve_device", "seeded_generator"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -24,6 +26,14 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available: redtail_tpu_torch runs on the card "
             "unless the caller passes device='cpu'")
     return dev
+
+
+def on_device(device: torch.device):
+    """The block in which code allocates and launches for ``device``: its
+    card made current and the caller's current card restored after, on
+    the error paths too. Nothing for the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" \
+        else contextlib.nullcontext()
 
 
 def seeded_generator(seed: int, device=None) -> torch.Generator:

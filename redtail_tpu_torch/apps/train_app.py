@@ -13,8 +13,10 @@ Usage:
   python -m redtail_tpu_torch.apps.train_app trailnet --data <trails_root> \\
       --steps 500 --batch 16 --out trailnet.npz --export-caffe trailnet
 
-Progress is emitted as JSON lines. ``--data-parallel`` above 1 is ROADMAP
-module item 10 and raises `NotImplementedError`.
+Progress is emitted as JSON lines. ``stereo --data-parallel N`` trains in
+N ranks (`parallel/launch.py`), each over its slice of every global batch:
+NCCL with a card a rank, or with ``--cpu`` gloo ranks on the CPU; fewer
+cards than N raise. Rank 0 logs and writes the checkpoints and ``--out``.
 """
 
 from __future__ import annotations
@@ -40,6 +42,27 @@ def _device(args):
 
 
 def _run_stereo(args) -> int:
+    if args.data_parallel > 1:
+        from redtail_tpu_torch.parallel.launch import spawn_ranks
+
+        backend, device_type = ("gloo", "cpu") if args.cpu \
+            else ("nccl", "cuda")
+        spawn_ranks(_stereo_rank, args.data_parallel, backend=backend,
+                    device_type=device_type, args=(args,))
+        return 0
+    return _train_stereo(args, _device(args))
+
+
+def _stereo_rank(rank: int, world_size: int, args) -> int:
+    """One rank of ``stereo --data-parallel`` (a spawn target)."""
+    from redtail_tpu_torch.parallel.launch import rank_device
+
+    backend, device_type = ("gloo", "cpu") if args.cpu else ("nccl", "cuda")
+    return _train_stereo(args, rank_device(rank, backend, device_type),
+                         main=rank == 0)
+
+
+def _train_stereo(args, device, main: bool = True) -> int:
     from redtail_tpu_torch.data.kitti import KittiStereoDataset
     from redtail_tpu_torch.training.stereo import (StereoTrainConfig,
                                                    train_stereo)
@@ -52,13 +75,12 @@ def _run_stereo(args) -> int:
         ckpt_dir=args.ckpt_dir, resume=args.resume,
         data_parallel=args.data_parallel, dtype=args.dtype)
 
-    device = _device(args)
     dataset = KittiStereoDataset(args.data)
     eval_ds = (KittiStereoDataset(args.eval_data) if args.eval_data
                else dataset)
     state = train_stereo(cfg, dataset, eval_dataset=eval_ds, device=device)
 
-    if args.out:
+    if args.out and main:
         from redtail_tpu_torch.models.stereo import params_to_numpy
         from redtail_tpu_torch.utils.checkpoint import save_params
         save_params(params_to_numpy(state.params), args.out)
@@ -166,8 +188,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--ckpt-dir", default=None)
     s.add_argument("--resume", action="store_true")
     s.add_argument("--data-parallel", type=int, default=1,
-                   help="devices on the data axis (above 1: not ported, "
-                        "ROADMAP module item 10)")
+                   help="ranks on the data axis: NCCL with a card each, or "
+                        "gloo on the CPU with --cpu")
     s.add_argument("--dtype", default="float32",
                    help="conv compute dtype: float32 or bfloat16 (mixed "
                         "precision, fp32 master weights); w8/int8 are "

@@ -7,7 +7,9 @@
 //     out[n, d, h, x, 0:C]  = L[n, h, x, :]
 //     out[n, d, h, x, C:2C] = R[n, h, x - d, :],  zero where x < d,
 //
-// in the input dtype. It is a pure copy, so it is bit-exact against its
+// in the input dtype, for the D disparities d = d_off .. d_off + D - 1
+// (d_off = 0 and D = max_disp is the whole volume; disparity sharding
+// gives each rank its own block of disparities). It is a pure copy, so it is bit-exact against its
 // plain PyTorch version: the kernel moves bytes and never looks at them.
 //
 // What bounds it: the write. At NVSmall's shape (L and R (1, 161, 513, 32)
@@ -44,7 +46,8 @@ constexpr int THREADS = 256;
 template <typename V>
 __global__ void __launch_bounds__(THREADS)
 concat_kernel(const V* __restrict__ left, const V* __restrict__ right,
-              V* __restrict__ out, int H, int W, int cv, int D) {
+              V* __restrict__ out, int H, int W, int cv, int D,
+              int d_off) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   V* ls = reinterpret_cast<V*>(smem_raw);  // TX pixels
   V* rs = ls + TX * cv;                     // TX + DC - 1 pixels
@@ -63,8 +66,9 @@ concat_kernel(const V* __restrict__ left, const V* __restrict__ right,
 
   const int ov = 2 * cv;  // output words per pixel
   for (int d0 = 0; d0 < D; d0 += DC) {
-    // R columns [x0 - d0 - (DC - 1), x0 + nt - d0), zero outside [0, W).
-    const int rx0 = x0 - d0 - (DC - 1);
+    // R columns [x0 - d - (DC - 1), x0 + nt - d) for the chunk's first
+    // disparity d = d_off + d0, zero outside [0, W).
+    const int rx0 = x0 - (d_off + d0) - (DC - 1);
     const int rn = nt + DC - 1;
     __syncthreads();  // the previous chunk's reads of rs are done
     for (int i = t; i < rn * cv; i += THREADS) {
@@ -90,7 +94,8 @@ concat_kernel(const V* __restrict__ left, const V* __restrict__ right,
 
 template <typename V>
 cudaError_t launch(const void* left, const void* right, void* out, int N,
-                   int H, int W, int cv, int D, cudaStream_t stream) {
+                   int H, int W, int cv, int D, int d_off,
+                   cudaStream_t stream) {
   const size_t smem = (size_t)(2 * TX + DC - 1) * cv * sizeof(V);
   if (smem > 48 * 1024) {
     // Above 48 KB only as opted-in dynamic shared memory; past the card's
@@ -103,30 +108,40 @@ cudaError_t launch(const void* left, const void* right, void* out, int N,
   const dim3 grid((W + TX - 1) / TX, H, N);
   concat_kernel<V><<<grid, THREADS, smem, stream>>>(
       static_cast<const V*>(left), static_cast<const V*>(right),
-      static_cast<V*>(out), H, W, cv, D);
+      static_cast<V*>(out), H, W, cv, D, d_off);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // left, right: (N, H, W, C) contiguous, pixel_bytes = C * sizeof(element).
-// out: (N, D, H, W, 2C) contiguous, same element type. word is the copy
+// out: (N, d_count, H, W, 2C) contiguous, same element type, disparities
+// d_offset .. d_offset + d_count - 1 of the volume. word is the copy
 // width in bytes (16, 8, 4 or 2); it must divide pixel_bytes and the three
 // pointers must be aligned to it. Returns the cudaError_t of the launch
 // (0 on success).
 extern "C" int cost_volume_concat_launch(const void* left, const void* right,
                                          void* out, int n, int h, int w,
-                                         int pixel_bytes, int max_disp,
-                                         int word, int device, void* stream) {
+                                         int pixel_bytes, int d_count,
+                                         int d_offset, int word, int device,
+                                         void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int cv = pixel_bytes / word;
   switch (word) {
-    case 16: return (int)launch<uint4>(left, right, out, n, h, w, cv, max_disp, s);
-    case 8: return (int)launch<uint2>(left, right, out, n, h, w, cv, max_disp, s);
-    case 4: return (int)launch<uint32_t>(left, right, out, n, h, w, cv, max_disp, s);
-    case 2: return (int)launch<uint16_t>(left, right, out, n, h, w, cv, max_disp, s);
+    case 16:
+      return (int)launch<uint4>(left, right, out, n, h, w, cv, d_count,
+                                d_offset, s);
+    case 8:
+      return (int)launch<uint2>(left, right, out, n, h, w, cv, d_count,
+                                d_offset, s);
+    case 4:
+      return (int)launch<uint32_t>(left, right, out, n, h, w, cv, d_count,
+                                   d_offset, s);
+    case 2:
+      return (int)launch<uint16_t>(left, right, out, n, h, w, cv, d_count,
+                                   d_offset, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -4,7 +4,7 @@ can trace a model through them and an AOTInductor engine can call them.
 | op | wrapper | kernel |
 | --- | --- | --- |
 | `redtail_torch::corr_cost_volume(left, right, max_disp, mode)` | `corr_cost_volume.corr_cost_volume`, `corr_softargmax` | `csrc/corr_cost_volume.cu` (``mode``: `hdw`, `dlast`, `softargmax`) |
-| `redtail_torch::cost_volume_concat(left, right, max_disp)` | `cost_volume_concat.cost_volume_concat` | `csrc/cost_volume_concat.cu` |
+| `redtail_torch::cost_volume_concat(left, right, max_disp, d_offset, d_count)` | `cost_volume_concat.cost_volume_concat` | `csrc/cost_volume_concat.cu` |
 | `redtail_torch::fused_cv_emit(la, rb, bias, max_disp, elu, layout)` | `fused_cv_emit.fused_cv_emit` | `csrc/fused_cv_emit.cu` (``layout``: `full`, `dh_shifted`) |
 | `redtail_torch::conv223(xp, k, bias, k_layout)` | `conv223.conv223` | `csrc/conv223.cu` |
 
@@ -71,14 +71,16 @@ def _(left, right, max_disp, mode):
 @torch.library.custom_op(f"{NAMESPACE}::cost_volume_concat", mutates_args=(),
                          device_types=DEVICES)
 def cost_volume_concat(left: torch.Tensor, right: torch.Tensor,
-                       max_disp: int) -> torch.Tensor:
-    return _concat._forward(left, right, max_disp)
+                       max_disp: int, d_offset: int = 0,
+                       d_count: Optional[int] = None) -> torch.Tensor:
+    return _concat._forward(left, right, max_disp, d_offset, d_count)
 
 
 @cost_volume_concat.register_fake
-def _(left, right, max_disp):
+def _(left, right, max_disp, d_offset=0, d_count=None):
     n, h, w, c = left.shape
-    return left.new_empty((n, max_disp, h, w, 2 * c))
+    d = max_disp - d_offset if d_count is None else d_count
+    return left.new_empty((n, d, h, w, 2 * c))
 
 
 @torch.library.custom_op(f"{NAMESPACE}::fused_cv_emit", mutates_args=(),

@@ -38,6 +38,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from redtail_tpu_torch import on_device
 from redtail_tpu_torch.kernels import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -223,11 +224,12 @@ def _launch(xp, k, bias, k_layout) -> torch.Tensor:
             raise ValueError("tensor storage not aligned to 32 bytes")
     plan = tile_plan(n, dp, hp, w, c, kk)
     lib = _lib()
-    err = lib.conv223_launch(
-        xp.data_ptr(), k.data_ptr(), b.data_ptr(), out.data_ptr(), n, dp, hp,
-        w, c, kk, int(bf16), plan.bn, plan.edge_rows,
-        min(plan.tiles, _sm_count(xp.device.index)), xp.device.index,
-        torch.cuda.current_stream(xp.device).cuda_stream)
+    with on_device(xp.device):
+        err = lib.conv223_launch(
+            xp.data_ptr(), k.data_ptr(), b.data_ptr(), out.data_ptr(), n, dp,
+            hp, w, c, kk, int(bf16), plan.bn, plan.edge_rows,
+            min(plan.tiles, _sm_count(xp.device.index)), xp.device.index,
+            torch.cuda.current_stream(xp.device).cuda_stream)
     if err:
         raise RuntimeError(
             f"conv223 kernel launch failed: CUDA error {err} "

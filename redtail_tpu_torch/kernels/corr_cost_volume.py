@@ -46,6 +46,7 @@ import functools
 import torch
 from torch.autograd.function import once_differentiable
 
+from redtail_tpu_torch import on_device
 from redtail_tpu_torch.kernels import _build
 
 LAYOUTS = ("dlast", "hdw")
@@ -334,10 +335,12 @@ def _launch(left, right, max_disp, mode) -> torch.Tensor:
                     "softargmax": ((n, h, w), torch.float32)}[mode]
     out = torch.empty(shape, dtype=dtype, device=left.device)
     lib = _lib()
-    err = lib.corr_cost_volume_launch(
-        left.data_ptr(), right.data_ptr(), out.data_ptr(), n, h, w, c,
-        int(max_disp), int(left.dtype == torch.bfloat16), MODES[mode],
-        left.device.index, torch.cuda.current_stream(left.device).cuda_stream)
+    with on_device(left.device):
+        err = lib.corr_cost_volume_launch(
+            left.data_ptr(), right.data_ptr(), out.data_ptr(), n, h, w, c,
+            int(max_disp), int(left.dtype == torch.bfloat16), MODES[mode],
+            left.device.index,
+            torch.cuda.current_stream(left.device).cuda_stream)
     if err:
         raise RuntimeError(
             f"corr_cost_volume kernel launch failed ({mode}): CUDA error "
@@ -382,11 +385,13 @@ def _launch_bwd(left, right, g, max_disp, mode):
                          f"got N={n}, H={h}")
     dleft, dright = torch.empty_like(left), torch.empty_like(right)
     lib = _lib_bwd()
-    err = lib.corr_cost_volume_bwd_launch(
-        left.data_ptr(), right.data_ptr(), g.data_ptr(), dleft.data_ptr(),
-        dright.data_ptr(), n, h, w, c, int(max_disp),
-        int(left.dtype == torch.bfloat16), MODES[mode], plan.seg,
-        left.device.index, torch.cuda.current_stream(left.device).cuda_stream)
+    with on_device(left.device):
+        err = lib.corr_cost_volume_bwd_launch(
+            left.data_ptr(), right.data_ptr(), g.data_ptr(),
+            dleft.data_ptr(), dright.data_ptr(), n, h, w, c, int(max_disp),
+            int(left.dtype == torch.bfloat16), MODES[mode], plan.seg,
+            left.device.index,
+            torch.cuda.current_stream(left.device).cuda_stream)
     if err:
         raise RuntimeError(
             f"corr_cost_volume backward kernel launch failed ({mode}): CUDA "

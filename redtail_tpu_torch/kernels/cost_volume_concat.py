@@ -6,7 +6,10 @@ version and the wrapper that chooses between them by device.
 
 (N, H, W, C) x2 -> (N, D, H, W, 2C) in the input dtype: the layout of the
 JAX package's `ops/cost_volume.py:cost_volume` and of the Pallas entry
-`cost_volume_pallas`. It replaces the TPU kernel
+`cost_volume_pallas`. ``d_offset`` / ``d_count`` build only disparities
+``[d_offset, d_offset + d_count)`` of the ``max_disp`` volume (a rank's
+block under disparity sharding, `parallel/sharding.py`); the default is the
+whole volume. It replaces the TPU kernel
 `redtail_tpu/kernels/cost_volume_pallas.py:158` (`_concat_kernel`); the
 design notes are in `redtail_tpu_torch/csrc/cost_volume_concat.cu`. A pure
 copy: kernel and plain version agree bit for bit.
@@ -24,7 +27,9 @@ version and launch counter): from the volume's cotangent g,
     dR[n, h, y, c] = sum_d g[n, d, h, y + d, C + c]   (y + d < W)
 
 in fp32, rounded once, the gradient XLA derives for the JAX package's
-`ops/cost_volume.py:cost_volume` (the Pallas kernel has no VJP).
+`ops/cost_volume.py:cost_volume` (the Pallas kernel has no VJP). Training
+builds whole volumes only: the autograd function refuses a block of
+disparities.
 `bwd_tile_plan` is that kernel's division of the work, computed here so the
 CPU tests can emulate it.
 """
@@ -34,10 +39,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from redtail_tpu_torch import on_device
 from redtail_tpu_torch.kernels import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -87,13 +94,17 @@ def bwd_tile_plan(w: int, c: int, d: int, dtype: torch.dtype) -> BwdTilePlan:
 
 
 def cost_volume_concat_plain(left: torch.Tensor, right: torch.Tensor,
-                             max_disp: int) -> torch.Tensor:
+                             max_disp: int, d_offset: int = 0,
+                             d_count: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version: one shifted copy per disparity."""
     n, h, w, c = left.shape
-    out = left.new_zeros((n, max_disp, h, w, 2 * c))
+    d_count = max_disp - d_offset if d_count is None else d_count
+    out = left.new_zeros((n, d_count, h, w, 2 * c))
     out[..., :c] = left.unsqueeze(1)
-    for d in range(min(max_disp, w)):
-        out[:, d, :, d:, c:] = right[:, :, :w - d]
+    for i in range(d_count):
+        d = d_offset + i
+        if d < w:
+            out[:, i, :, d:, c:] = right[:, :, :w - d]
     return out
 
 
@@ -110,7 +121,7 @@ def cost_volume_concat_bwd_plain(g: torch.Tensor, max_disp: int):
     return dl.to(g.dtype), dr.to(g.dtype)
 
 
-def _check(left, right, max_disp):
+def _check(left, right, max_disp, d_offset=0, d_count=None):
     if left.dim() != 4 or left.shape != right.shape:
         raise ValueError("left and right must be NHWC tensors of one shape; "
                          f"got {tuple(left.shape)} and {tuple(right.shape)}")
@@ -121,6 +132,10 @@ def _check(left, right, max_disp):
         raise ValueError(f"empty input {tuple(left.shape)}")
     if int(max_disp) != max_disp or max_disp < 1:
         raise ValueError(f"max_disp must be an integer >= 1, got {max_disp}")
+    d_count = max_disp - d_offset if d_count is None else d_count
+    if not 0 <= d_offset <= d_offset + d_count <= max_disp:
+        raise ValueError(f"disparities [{d_offset}, {d_offset + d_count}) "
+                         f"are not a block of [0, {max_disp})")
 
 
 def _on_cpu(left, right) -> bool:
@@ -140,19 +155,21 @@ def _on_cpu(left, right) -> bool:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("cost_volume_concat")
     lib.cost_volume_concat_launch.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.cost_volume_concat_launch.restype = ctypes.c_int
     lib.cost_volume_concat_error_string.argtypes = [ctypes.c_int]
     lib.cost_volume_concat_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _forward(left, right, max_disp):
+def _forward(left, right, max_disp, d_offset=0, d_count=None):
     """One forward call, the body of the op
     `redtail_torch::cost_volume_concat` (`_ops.py`): the plain version on
     the CPU, else the kernel, counted on the wrapper."""
+    d_count = max_disp - d_offset if d_count is None else d_count
     if _on_cpu(left, right):
-        return cost_volume_concat_plain(left, right, max_disp)
+        return cost_volume_concat_plain(left, right, max_disp, d_offset,
+                                        d_count)
     n, h, w, c = left.shape
     if n > 65535 or h > 65535:
         raise ValueError(f"N and H must be <= 65535 (grid limit); got {n}, {h}")
@@ -160,16 +177,20 @@ def _forward(left, right, max_disp):
     # the widest copy word that divides a pixel (pointers are 256-aligned
     # by the allocator, rows then stay aligned to the word)
     word = next(v for v in (16, 8, 4, 2) if pixel_bytes % v == 0)
-    out = torch.empty((n, max_disp, h, w, 2 * c), dtype=left.dtype,
+    out = torch.empty((n, d_count, h, w, 2 * c), dtype=left.dtype,
                       device=left.device)
+    if d_count == 0:  # a rank's empty block: nothing to launch
+        return out
     for t in (left, right, out):
         if t.data_ptr() % word:
             raise ValueError(f"tensor storage not aligned to {word} bytes")
     lib = _lib()
-    err = lib.cost_volume_concat_launch(
-        left.data_ptr(), right.data_ptr(), out.data_ptr(), n, h, w,
-        pixel_bytes, int(max_disp), word, left.device.index,
-        torch.cuda.current_stream(left.device).cuda_stream)
+    with on_device(left.device):
+        err = lib.cost_volume_concat_launch(
+            left.data_ptr(), right.data_ptr(), out.data_ptr(), n, h, w,
+            pixel_bytes, int(d_count), int(d_offset), word,
+            left.device.index,
+            torch.cuda.current_stream(left.device).cuda_stream)
     if err:
         raise RuntimeError(
             f"cost_volume_concat kernel launch failed: CUDA error {err} "
@@ -212,10 +233,11 @@ def cost_volume_concat_bwd(g: torch.Tensor, max_disp: int):
     while any(t.data_ptr() % word for t in (g, dleft, dright)):
         word //= 2
     lib = _lib_bwd()
-    err = lib.cost_volume_concat_bwd_launch(
-        g.data_ptr(), dleft.data_ptr(), dright.data_ptr(), n, h, w, c2 // 2,
-        int(max_disp), int(g.dtype == torch.bfloat16), word, g.device.index,
-        torch.cuda.current_stream(g.device).cuda_stream)
+    with on_device(g.device):
+        err = lib.cost_volume_concat_bwd_launch(
+            g.data_ptr(), dleft.data_ptr(), dright.data_ptr(), n, h, w,
+            c2 // 2, int(max_disp), int(g.dtype == torch.bfloat16), word,
+            g.device.index, torch.cuda.current_stream(g.device).cuda_stream)
     if err:
         raise RuntimeError(
             f"cost_volume_concat backward kernel launch failed: CUDA error "
@@ -229,7 +251,12 @@ class _Concat(torch.autograd.Function):
     kernel (or its plain version) as its gradient."""
 
     @staticmethod
-    def forward(ctx, left, right, max_disp):
+    def forward(ctx, left, right, max_disp, d_offset, d_count):
+        if (d_offset, d_count) != (0, max_disp):
+            raise NotImplementedError(
+                "the concat volume's backward takes the whole volume; "
+                f"disparities [{d_offset}, {d_offset + d_count}) of "
+                f"{max_disp} are a disparity-sharded (inference) block")
         ctx.max_disp = max_disp
         return _forward(left, right, max_disp)
 
@@ -237,24 +264,28 @@ class _Concat(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         dl, dr = cost_volume_concat_bwd(g, ctx.max_disp)
-        return dl, dr, None
+        return dl, dr, None, None, None
 
 
 def cost_volume_concat(left: torch.Tensor, right: torch.Tensor,
-                       max_disp: int) -> torch.Tensor:
-    """NHWC pair -> (N, D, H, W, 2C) concat volume (see the module
-    docstring).
+                       max_disp: int, *, d_offset: int = 0,
+                       d_count: Optional[int] = None) -> torch.Tensor:
+    """NHWC pair -> (N, D, H, W, 2C) concat volume, or with ``d_offset`` /
+    ``d_count`` its disparities [d_offset, d_offset + d_count) as (N,
+    d_count, H, W, 2C) (see the module docstring).
 
     CPU tensors take `cost_volume_concat_plain`. CUDA tensors launch the
     kernel on the current stream and add one to
-    ``cost_volume_concat.launches``; they must be contiguous NHWC on one
-    device. Differentiable: the gradient is `cost_volume_concat_bwd`."""
-    _check(left, right, max_disp)
+    ``cost_volume_concat.launches`` (none for an empty block); they must be
+    contiguous NHWC on one device. Differentiable for the whole volume: the
+    gradient is `cost_volume_concat_bwd`."""
+    _check(left, right, max_disp, d_offset, d_count)
+    d_count = int(max_disp - d_offset if d_count is None else d_count)
     if _build.needs_grad(left, right):
-        return _Concat.apply(left, right, max_disp)
+        return _Concat.apply(left, right, max_disp, int(d_offset), d_count)
     _on_cpu(left, right)  # raises on a pair the kernel does not take
-    return torch.ops.redtail_torch.cost_volume_concat(left, right,
-                                                      int(max_disp))
+    return torch.ops.redtail_torch.cost_volume_concat(
+        left, right, int(max_disp), int(d_offset), d_count)
 
 
 cost_volume_concat.launches = 0

@@ -39,6 +39,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from redtail_tpu_torch import on_device
 from redtail_tpu_torch.kernels import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -169,11 +170,12 @@ def _launch(la, rb, bias, max_disp, elu, layout) -> torch.Tensor:
         if t.data_ptr() % 16:
             raise ValueError("tensor storage not aligned to 16 bytes")
     lib = _lib()
-    err = lib.fused_cv_emit_launch(
-        la.data_ptr(), rb.data_ptr(), b.data_ptr(), out.data_ptr(), n, h, w,
-        k, int(max_disp), int(elu), int(la.dtype == torch.bfloat16),
-        int(packed), la.device.index,
-        torch.cuda.current_stream(la.device).cuda_stream)
+    with on_device(la.device):
+        err = lib.fused_cv_emit_launch(
+            la.data_ptr(), rb.data_ptr(), b.data_ptr(), out.data_ptr(), n, h,
+            w, k, int(max_disp), int(elu), int(la.dtype == torch.bfloat16),
+            int(packed), la.device.index,
+            torch.cuda.current_stream(la.device).cuda_stream)
     if err:
         raise RuntimeError(
             f"fused_cv_emit kernel launch failed: CUDA error {err} "

@@ -51,6 +51,16 @@ run as one batch-2 chain of convs, which is exact.
 one named layer at a time with each layer computed as ``run(name, fn,
 *args)``: the forward passes a plain call, the per-layer profiler
 (`runtime/layer_profiler.py`) one that records the layer.
+
+Inside `ops.halo.sharded_axis` the forward runs on one rank's shard
+(`parallel/sharding.py`): with H sharded (image mode) each layer works on
+its rows, the convs exchanging halos; with D sharded (disparity mode, the
+3D models) the 2D towers run whole and the volume, the 3D stack and the
+soft-argmin's normalization are split by disparity. The layers are told
+the global extent of their inputs (`sharded_extent`), so every TF-SAME pad
+and every transposed conv's target is the global one. The fused and packed
+3D heads and int8 leaves are not sharded (`SHARDED_NOT_PORTED`); the 3D
+models run sharded under `plain_lowering()`.
 """
 
 from __future__ import annotations
@@ -78,6 +88,12 @@ from redtail_tpu_torch.ops.convolution import (
     use_packed3d,
     use_plain_lowering,
 )
+from redtail_tpu_torch.ops.halo import (
+    DISPARITY_AXIS,
+    IMAGE_AXIS,
+    current_sharding,
+    sharded_extent,
+)
 from redtail_tpu_torch.ops.cost_volume import (
     corr_softargmax_dlast,
     cost_volume,
@@ -93,6 +109,11 @@ from redtail_tpu_torch.ops.space_to_depth import conv5s2_kernel_to_s2d, s2d_hw
 from redtail_tpu_torch.utils.checkpoint import load_npz_flat
 
 Params = Dict[str, Dict]
+
+SHARDED_NOT_PORTED = (
+    "the fused emission head, the packed 3D head and int8 leaves do not run "
+    "sharded yet (ROADMAP.md, module queue item 13): run the 3D models "
+    "under plain_lowering() with float weights")
 
 
 # ------------------------------------------------------------------ specs
@@ -363,8 +384,10 @@ def params_to_trt_blob(spec: StereoSpec, params: Params
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
-    t = torch.from_numpy(np.asarray(a, np.float32)).to(device=device,
-                                                         dtype=dtype)
+    # a copy: a trainable net's parameters must not alias the caller's
+    # arrays, which the optimizer would otherwise update in place
+    t = torch.from_numpy(np.array(a, np.float32)).to(device=device,
+                                                       dtype=dtype)
     if t.dim() == 4:
         return t.contiguous(memory_format=torch.channels_last)
     if t.dim() == 5:
@@ -827,18 +850,23 @@ class StereoNet(nn.Module):
         n = d.shape[0]
         x = run("concat_conv1", lambda c, dd: torch.cat(
             [c[:n], dd.to(c.dtype).unsqueeze(1)], dim=1), conv1_act, d)
+        extent = _half(full_hw)
         acts = {}
-        for name, _out_ch, _stride in self.spec.bneck_channels:
-            x = run(name, lambda a, c=self.bneck_encoder2D[name]: elu(c(a)),
-                    x)
-            acts[name] = x
+        for name, _out_ch, stride in self.spec.bneck_channels:
+            with sharded_extent(extent):
+                x = run(name, lambda a, c=self.bneck_encoder2D[name]:
+                        elu(c(a)), x)
+            extent = _global_spatial(x, _strided(extent, stride))
+            acts[name] = (x, extent)
         for name, _out_ch, skip in self.spec.bneck_dec:
             layer = self.bneck_decoder2D[name]
-            if skip is not None:
-                x = run(name, lambda a, sk, c=layer: elu(
-                    c(a, tuple(sk.shape[2:])) + sk), x, acts[skip])
-            else:
-                x = run(name, lambda a, c=layer: c(a, full_hw), x)
+            with sharded_extent(extent):
+                if skip is not None:
+                    sk, extent = acts[skip]
+                    x = run(name, lambda a, s_, c=layer, o=extent: elu(
+                        c(a, o) + s_), x, sk)
+                else:
+                    x = run(name, lambda a, c=layer: c(a, full_hw), x)
         return run("sigmoid", lambda a: sigmoid(a)[:, 0], x)
 
     def _volume_head(self, feats, full_hw, run):
@@ -851,30 +879,41 @@ class StereoNet(nn.Module):
         n = feats.shape[0] // 2
         if self._steps and use_packed3d():
             return self._volume_head_packed(feats, full_hw, run)
+        extent = (spec.max_disp, *_half(full_hw))
         if isinstance(enc[first.name], _FusedConv3D1) \
                 and not use_plain_lowering():
             x = run(f"cost_volume+{first.name}", lambda f: enc[
                 first.name].fused(f[:n], f[n:], spec.max_disp), feats)
         else:
+            d_lo, d_hi = _disparity_block(spec.max_disp)
             vol = run("cost_volume", lambda f: cost_volume(
                 f[:n].permute(0, 2, 3, 1).contiguous(),
-                f[n:].permute(0, 2, 3, 1).contiguous(), spec.max_disp),
-                feats)
-            x = run(first.name, lambda v: elu(
-                enc[first.name](v.permute(0, 4, 1, 2, 3))), vol)
-        acts = {first.name: x}
+                f[n:].permute(0, 2, 3, 1).contiguous(), spec.max_disp,
+                d_offset=d_lo, d_count=d_hi - d_lo), feats)
+            with sharded_extent(extent):
+                x = run(first.name, lambda v: elu(
+                    enc[first.name](v.permute(0, 4, 1, 2, 3))), vol)
+        extent = _global_spatial(x, _strided(extent, first.stride))
+        acts = {first.name: (x, extent)}
         for layer in spec.enc3d[1:]:
-            x = run(layer.name, lambda a, c=enc[layer.name]: elu(c(a)), x)
-            acts[layer.name] = x
+            with sharded_extent(extent):
+                x = run(layer.name, lambda a, c=enc[layer.name]: elu(c(a)),
+                        x)
+            extent = _global_spatial(x, _strided(extent, layer.stride))
+            acts[layer.name] = (x, extent)
         for name, _out_ch, skip in spec.dec3d:
             layer = self.decoder3D[name]
-            if skip is not None:
-                x = run(name, lambda a, sk, c=layer: elu(
-                    c(a, tuple(sk.shape[2:])) + sk), x, acts[skip])
-            else:
-                x = run(name, lambda a, c=layer: c(
-                    a, (spec.full_max_disp, *full_hw)), x)
-        return run("softargmin", lambda a: softargmin(a[:, 0], axis=1), x)
+            with sharded_extent(extent):
+                if skip is not None:
+                    sk, extent = acts[skip]
+                    x = run(name, lambda a, s_, c=layer, o=extent: elu(
+                        c(a, o) + s_), x, sk)
+                else:
+                    extent = (spec.full_max_disp, *full_hw)
+                    x = run(name, lambda a, c=layer, o=extent: c(a, o), x)
+        with sharded_extent(extent):
+            return run("softargmin", lambda a: softargmin(a[:, 0], axis=1),
+                       x)
 
     def _volume_head_packed(self, feats, full_hw, run):
         """The packed head (`_packed_plan`): the emission kernel's
@@ -938,29 +977,78 @@ class StereoNet(nn.Module):
         ``towers_*``); the names follow the JAX package's layer plan
         (`redtail_tpu/runtime/layer_profiler.py`)."""
         spec = self.spec
+        sh = current_sharding()
+        if sh is not None:
+            self._check_sharded(sh)
+        # the frames' global rows: a shard's under image sharding
+        rows = (sh.global_size if sh is not None and sh.axis == IMAGE_AXIS
+                else left.shape[1])
         if left.shape[-1] == 12:
             full_hw = spec.input_hw
-            if tuple(left.shape[1:3]) != s2d_hw(full_hw):
+            in_hw = (rows, left.shape[2])
+            if in_hw != s2d_hw(full_hw):
                 raise ValueError(
                     f"s2d-packed input {tuple(left.shape)} does not match "
                     f"spec.input_hw {spec.input_hw} (expected spatial "
                     f"{s2d_hw(full_hw)})")
         else:
-            full_hw = tuple(left.shape[1:3])
+            full_hw = in_hw = (rows, left.shape[2])
         n = left.shape[0]
-        conv1_act = run("towers_conv1", self._towers_conv1, left, right)
-        if spec.encoder2d == "plain":
-            feats = self._plain_encoder(conv1_act, run)
-        else:
-            feats = self._resnet_encoder(conv1_act, run)
+        with sharded_extent(in_hw):
+            conv1_act = run("towers_conv1", self._towers_conv1, left, right)
+        with sharded_extent(_half(full_hw)):
+            if spec.encoder2d == "plain":
+                feats = self._plain_encoder(conv1_act, run)
+            else:
+                feats = self._resnet_encoder(conv1_act, run)
         if not spec.corr:
             return self._volume_head(feats, full_hw, run)
         # the correlation volume and its soft-argmax over D, one kernel,
-        # on NHWC features
+        # on NHWC features (row-local: a shard's rows need no halo)
         d = run("corr_cost_volume+softargmax", lambda f: corr_softargmax_dlast(
             f[:n].permute(0, 2, 3, 1).contiguous(),
             f[n:].permute(0, 2, 3, 1).contiguous(), spec.max_disp), feats)
         return self._bneck_head(d, conv1_act, full_hw, run)
+
+    def _check_sharded(self, sh) -> None:
+        """Raise for a sharded forward this net cannot run."""
+        spec = self.spec
+        if sh.axis == DISPARITY_AXIS and spec.corr:
+            raise ValueError("disparity sharding applies to the 3D "
+                             "cost-volume models")
+        int8 = any(isinstance(m, _Int8Conv) for m in self.modules())
+        head = not spec.corr and (
+            (self._steps and use_packed3d())
+            or (isinstance(self.encoder3D[spec.enc3d[0].name], _FusedConv3D1)
+                and not use_plain_lowering()))
+        if int8 or head:
+            raise NotImplementedError(SHARDED_NOT_PORTED)
+
+
+def _half(hw) -> Tuple[int, int]:
+    """The stem's output extent: (ceil(H / 2), ceil(W / 2))."""
+    return tuple(-(-v // 2) for v in hw)
+
+
+def _strided(extent, stride: int) -> Tuple[int, ...]:
+    """A TF-SAME conv's output extent at ``stride`` on every axis."""
+    return tuple(-(-v // stride) for v in extent)
+
+
+def _global_spatial(x: torch.Tensor, extent) -> Tuple[int, ...]:
+    """An activation's global spatial extent: ``extent`` (as derived from
+    the spec) inside a sharded forward, else its own shape."""
+    return tuple(extent) if current_sharding() is not None \
+        else tuple(x.shape[2:])
+
+
+def _disparity_block(max_disp: int) -> Tuple[int, int]:
+    """The disparities [lo, hi) of the volume this rank builds: its block
+    under disparity sharding, else all of them."""
+    sh = current_sharding()
+    if sh is not None and sh.axis == DISPARITY_AXIS:
+        return sh.owned(max_disp)
+    return 0, max_disp
 
 
 def _call(_name: str, fn: Callable, *args):

@@ -45,7 +45,21 @@ What is TF's is arranged around them:
 
 `plain_lowering` is the JAX package's switch to the spec-literal forms; in
 the port it selects the explicit concat volume + dense conv3D_1 over the
-fused cost volume + conv3D_1 (`models/stereo.py`). `packed3d_lowering`
+fused cost volume + conv3D_1 (`models/stereo.py`).
+
+`ops.halo.sharded_axis(group, axis, global_size)` runs the convs of a
+block on shards (`parallel/sharding.py`, where the JAX package lets GSPMD
+partition them): each rank of ``group`` holds its rows of one axis
+(``axis`` -2, H, or -3, D, of NCHW / NCDHW tensors) under the ownership
+rule of `ops/halo.py`, ``global_size`` the axis's size for the block's
+inputs (`sharded_extent` moves it from layer to layer). A conv there takes its
+TF-SAME pads from the global size, fetches the input rows its own output
+rows read (`ops.halo.exchange`), convolves that slab with no pad on
+the axis and returns exactly its own output rows; a transposed conv takes
+its global ``out_spatial`` and returns its own rows of it. A rank that owns
+no output rows takes part in the exchange and returns an empty shard
+(tied to the exchange's output, so its backward runs on every rank).
+Outside the block nothing changes. `packed3d_lowering`
 selects the packed 3D head (`ops/packed3d.py`), whose final c_out = 1
 deconv on the card is `conv3d_transpose_dfold`: the transposed conv with D
 folded into channels, one k=2 `F.conv2d` per block of output depths.
@@ -63,6 +77,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
+
+from redtail_tpu_torch.ops.halo import (ShardedAxis, current_sharding,
+                                       exchange)
 
 Strides = Union[int, Sequence[int]]
 
@@ -104,6 +121,30 @@ def use_packed3d() -> bool:
     if use_plain_lowering():
         return False
     return _PACKED3D.get() or os.environ.get("REDTAIL_TPU_PACKED3D") == "1"
+
+
+def _sharded_dim(x: torch.Tensor) -> Tuple[Optional[ShardedAxis], int]:
+    """(the sharding, the spatial index of its axis in ``x``) or (None,
+    -1)."""
+    sh = current_sharding()
+    if sh is None:
+        return None, -1
+    sd = x.dim() + sh.axis - 2
+    if sd < 0:
+        raise ValueError(f"a {x.dim()}-D tensor has no axis {sh.axis} to "
+                         "shard")
+    return sh, sd
+
+
+def _exchange_rows(x, sh: ShardedAxis, sd: int, need) -> torch.Tensor:
+    return exchange(x, axis=2 + sd, global_size=sh.global_size,
+                    need=[need(r) for r in range(sh.shards)],
+                    group=sh.group)
+
+
+def _empty_shard(src: torch.Tensor, shape, dtype) -> torch.Tensor:
+    """A shard with no rows, tied to ``src`` in the autograd graph."""
+    return (src.sum() * 0).to(dtype).expand(shape)
 
 
 def tf_same_padding(in_dim: int, kern_dim: int,
@@ -283,11 +324,33 @@ def _padding(padding: str) -> str:
 
 def _conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
           strides: Strides, padding: str) -> torch.Tensor:
-    """TF conv over channels-first x (N, C, *S) with w (O, I, *k)."""
+    """TF conv over channels-first x (N, C, *S) with w (O, I, *k); inside
+    `sharded_axis`, on this rank's rows (see the module docstring)."""
     padding = _padding(padding)
     strides = _tuple(strides, x.dim() - 2)
     pads = [tf_same_padding(i, k, s) if padding == "SAME" else (0, 0)
             for i, k, s in zip(x.shape[2:], w.shape[2:], strides)]
+    sh, sd = _sharded_dim(x)
+    if sh is not None:
+        k, s = w.shape[2 + sd], strides[sd]
+        g = sh.global_size
+        lo = tf_same_padding(g, k, s)[0] if padding == "SAME" else 0
+        g_out = -(-g // s) if padding == "SAME" else (g - k) // s + 1
+
+        def need(r):
+            a, b_ = (r * g_out // sh.shards, (r + 1) * g_out // sh.shards)
+            return ((a * s - lo, (b_ - 1) * s - lo + k) if b_ > a
+                    else (a * s - lo, a * s - lo))
+
+        x = _exchange_rows(x, sh, sd, need)
+        pads[sd] = (0, 0)
+        a, b_ = sh.owned(g_out)
+        if b_ == a:
+            shape = [x.shape[0], w.shape[0]]
+            for i, (n, kk, ss, (p0, p1)) in enumerate(zip(
+                    x.shape[2:], w.shape[2:], strides, pads)):
+                shape.append(0 if i == sd else (n + p0 + p1 - kk) // ss + 1)
+            return _empty_shard(x, shape, x.dtype)
     if all(lo == hi for lo, hi in pads):
         conv_pad = tuple(lo for lo, _ in pads)
     else:
@@ -300,14 +363,40 @@ def _conv_transpose(y: torch.Tensor, w: torch.Tensor,
                     b: Optional[torch.Tensor], out_spatial: Sequence[int],
                     strides: Strides, padding: str) -> torch.Tensor:
     """TF ``conv{2,3}d_transpose``: the gradient of the forward conv that
-    maps ``out_spatial`` to y's size. y (N, K, *Y), w (K, C, *k)."""
+    maps ``out_spatial`` to y's size. y (N, K, *Y), w (K, C, *k). Inside
+    `sharded_axis`, ``out_spatial`` is global and the result is this rank's
+    rows of it."""
     padding = _padding(padding)
     strides = _tuple(strides, y.dim() - 2)
+    sh, sd = _sharded_dim(y)
+    own = None
+    if sh is not None:
+        k, s = w.shape[2 + sd], strides[sd]
+        g_out = out_spatial[sd]
+        lo = tf_same_padding(g_out, k, s)[0] if padding == "SAME" else 0
+
+        def need(r):
+            a, b_ = (r * g_out // sh.shards, (r + 1) * g_out // sh.shards)
+            if b_ == a:
+                return (0, 0)
+            return (max(0, -((k - 1 - a - lo) // s)),
+                    min(sh.global_size, (b_ - 1 + lo) // s + 1))
+
+        y = _exchange_rows(y, sh, sd, need)
+        a, b_ = sh.owned(g_out)
+        if b_ == a:
+            shape = [y.shape[0], w.shape[1], *out_spatial]
+            shape[2 + sd] = 0
+            return _empty_shard(y, shape, y.dtype)
+        # the slab's first row is global input row need(index)[0]
+        own = (a + lo - need(sh.index)[0] * s, b_ - a)
     full = _conv_sum(y, w, strides, 0, transposed=True)
     crop = []
-    for size, full_size, k, s in zip(out_spatial, full.shape[2:],
-                                     w.shape[2:], strides):
+    for i, (size, full_size, k, s) in enumerate(zip(
+            out_spatial, full.shape[2:], w.shape[2:], strides)):
         lo = tf_same_padding(size, k, s)[0] if padding == "SAME" else 0
+        if i == sd:
+            lo, size = own
         if lo + size > full_size:
             raise ValueError(f"out_spatial {tuple(out_spatial)} is not a "
                              f"TF-{padding} output for input "

@@ -20,12 +20,14 @@ from redtail_tpu_torch.kernels.corr_cost_volume import (
 from redtail_tpu_torch.kernels.cost_volume_concat import cost_volume_concat
 
 
-def cost_volume(left: torch.Tensor, right: torch.Tensor,
-                max_disp: int) -> torch.Tensor:
+def cost_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int, *,
+                d_offset: int = 0, d_count=None) -> torch.Tensor:
     """Concat volume: (N, H, W, C) x2 -> (N, D, H, W, 2C) in the input
     dtype; channels [0, C) are the left map tiled over D, [C, 2C) the
-    shifted right map."""
-    return cost_volume_concat(left, right, max_disp)
+    shifted right map. ``d_offset`` / ``d_count``: only that block of
+    disparities (disparity sharding)."""
+    return cost_volume_concat(left, right, max_disp, d_offset=d_offset,
+                              d_count=d_count)
 
 
 def corr_cost_volume_dlast(left: torch.Tensor, right: torch.Tensor,

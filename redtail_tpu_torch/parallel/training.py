@@ -20,25 +20,37 @@ constant or a schedule of the update count read before the count
 increments (optax's rule: the first update of a warmup schedule has lr 0),
 applied through a `LambdaLR` over a base rate of 1.
 
-Data parallelism over a mesh (``mesh``) is ROADMAP module item 10 and
-raises `NotImplementedError`.
+Over a mesh (``mesh``, `parallel/sharding.py:make_mesh`) each rank takes
+its shard of the global batch: N over ``data`` and H over ``spatial``, the
+target and the valid mask (N, H, W) sharded the same way, the params and
+the optimizer state replicated. The loss is the global masked mean: the
+local sum of loss * mask over the ``all_reduce``d count of valid pixels
+(so ranks with different valid counts weigh each pixel alike, where a mean
+of per-rank means would not). The spatial shards exchange conv halos
+(`ops/halo.py:sharded_axis`) and hold partial gradients of the same
+weights, so every gradient is summed over the whole mesh, both axes, with
+one ``all_reduce`` of the flattened gradients; every rank then takes the
+same update, and the params stay bit-equal across ranks. The metrics are
+global too.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional, Tuple, Union
 
 import torch
-from torch.utils.checkpoint import checkpoint
+import torch.distributed as dist
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from redtail_tpu_torch import resolve_device
 from redtail_tpu_torch.models.stereo import (StereoNet, StereoSpec,
                                              params_from_numpy)
 from redtail_tpu_torch.ops.convolution import plain_lowering
-
-MESH_NOT_PORTED = ("data-parallel training over a device mesh is not ported "
-                   "yet (ROADMAP.md, module queue item 10)")
+from redtail_tpu_torch.ops.halo import IMAGE_AXIS, sharded_axis
+from redtail_tpu_torch.parallel.sharding import (SPATIAL_AXIS, batch_sharding,
+                                                 check_batch, local_shard)
 
 Schedule = Callable[[int], float]
 # per parameter, the optimizer's state entries in the order they are saved
@@ -104,21 +116,30 @@ def apply_update(state, loss: torch.Tensor) -> None:
     gradients zeroed first), the schedule advanced."""
     state.opt_state.zero_grad(set_to_none=True)
     loss.backward()
+    optimizer_step(state)
+
+
+def optimizer_step(state) -> None:
+    """One optimizer update of ``state`` from the gradients its params
+    hold, the schedule advanced."""
     state.opt_state.step()
     if state.schedule is not None:
         state.schedule.step()
     state.step += 1
 
 
+def _smooth_l1(pred, target, delta: float) -> torch.Tensor:
+    """The per-pixel Huber / smooth-L1 terms in fp32."""
+    err = pred.float() - target.float()
+    abs_err = err.abs()
+    return torch.where(abs_err < delta, 0.5 * err * err / delta,
+                       abs_err - 0.5 * delta)
+
+
 def smooth_l1_disparity_loss(pred, target, mask=None, delta: float = 1.0):
     """Huber / smooth-L1 on disparity maps in fp32, the masked mean (mask =
     valid pixels)."""
-    pred = pred.float()
-    target = target.float()
-    err = pred - target
-    abs_err = err.abs()
-    loss = torch.where(abs_err < delta, 0.5 * err * err / delta,
-                       abs_err - 0.5 * delta)
+    loss = _smooth_l1(pred, target, delta)
     if mask is None:
         return loss.mean()
     mask = mask.float()
@@ -129,10 +150,16 @@ def _as_tensor(a, device, dtype) -> torch.Tensor:
     return torch.as_tensor(a).to(device=device, dtype=dtype)
 
 
-def stereo_train_forward(spec: StereoSpec, net: StereoNet, left, right):
+def stereo_train_forward(spec: StereoSpec, net: StereoNet, left, right,
+                         shard: Optional[Tuple[object, int]] = None):
     """The forward the step differentiates: the net under
-    `plain_lowering()`, the correlation model's output in pixels."""
-    with plain_lowering():
+    `plain_lowering()`, the correlation model's output in pixels. With
+    ``shard`` = (group, global rows), the rows of ``left`` / ``right`` are
+    this rank's shard of H among ``group``'s ranks (entered here, so the
+    recompute under remat shards the same way)."""
+    with plain_lowering(), (contextlib.nullcontext() if shard is None
+                            else sharded_axis(shard[0], IMAGE_AXIS,
+                                              shard[1])):
         pred = net(left, right)
     if spec.corr:
         # the correlation head is a sigmoid of the input width's fraction
@@ -141,23 +168,50 @@ def stereo_train_forward(spec: StereoSpec, net: StereoNet, left, right):
     return pred
 
 
+def _prediction(spec: StereoSpec, net: StereoNet, left, right, *,
+                remat: bool, shard=None) -> torch.Tensor:
+    """The train forward on ``net``'s device, the images cast to its
+    compute dtype, recomputed in the backward with ``remat``. A sharded
+    recompute runs to its end (no early stop), so every rank makes the
+    same exchanges in it."""
+    device, dtype = net.device, net.dtype
+    left = _as_tensor(left, device, dtype)
+    right = _as_tensor(right, device, dtype)
+    if not remat:
+        return stereo_train_forward(spec, net, left, right, shard)
+    with (contextlib.nullcontext() if shard is None
+          else set_checkpoint_early_stop(False)):
+        return checkpoint(stereo_train_forward, spec, net, left, right,
+                          shard, use_reentrant=False)
+
+
 def stereo_loss(spec: StereoSpec, net: StereoNet, left, right, target,
                 valid, *, remat: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, prediction) of one batch on ``net``'s device: the images cast
     to its compute dtype, the forward recomputed in the backward with
     ``remat``."""
-    device, dtype = net.device, net.dtype
-    left = _as_tensor(left, device, dtype)
-    right = _as_tensor(right, device, dtype)
-    target = _as_tensor(target, device, torch.float32)
-    valid = _as_tensor(valid, device, torch.float32)
-    if remat:
-        pred = checkpoint(stereo_train_forward, spec, net, left, right,
-                          use_reentrant=False)
-    else:
-        pred = stereo_train_forward(spec, net, left, right)
+    target = _as_tensor(target, net.device, torch.float32)
+    valid = _as_tensor(valid, net.device, torch.float32)
+    pred = _prediction(spec, net, left, right, remat=remat)
     return smooth_l1_disparity_loss(pred, target, valid), pred
+
+
+def all_reduce_grads(params, group=None) -> None:
+    """Sum every parameter's gradient over ``group`` (default: every rank)
+    with one ``all_reduce`` of the gradients flattened in fp32; a missing
+    gradient counts as zeros."""
+    params = list(params)
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    flat = torch.cat([p.grad.reshape(-1).float() for p in params])
+    dist.all_reduce(flat, group=group)
+    at = 0
+    for p in params:
+        n = p.numel()
+        p.grad.copy_(flat[at:at + n].view(p.shape))
+        at += n
 
 
 def make_train_step(spec: StereoSpec, optimizer: Optional[OptimizerSpec]
@@ -175,10 +229,15 @@ def make_train_step(spec: StereoSpec, optimizer: Optional[OptimizerSpec]
 
     ``compute_dtype`` (``torch.bfloat16``): mixed precision, the convs'
     operands cast down and every conv summed in fp32 and rounded once
-    (`ops/convolution.py`); loss and metrics are fp32."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+    (`ops/convolution.py`); loss and metrics are fp32.
+
+    ``mesh``: a (data, spatial) `DeviceMesh` (`parallel/sharding.py`);
+    every rank calls ``step_fn`` with the global batch and takes its shard
+    (see the module docstring); ``device`` is this rank's, of the mesh's
+    device type."""
     device = resolve_device(device)
+    if mesh is not None and mesh.device_type != device.type:
+        raise ValueError(f"device {device} for a mesh on {mesh.device_type}")
     optimizer = optimizer or OptimizerSpec("adam", 1e-4)  # optax.adam(1e-4)
     dtype = compute_dtype or torch.float32
 
@@ -187,6 +246,9 @@ def make_train_step(spec: StereoSpec, optimizer: Optional[OptimizerSpec]
                                 trainable=True)
         opt, sched = optimizer.build(net.parameters())
         return TrainState(net, opt, 0, sched, optimizer)
+
+    if mesh is not None:
+        return init_fn, _mesh_step(spec, mesh, remat)
 
     def step_fn(state: TrainState, left, right, target, valid):
         target = _as_tensor(target, device, torch.float32)
@@ -199,3 +261,35 @@ def make_train_step(spec: StereoSpec, optimizer: Optional[OptimizerSpec]
         return state, {"loss": loss.detach(), "epe": epe}
 
     return init_fn, step_fn
+
+
+def _mesh_step(spec: StereoSpec, mesh, remat: bool):
+    """The step over a mesh (see the module docstring)."""
+    img = batch_sharding(mesh)
+    group = mesh.get_group(SPATIAL_AXIS) if mesh.size(1) > 1 else None
+
+    def step_fn(state: TrainState, left, right, target, valid):
+        net = state.params
+        n, rows = left.shape[:2]
+        check_batch(mesh, n)
+        left, right, target, valid = (local_shard(mesh, a, img)
+                                      for a in (left, right, target, valid))
+        target = _as_tensor(target, net.device, torch.float32)
+        valid = _as_tensor(valid, net.device, torch.float32)
+        pred = _prediction(spec, net, left, right, remat=remat,
+                           shard=None if group is None else (group, rows))
+        count = valid.sum().reshape(1)
+        dist.all_reduce(count)
+        count = torch.clamp(count, min=1.0)
+        loss = (_smooth_l1(pred, target, 1.0) * valid).sum() / count[0]
+        state.opt_state.zero_grad(set_to_none=True)
+        loss.backward()
+        all_reduce_grads(net.parameters())
+        optimizer_step(state)
+        with torch.no_grad():
+            epe = (_smooth_l1(pred, target, 1e-9) * valid).sum() / count[0]
+            metrics = torch.stack([loss.detach(), epe])
+            dist.all_reduce(metrics)
+        return state, {"loss": metrics[0], "epe": metrics[1]}
+
+    return step_fn

@@ -26,8 +26,14 @@ Frames in flight (``overlap``/``microbatch``, `_OverlapMixin`) run on one
 CUDA stream per node: uploads from pinned staging buffers, the result
 copied to a pinned host buffer, and an event that the host waits on only
 when the result is due; the result is then copied out of the buffer. On the CPU the same code runs eagerly and
-the queue only shifts the results. Pinning to another card raises
-`NotImplementedError` (ROADMAP.md, module queue item 10).
+the queue only shifts the results.
+
+Stage per device: ``device="cuda:k"`` pins a node to card k, as the JAX
+nodes pin a stage's params to a device (`_pin_params`): its weights, its
+stream, its pinned ring's events and its uploads live there, and every
+allocation and launch of the node runs with card k current (the caller's
+current card is restored after). A card that is not there raises
+`RuntimeError`.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from redtail_tpu_torch import native, resolve_device
+from redtail_tpu_torch import native, on_device, resolve_device
 from redtail_tpu_torch.models import yolo
 from redtail_tpu_torch.models.stereo import (
     StereoNet,
@@ -84,14 +90,18 @@ def _calib_frame(x_u8, hw) -> np.ndarray:
     return x[..., ::-1] / np.float32(255.0)
 
 
-def _check_single_device(device) -> None:
-    if device is None:
-        return
-    device = torch.device(device)
-    if device.type == "cuda" and (device.index or 0) != 0:
-        raise NotImplementedError(
-            "pinning a stage to another card is not ported yet (ROADMAP.md, "
-            "module queue item 10)")
+def _stage_device(device) -> torch.device:
+    """The node's device (`resolve_device`), with its card's index made
+    explicit; a card that is not there raises."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return device
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    if index >= torch.cuda.device_count():
+        raise RuntimeError(f"{device}: only {torch.cuda.device_count()} "
+                           "card(s) visible")
+    return torch.device("cuda", index)
 
 
 def _one_frame(x: np.ndarray, what: str) -> np.ndarray:
@@ -175,9 +185,11 @@ class _OverlapMixin:
         self._batch = []  # (frame input, meta) accumulating to microbatch
         self._stream = None
         if self._device.type == "cuda":
-            self._stream = torch.cuda.Stream(self._device)
+            with on_device(self._device):
+                self._stream = torch.cuda.Stream(self._device)
             # the weights were loaded on the default stream
-            self._stream.wait_stream(torch.cuda.current_stream(self._device))
+            self._stream.wait_stream(
+                torch.cuda.current_stream(self._device))
             self._uploads = _PinnedRing(self.overlap + self.microbatch + 1)
             # a result is copied out when it is popped, and at most
             # ``overlap`` are in flight when the next is queued, so its
@@ -185,8 +197,12 @@ class _OverlapMixin:
             self._results = _PinnedRing(self.overlap + 1)
 
     def _on_stream(self):
-        return contextlib.nullcontext() if self._stream is None \
-            else torch.cuda.stream(self._stream)
+        if self._stream is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(on_device(self._device))
+        stack.enter_context(torch.cuda.stream(self._stream))
+        return stack
 
     def _upload(self, inputs: List[List[np.ndarray]]) -> List[torch.Tensor]:
         """``inputs``: per model input, its rows (one host frame each) ->
@@ -353,8 +369,7 @@ class StereoNode(_OverlapMixin):
         if quantize is not None and isinstance(params, StereoNet):
             raise ValueError("quantize takes the numpy param tree, not a "
                              "StereoNet")
-        _check_single_device(device)
-        self._device = resolve_device(device)
+        self._device = _stage_device(device)
         self.spec = spec
         self.profiler = profiler or StageProfiler()
         self._dtype = dtype
@@ -365,20 +380,24 @@ class StereoNode(_OverlapMixin):
                 raise ValueError("quantize='int8' requires calib_frames")
             pairs = [(_calib_frame(l, self._hw), _calib_frame(r, self._hw))
                      for l, r in calib_frames]
-            params = quantize_stereo_params_int8(params, calibrate_stereo(
-                spec, params, pairs, device=self._device))
+            with on_device(self._device):
+                scales = calibrate_stereo(spec, params, pairs,
+                                          device=self._device)
+            params = quantize_stereo_params_int8(params, scales)
         elif quantize == "w8":
             params = dequantize_tree(quantize_stereo_params_w8(params))
         # an int8 stem has no s2d form (JAX: use_s2d_stem() and not int8)
         self._s2d = quantize != "int8"
-        if isinstance(params, StereoNet):
-            if params.dtype != dtype:
-                raise ValueError(f"the StereoNet was built in "
-                                 f"{params.dtype}; this node serves {dtype}")
-            self.net = params.to(device=self._device)
-        else:
-            self.net = params_from_numpy(spec, params, device=self._device,
-                                         dtype=dtype)
+        if isinstance(params, StereoNet) and params.dtype != dtype:
+            raise ValueError(f"the StereoNet was built in {params.dtype}; "
+                             f"this node serves {dtype}")
+        with on_device(self._device):
+            if isinstance(params, StereoNet):
+                self.net = params.to(device=self._device)
+            else:
+                self.net = params_from_numpy(spec, params,
+                                             device=self._device,
+                                             dtype=dtype)
         self._init_overlap(overlap, microbatch)
 
     def _host_prep(self, x_u8: np.ndarray) -> np.ndarray:
@@ -481,11 +500,11 @@ class TrailNetNode(_CaffeStage):
 
     def __init__(self, net=None, *, profiler: Optional[StageProfiler] = None,
                  device=None, overlap: int = 0, microbatch: int = 1):
-        _check_single_device(device)
-        self._device = resolve_device(device)
-        if net is None:
-            net = load_trailnet(device=self._device)
-        self.net = net.to(self._device)
+        self._device = _stage_device(device)
+        with on_device(self._device):
+            if net is None:
+                net = load_trailnet(device=self._device)
+            self.net = net.to(self._device)
         self.profiler = profiler or StageProfiler()
         self._hw = INPUT_HW
         self._init_overlap(overlap, microbatch)
@@ -517,9 +536,9 @@ class YoloNode(_CaffeStage):
                  iou_threshold: float = 0.2,
                  profiler: Optional[StageProfiler] = None,
                  device=None, overlap: int = 0):
-        _check_single_device(device)
-        self._device = resolve_device(device)
-        self.net = net.to(self._device)
+        self._device = _stage_device(device)
+        with on_device(self._device):
+            self.net = net.to(self._device)
         self._hw = self.INPUT_HW
         self.prob_threshold = prob_threshold
         self.iou_threshold = iou_threshold

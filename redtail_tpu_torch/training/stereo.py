@@ -3,9 +3,13 @@ steps -> checkpoints -> D1 / EPE.
 
 The same `StereoNet` that serves is trained here, on the card by default
 (``device``), with resumable checkpoints and periodic KITTI-metric
-evaluation (`utils/metrics.py`). Data parallelism (``data_parallel > 1``)
-is ROADMAP module item 10 and raises. CLI in `apps/train_app.py`; dataset
-side in `data/kitti.py`.
+evaluation (`utils/metrics.py`). With ``data_parallel > 1`` the call runs
+in each of that many ranks (`parallel/launch.py`; `apps/train_app.py
+--data-parallel` starts them): every rank draws the same global batch from
+the seeded loader and takes its slice (`make_train_step(mesh=)`), so the
+run equals one process over the global batch; rank 0 alone writes the
+checkpoints, the log and the final D1 / EPE. CLI in `apps/train_app.py`;
+dataset side in `data/kitti.py`.
 """
 
 from __future__ import annotations
@@ -25,8 +29,7 @@ from redtail_tpu_torch.models.stereo import (STEREO_SPECS, StereoNet,
                                              init_stereo_params,
                                              params_from_numpy,
                                              params_to_numpy)
-from redtail_tpu_torch.parallel.training import (MESH_NOT_PORTED,
-                                                 STATE_KEYS, OptimizerSpec,
+from redtail_tpu_torch.parallel.training import (STATE_KEYS, OptimizerSpec,
                                                  TrainState, make_train_step)
 from redtail_tpu_torch.utils.checkpoint import (_decode_npz, _encode_npz,
                                                 _flatten, _unflatten)
@@ -52,7 +55,7 @@ class StereoTrainConfig:
     ckpt_every: int = 0                     # 0 = only at the end
     ckpt_dir: Optional[str] = None
     resume: bool = False
-    data_parallel: int = 1                  # ROADMAP module item 10
+    data_parallel: int = 1                  # ranks on the data axis
     # Compute dtype of the convs: master weights and optimizer moments are
     # always fp32; 'bfloat16' runs mixed precision (operands cast down, fp32
     # sums rounded once, `ops/convolution.py`).
@@ -235,18 +238,31 @@ def train_stereo(cfg: StereoTrainConfig, dataset, eval_dataset=None,
 
     ``dataset`` / ``eval_dataset``: `data/kitti.py` KittiStereoDataset (or
     any object with the same `batches` / `sample` / `_crop` surface).
-    ``device``: ``None`` is the card (see `resolve_device`). The random
-    init is the port's numpy one (`init_stereo_params`), not
-    `jax.random`'s."""
+    ``device``: ``None`` is the card (see `resolve_device`); with
+    ``cfg.data_parallel > 1``, this rank's. The random init is the port's
+    numpy one (`init_stereo_params`), not `jax.random`'s."""
     if cfg.dtype not in DTYPES:
         raise ValueError(
             f"training dtype must be float32 or bfloat16, got {cfg.dtype}")
-    if cfg.data_parallel > 1:
-        raise NotImplementedError(MESH_NOT_PORTED)
     compute_dtype = DTYPES[cfg.dtype]
     spec = _make_spec(cfg)
+    mesh, main = None, True
+    if cfg.data_parallel > 1:
+        import torch.distributed as dist
+        from redtail_tpu_torch.parallel.sharding import make_mesh
+        ranks = dist.get_world_size() if dist.is_initialized() else 1
+        if ranks < cfg.data_parallel:
+            raise RuntimeError(
+                f"data_parallel={cfg.data_parallel} but only {ranks} ranks "
+                "running (start them with parallel.launch.spawn_ranks, or "
+                "train_app stereo --data-parallel)")
+        mesh = make_mesh(data=cfg.data_parallel, spatial=1,
+                         device_type=resolve_device(device).type)
+        if cfg.batch_size % cfg.data_parallel:
+            raise ValueError("data_parallel must divide batch_size")
+        main = dist.get_rank() == 0
     init_fn, step_fn = make_train_step(
-        spec, _make_optimizer(cfg), compute_dtype=compute_dtype,
+        spec, _make_optimizer(cfg), mesh=mesh, compute_dtype=compute_dtype,
         device=device)
     state = init_fn(init_stereo_params(spec, seed=cfg.seed))
 
@@ -256,6 +272,8 @@ def train_stereo(cfg: StereoTrainConfig, dataset, eval_dataset=None,
         state = load_train_state(ckpt_path, state)
 
     log = log_fn or (lambda rec: print(json.dumps(rec), flush=True))
+    if not main:
+        log, ckpt_path, eval_dataset = (lambda rec: None), None, None
     rng = np.random.RandomState(cfg.seed + 1)
     step_i = state.step
     last_ckpt = last_eval = -1

@@ -89,11 +89,15 @@ def test_stereo_node_3d_model_serves_pixels(monkeypatch):
     pytest.param(kwargs, error, match, id=str(kwargs))
     for kwargs, error, match in (
         ({"quantize": "int8"}, ValueError, "requires calib_frames"),
-        ({"device": "cuda:1"}, NotImplementedError, "ROADMAP.md"))])
-def test_stereo_node_later_slices_raise(kwargs, error, match):
-    """Another card is a later slice; the quantized rungs serve now
+        ({"device": "cuda:1"}, RuntimeError, "cuda:1: only 1 card"))])
+def test_stereo_node_later_slices_raise(kwargs, error, match, monkeypatch):
+    """A stage pins to any card that is there (`device="cuda:k"`); a card
+    that is not there raises (one card here: CUDA faked available, the
+    check comes before any allocation). The quantized rungs serve
     (`tests/test_torch_quant.py`), and int8 without calibration frames
     raises as in the JAX node."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     spec = _spec()
     kwargs.setdefault("device", "cpu")
     with pytest.raises(error, match=match):
@@ -248,8 +252,9 @@ def _port_files():
 
 def test_port_scan_covers_the_weight_and_quant_modules():
     """The scan below walks every module of the package; these are the
-    ones the weight loaders, the quantized rungs, the training slice and
-    the layer profiler and engines added."""
+    ones the weight loaders, the quantized rungs, the training slice, the
+    layer profiler and engines and the multi-device slice (whose spawn
+    targets, `parallel/rank_checks.py`, the ranks import afresh) added."""
     scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
     for name in ("io/trt_weights.py", "io/tf_checkpoint.py",
                  "quant/ptq.py", "quant/stereo_int8.py",
@@ -259,7 +264,9 @@ def test_port_scan_covers_the_weight_and_quant_modules():
                  "training/stereo.py", "training/trailnet.py",
                  "apps/train_app.py", "kernels/_ops.py",
                  "runtime/layer_profiler.py", "runtime/cache.py",
-                 "runtime/engine_builder.py"):
+                 "runtime/engine_builder.py", "parallel/launch.py",
+                 "ops/halo.py", "parallel/sharding.py",
+                 "parallel/rank_checks.py"):
         assert f"redtail_tpu_torch/{name}" in scanned
 
 

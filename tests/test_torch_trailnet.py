@@ -377,16 +377,22 @@ def test_load_trailnet(tree, nets, tmp_path, frames):
 
 
 @pytest.mark.parametrize("kwargs", [{"device": "cuda:1"}], ids=str)
-def test_trailnet_node_later_slices_raise(kwargs, nets):
+def test_trailnet_node_later_slices_raise(kwargs, nets, monkeypatch):
+    """A stage pins to any card that is there; a missing one raises (one
+    card here: CUDA faked available, checked before any allocation)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     kwargs.setdefault("device", "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(RuntimeError, match="cuda:1: only 1 card"):
         TrailNetNode(nets[("native", torch.float32)], **kwargs)
 
 
 @pytest.mark.parametrize("kwargs", [{"device": "cuda:1"}], ids=str)
-def test_yolo_node_later_slices_raise(kwargs):
+def test_yolo_node_later_slices_raise(kwargs, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     kwargs.setdefault("device", "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(RuntimeError, match="cuda:1: only 1 card"):
         YoloNode(_yolo_nets()[1], **kwargs)
 
 

@@ -267,10 +267,27 @@ def test_train_app_trailnet_cpu_out_and_caffe_export(trails_dir, tmp_path,
     np.testing.assert_allclose(probs, want, rtol=0, atol=1e-4)
 
 
-def test_train_app_data_parallel_raises(kitti_dir):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        train_main(["stereo", "--cpu", "--data", str(kitti_dir),
-                    "--data-parallel", "2", "--steps", "1"])
+def test_train_app_data_parallel_raises(kitti_dir, tmp_path, monkeypatch,
+                                       capfd):
+    """``--data-parallel 2`` needs two cards for its NCCL ranks and raises
+    with fewer; with ``--cpu`` it runs two gloo ranks
+    (`tests/test_torch_parallel_train.py` holds their losses to one
+    process's)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="only 1 visible"):
+        train_main(["stereo", "--data", str(kitti_dir), "--data-parallel",
+                    "2", "--steps", "1"])
+    monkeypatch.undo()
+    out = tmp_path / "p.npz"
+    assert train_main(["stereo", "--cpu", "--data", str(kitti_dir),
+                       "--model", "nvtiny", "--crop", "32x64", "--max-disp",
+                       "4", "--batch", "2", "--data-parallel", "2",
+                       "--steps", "1", "--out", str(out)]) == 0
+    recs = [json.loads(line) for line in capfd.readouterr().out.splitlines()
+            if line.startswith("{")]
+    assert [r["step"] for r in recs if "loss" in r] == [1]
+    assert out.exists()
 
 
 def test_train_entry_points_default_to_the_card(kitti_dir, trails_dir,

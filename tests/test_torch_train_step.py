@@ -227,13 +227,37 @@ def test_smooth_l1_matches_jax():
             assert abs(got - want) <= 1e-6 * max(1.0, abs(want))
 
 
-def test_mesh_and_dtypes_raise():
+def test_mesh_and_dtypes_raise(tmp_path, monkeypatch):
+    """``mesh=`` builds a step: over a one-rank (1, 1) mesh it is the
+    unsharded step (`tests/test_torch_parallel_train.py` runs 2 and 4
+    ranks), and a device of another type than the mesh's (the card by
+    default, CUDA faked available) raises; ``data_parallel`` beyond the
+    ranks running raises, as JAX's does beyond its devices, and so does a
+    dtype other than fp32 / bf16."""
+    import torch.distributed as dist
+    from redtail_tpu_torch.parallel import make_mesh
+
     spec, _ = _specs("nvtiny")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_train_step(spec, mesh=object(), device="cpu")
+    params = init_stereo_params(spec, seed=2)
+    init_fn, step_fn = make_train_step(spec, device="cpu")
+    _, want = step_fn(init_fn(params), *_batch())
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(device_type="cpu")
+        init_fn, step_fn = make_train_step(spec, mesh=mesh, device="cpu")
+        state, got = step_fn(init_fn(params), *_batch())
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        with pytest.raises(ValueError, match="for a mesh on cpu"):
+            make_train_step(spec, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    assert state.step == 1
+    assert float(got["loss"]) == float(want["loss"])
+    assert float(got["epe"]) == float(want["epe"])
     for kw, err in (({"dtype": "float16"}, ValueError),
-                    ({"data_parallel": 2}, NotImplementedError)):
-        with pytest.raises(err, match="float32 or bfloat16|item 10"):
+                    ({"data_parallel": 2}, RuntimeError)):
+        with pytest.raises(err, match="float32 or bfloat16|only 1 ranks"):
             train_stereo(StereoTrainConfig(**kw), dataset=None,
                          device="cpu")
 
