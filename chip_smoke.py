@@ -21,7 +21,11 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
    and bf16, the corr kernel in its three epilogues (the volume in both
    layouts and the fused soft-argmax, the latter on inputs scaled by
    1/sqrt(C) so the volume is O(1), with the unit-scale error printed),
-   the fused cost-volume assembly in both its layouts; each kernel and its
+   the fused cost-volume assembly in both its layouts (and at phase 11a's
+   shards: 80 and 81 rows, slabs of 1 and 2 rows), conv223 at phase 11a's
+   shards too (Hp = 41, 42 and 2), the concat kernel three times a case
+   into an output block that held NaN (an unwritten element shows as NaN,
+   a race as launches that disagree); each kernel and its
    plain version timed at the main path's shape with CUDA events (device
    time: the host enqueues each call while the stream is held busy, L2
    evicted before each call), with its bound share (bound / kernel time);
@@ -195,7 +199,15 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
        of the unsharded forward (phase 4's gate) and max within one bf16
        step at 1 (2^-8; a fault in the rows beside the shards' boundary
        passes a mean gate); fp32 at 129x257 within 1e-4; the corr
-       kernel's fused soft-argmax launched in each rank;
+       kernel's fused soft-argmax launched in each rank. NVSmall at
+       321x1025 with the real weights, bf16 and fp32, under the fused
+       head (161 feature rows split 80 / 81: the emission's full layout
+       on each rank's rows) and the packed head (82 dh-shifted slots
+       split 41 / 41: the emission's packed layout from each rank's
+       slab, conv223 on its slots plus one halo slot, the D-folded final
+       deconv on its rows), each against rank 0's unsharded forward
+       under the same lowering within 11b's gates; the emission (and, in
+       the packed head, conv223) launched in each rank;
     b. disparity mode (mesh (1, 2)): NVSmall at 321x1025 with the real
        weights, D = 48, 24 disparities a rank (phase 3 holds the concat
        kernel at d_offset 0 and 24): bf16 mean within 0.1 px and max
@@ -212,12 +224,13 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
        two cards the stereo stage on cuda:1 bit-equal to cuda:0's, with
        one a line saying cuda:1 was not run (and that it raises there);
     e. figures beside the card's name and power limit: each rank's time a
-       frame (CUDA events) for 11a and 11b, the halo bytes each rank
-       received against the bytes of the activations exchanged, and peak
-       device memory per rank against the unsharded forward's.
-    `python3 chip_smoke.py --parallel-only` runs phases 1-2, 3's concat
-    kernel and 11 alone and ends with a `{"partial": true, ...}` line, not
-    the `ok` line.
+       frame (CUDA events) for 11a and 11b (NVSmall's heads included), the
+       halo bytes each rank received (`exchange.moved`) against the bytes
+       of the activations exchanged (`exchange.held`), and peak device
+       memory per rank against the unsharded forward's.
+    `python3 chip_smoke.py --parallel-only` runs phases 1-2, 3's concat,
+    emission and conv223 kernels and 11 alone and ends with a
+    `{"partial": true, ...}` line, not the `ok` line.
 
 Then one JSON line describing every ported kernel, and last the line
 `{"ok": true, "device": {...}}`.
@@ -272,6 +285,8 @@ CONCAT_CASES = (("nvsmall", (1, 161, 513, 32), 48),
                 ("ragged", (2, 7, 37, 8), 6),
                 ("D>W", (1, 3, 5, 4), 9),
                 ("C=3", (1, 4, 9, 3), 5))
+# launches of each concat case into a NaN-filled output block
+CONCAT_REPEATS = 3
 # the concat kernel's blocks of disparities (d_offset, d_count), phase 11b's
 # two ranks' at NVSmall's shape first, then a block past W, a ragged one
 # and an empty one
@@ -289,7 +304,15 @@ EMIT_CASES = (("nvsmall", (1, 161, 513, 32), 48),
               ("b2 odd D", (2, 6, 70, 64), 11),
               ("D>=W b2", (2, 5, 40, 32), 48),
               ("D>W", (1, 3, 5, 4), 9),
-              ("D=1", (1, 3, 9, 3), 1))
+              ("D=1", (1, 3, 9, 3), 1),
+              # phase 11a's shards of NVSmall's 161 rows: full, 80 / 81
+              # rows; dh_shifted, rank 1's 41 slots from an 81-row slab
+              # (42 emitted); a slab of one slot (1 row at the first, 2 at
+              # an interior slot)
+              ("shard 80", (1, 80, 513, 32), 48),
+              ("shard 81", (1, 81, 513, 32), 48),
+              ("slab 1", (1, 1, 513, 32), 48),
+              ("slab 2", (1, 2, 513, 32), 48))
 # conv223 (name, xp (N, Dp, Hp, W, C), K): NVSmall's conv3D_2 first (the
 # main path's call), ResNet-18 3D's conv3D_1b, NVTiny's conv3D_2, edges of
 # the bf16 kernel's 4 x 64 tiles (W = 63, 64, 65; Hout not a multiple of
@@ -308,7 +331,13 @@ CONV223_CASES = (("nvsmall", (1, 25, 82, 513, 128), 128),
                  ("W=257 K=128", (1, 3, 7, 257, 32), 128),
                  ("b2 K=128", (2, 3, 9, 130, 64), 128),
                  ("K=144", (1, 2, 3, 65, 64), 144),
-                 ("wraps", (1, 9, 42, 200, 32), 16))
+                 ("wraps", (1, 9, 42, 200, 32), 16),
+                 # phase 11a's shards of NVSmall's conv3D_2 (81 output
+                 # slots over 2 ranks: 40 from 41 input slots, 41 from
+                 # 42) and a shard of one slot (Hp = 2)
+                 ("shard 40", (1, 25, 41, 513, 128), 128),
+                 ("shard 41", (1, 25, 42, 513, 128), 128),
+                 ("shard Hp=2", (1, 25, 2, 513, 128), 128))
 FULL_HW = (321, 1025)
 SLICE_3D_HW, SLICE_3D_DISP = (65, 129), 8
 SLICE_3D_FP32_ATOL = 1e-3   # px: card fp32 vs CPU fp32, summation order
@@ -647,22 +676,40 @@ def phase_corr(torch, corr, softargmax, gen):
 
 def phase_concat(torch, concat, gen):
     """The concat kernel against its plain version, bit for bit, then
-    timed at NVSmall's plain-lowering call."""
+    timed at NVSmall's plain-lowering call. Each case launches
+    `CONCAT_REPEATS` times into an output block the caching allocator
+    hands back after it held NaN (the `torch.empty` output reuses a freed
+    block of its size), so an element the kernel leaves unwritten shows
+    as NaN and a race as launches that disagree."""
+    reused = []
     for name, shape, d in CONCAT_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             left, right = (_randn(torch, gen, shape, dtype) for _ in range(2))
-            got = concat.cost_volume_concat(left, right, d)
-            torch.cuda.synchronize()
             want = concat.cost_volume_concat_plain(left, right, d)
-            check(got.shape == want.shape and got.dtype == want.dtype,
-                  f"concat {name}: {got.shape} {got.dtype} vs "
-                  f"{want.shape} {want.dtype}")
-            err = (got.float() - want.float()).abs().max().item()
-            check(torch.equal(got, want),
-                  f"concat {name} {dtype}: not bit-exact (max abs err {err})")
+            poisoned = 0
+            for _ in range(CONCAT_REPEATS):
+                nan = torch.full_like(want, float("nan"))
+                ptr = nan.data_ptr()
+                del nan
+                got = concat.cost_volume_concat(left, right, d)
+                torch.cuda.synchronize()
+                poisoned += got.data_ptr() == ptr
+                check(got.shape == want.shape and got.dtype == want.dtype,
+                      f"concat {name}: {got.shape} {got.dtype} vs "
+                      f"{want.shape} {want.dtype}")
+                unwritten = int(torch.isnan(got).sum().item())
+                err = (got.float() - want.float()).abs().nan_to_num(
+                    float("inf")).max().item()
+                check(torch.equal(got, want),
+                      f"concat {name} {dtype}: not bit-exact (max abs err "
+                      f"{err}, {unwritten} NaN left by the poisoned block)")
+                del got
+            reused.append(poisoned)
             print(f"concat {name:8s} {str(shape):18s} D={d:<3d} "
-                  f"{str(dtype):15s} bit-exact (max_abs_err={err:.1e})")
-            del got, want
+                  f"{str(dtype):15s} bit-exact x{CONCAT_REPEATS} "
+                  f"(outputs in a NaN-filled block: {poisoned})")
+            del want
+    check(sum(reused) > 0, "no concat output reused the NaN-filled block")
     for name, shape, d, off, count in CONCAT_BLOCK_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             left, right = (_randn(torch, gen, shape, dtype) for _ in range(2))
@@ -3000,7 +3047,8 @@ def phase_engines(np, torch, models, nodes, ckpt, stereo_app, plain_lowering,
 # gloo (NCCL refuses two ranks on one card); with two cards or more the
 # same phases run again over NCCL, a card a rank. A mesh (data, spatial).
 PAR_RANKS = 2
-PARALLEL_ONLY = "--parallel-only"  # phases 1-2, 3's concat and 11 alone
+PARALLEL_ONLY = "--parallel-only"  # phases 1-2, 3's concat, emission and
+#                                    conv223, and 11 alone
 PAR_2D_FP32 = ((129, 257), 16)   # phase 4's ResNet18-2D slice
 PAR_2D_BF16_MEAN = 1e-2    # sigmoid units: sharded bf16 vs unsharded
 #                            (phase 4's bf16 gate)
@@ -3012,6 +3060,15 @@ PAR_2D_FP32_ATOL = 1e-4    # sigmoid units: sharded fp32 vs unsharded
 PAR_2D_BF16_MAX = 2.0 ** -8
 PAR_3D_BF16_MAX = 0.25
 PAR_MESHES = ((2, 1), (1, 2))
+# 11a's 3D heads (`rank_checks.lowering`): the fused one and the packed
+# one, on the card with the D-folded final deconv
+PAR_3D_LOWERINGS = ("fused", "packed")
+# the kernels a sharded forward must launch in each rank, by its case
+PAR_KERNELS = {"corr": (("corr_launches", "corr_cost_volume"),),
+               "disparity": (("concat_launches", "cost_volume_concat"),),
+               "fused": (("emit_launches", "fused_cv_emit"),),
+               "packed": (("packed_emit_launches", "fused_cv_emit"),
+                          ("conv223_launches", "conv223"))}
 PAR_TRAIN_FP32_CROP = TRAIN_SLICE_CROP  # the fp32 step, 64x128
 PAR_TRAIN_FP32_TOL = 1e-4  # loss relative; each leaf, share of its max
 
@@ -3043,12 +3100,21 @@ def par_cases(np, models, s2d):
                             **extra))
     tree = models.params_from_npz(ROOT / NVSMALL_NPZ)
     left, right = par_frames(np, s2d, FULL_HW, 12)
+    nvsmall = dict(spec={"name": "nvsmall", "input_hw": FULL_HW},
+                   params=tree, left=left, right=right)
     for dtype in ("bfloat16", "float32"):
+        # image mode under the fused head and the packed one (its final
+        # deconv dfold on the card), each beside rank 0's unsharded
+        # forward under the same lowering
+        for lowering in PAR_3D_LOWERINGS:
+            for extra in ({"mesh": (1, PAR_RANKS), "mode": "image"},
+                          {"unsharded": True}):
+                fwd.append(dict(nvsmall, dtype=dtype, lowering=lowering,
+                                tag=f"11a nvsmall {lowering} {dtype}",
+                                **extra))
         for extra in ({"mesh": (1, PAR_RANKS), "mode": "disparity"},
                       {"unsharded": True}):
-            fwd.append(dict(spec={"name": "nvsmall", "input_hw": FULL_HW},
-                            params=tree, left=left,
-                            right=right, dtype=dtype,
+            fwd.append(dict(nvsmall, dtype=dtype, lowering="plain",
                             tag=f"11b nvsmall {dtype}", **extra))
     train = []
     for name in ("resnet18_2d", "nvtiny"):
@@ -3097,17 +3163,21 @@ def par_forward_gates(np, fwd, results, backend, card="cuda"):
             top = PAR_2D_BF16_MAX if corr else PAR_3D_BF16_MAX
             check(fp32 or err.max() <= top, f"{c['tag']} rank {rank}: max "
                   f"{err.max()} off the unsharded forward (gate {top}{unit})")
-            kernel = "corr_launches" if corr else "concat_launches"
-            check(got[kernel] >= 1 or card == "cpu", f"{c['tag']} rank "
-                  f"{rank}: {kernel} {got[kernel]}")
-            entry = "corr_cost_volume" if corr else "cost_volume_concat"
-            by_path.setdefault(entry, {})[
-                f"{c['tag']} {c['mode']} {backend} rank {rank}"] = got[kernel]
+            kind = ("corr" if corr else "disparity" if c["mode"] ==
+                    "disparity" else c["lowering"])
+            launched = []
+            for key, entry in PAR_KERNELS[kind]:
+                check(got[key] >= 1 or card == "cpu", f"{c['tag']} rank "
+                      f"{rank}: {key} {got[key]}")
+                by_path.setdefault(entry, {})[
+                    f"{c['tag']} {c['mode']} {backend} rank {rank}"] = \
+                    got[key]
+                launched.append(f"{key} {got[key]}")
             print(f"{c['tag']} {c['mode']} mesh {c['mesh']} ({backend}) rank "
                   f"{rank}: vs unsharded max {err.max():.3e} mean "
                   f"{err.mean():.3e}{unit} (gate {gate}, "
-                  f"{'max' if fp32 else f'mean; max {top}'}); {kernel} "
-                  f"{got[kernel]}; "
+                  f"{'max' if fp32 else f'mean; max {top}'}); "
+                  f"{', '.join(launched)}; "
                   f"one frame {got['ms']:.3f} ms (CUDA events, the other "
                   f"rank on the same card); halo bytes received "
                   f"{got['moved_bytes']} for {got['held_bytes']} bytes of "
@@ -3188,7 +3258,18 @@ def phase_parallel(np, torch, models, s2d, backend="gloo", card="cuda"):
     from redtail_tpu_torch.parallel import rank_checks
     from redtail_tpu_torch.parallel.launch import spawn_ranks
 
+    from redtail_tpu_torch.ops.halo import owned
+
+    def split(size):
+        return [b - a for a, b in (owned(size, PAR_RANKS, r)
+                                   for r in range(PAR_RANKS))]
+
     fwd, train = par_cases(np, models, s2d)
+    rows = -(-FULL_HW[0] // 2)
+    slots = (rows + 1) // 2 + 1
+    print(f"11a nvsmall image mode over {PAR_RANKS} ranks: {rows} feature "
+          f"rows split {split(rows)}, {slots} dh-shifted slots split "
+          f"{split(slots)}")
     t0 = time.perf_counter()
     results = spawn_ranks(rank_checks.run_cases, PAR_RANKS, backend=backend,
                           device_type=card,
@@ -3351,10 +3432,13 @@ def main() -> int:
     gen = seeded_generator(0)
     if sys.argv[1:] == [PARALLEL_ONLY]:
         phase_concat(torch, concat, gen)
+        phase_emit(torch, emit, gen)
+        phase_conv223(torch, c223, gen)
         phase_multi_device(np, torch, models, nodes, trailnet,
                            space_to_depth2_np, counters)
         # a partial run: not the contract's ok line
-        print(json.dumps({"partial": True, "phases": "1-2, 3 concat, 11"}))
+        print(json.dumps({"partial": True,
+                          "phases": "1-2, 3 concat, emit, conv223, 11"}))
         return 0
     entries = {"corr_cost_volume": phase_corr(torch, corr, softargmax, gen),
                "cost_volume_concat": phase_concat(torch, concat, gen),

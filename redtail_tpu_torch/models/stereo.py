@@ -58,9 +58,11 @@ its rows, the convs exchanging halos; with D sharded (disparity mode, the
 3D models) the 2D towers run whole and the volume, the 3D stack and the
 soft-argmin's normalization are split by disparity. The layers are told
 the global extent of their inputs (`sharded_extent`), so every TF-SAME pad
-and every transposed conv's target is the global one. The fused and packed
-3D heads and int8 leaves are not sharded (`SHARDED_NOT_PORTED`); the 3D
-models run sharded under `plain_lowering()`.
+and every transposed conv's target is the global one. Image mode runs the
+head the lowering in force selects (the fused one, the packed one on its
+slots, the plain one) and int8 leaves (the float input's halo rows
+exchanged before it is quantized); disparity mode runs under
+`plain_lowering()` (`parallel/sharding.py`).
 """
 
 from __future__ import annotations
@@ -85,6 +87,8 @@ from redtail_tpu_torch.ops.convolution import (
     conv3d_transpose_dfold,
     conv3d_transpose_ncdhw,
     dfold_weights,
+    empty_conv_shard,
+    sharded_conv_input,
     use_packed3d,
     use_plain_lowering,
 )
@@ -109,11 +113,6 @@ from redtail_tpu_torch.ops.space_to_depth import conv5s2_kernel_to_s2d, s2d_hw
 from redtail_tpu_torch.utils.checkpoint import load_npz_flat
 
 Params = Dict[str, Dict]
-
-SHARDED_NOT_PORTED = (
-    "the fused emission head, the packed 3D head and int8 leaves do not run "
-    "sharded yet (ROADMAP.md, module queue item 13): run the 3D models "
-    "under plain_lowering() with float weights")
 
 
 # ------------------------------------------------------------------ specs
@@ -449,7 +448,8 @@ class _Int8Conv(nn.Module):
     quantized with ``x_scale`` (`quantize_act`), int8 x int8 with an exact
     integer sum (`conv2d_int8`), dequantized by ``x_scale * w_scale`` (the
     product taken once, at load: the same fp32 multiply), the bias added in
-    fp32 and one cast to the input's dtype."""
+    fp32 and one cast to the input's dtype. Inside `sharded_axis` it runs
+    on this rank's rows, as `ops/convolution.py`'s convs do."""
 
     def __init__(self, leaf, stride: int, device, dtype):
         super().__init__()
@@ -473,8 +473,16 @@ class _Int8Conv(nn.Module):
                                  requires_grad=False)
 
     def forward(self, x):
+        # sharded: the float rows exchanged, then quantized (elementwise,
+        # so exact), the conv run on the slab without a pad on H
+        strides = (self.stride, self.stride)
+        k = self.weight_q.shape[2:]
+        x, pads, own = sharded_conv_input(x, k, strides)
+        if own is not None and own[1] == own[2]:
+            return empty_conv_shard(x, self.weight_q.shape[0], k, strides,
+                                    pads, own[0], x.dtype)
         acc = conv2d_int8_acc(quantize_act(x, self.x_scale), self.weight_q,
-                              stride=self.stride)
+                              stride=strides, padding=pads)
         return dequantize_acc(acc, self.scale, self.bias, x.dtype)
 
 
@@ -882,8 +890,9 @@ class StereoNet(nn.Module):
         extent = (spec.max_disp, *_half(full_hw))
         if isinstance(enc[first.name], _FusedConv3D1) \
                 and not use_plain_lowering():
-            x = run(f"cost_volume+{first.name}", lambda f: enc[
-                first.name].fused(f[:n], f[n:], spec.max_disp), feats)
+            with sharded_extent(extent):
+                x = run(f"cost_volume+{first.name}", lambda f: enc[
+                    first.name].fused(f[:n], f[n:], spec.max_disp), feats)
         else:
             d_lo, d_hi = _disparity_block(spec.max_disp)
             vol = run("cost_volume", lambda f: cost_volume(
@@ -925,9 +934,12 @@ class StereoNet(nn.Module):
         spec = self.spec
         n = feats.shape[0] // 2
         first = self.encoder3D[spec.enc3d[0].name]
-        x = run(f"cost_volume+{spec.enc3d[0].name}[pk]", lambda f:
-                first.fused_packed(f[:n], f[n:], spec.max_disp), feats)
-        spatial = (spec.max_disp, feats.shape[2], feats.shape[3])
+        # every layer takes the global extent: a kernel's band, a pad and a
+        # slot count follow the image's parities, not a shard's
+        spatial = (spec.max_disp, *_half(full_hw))
+        with sharded_extent(spatial):
+            x = run(f"cost_volume+{spec.enc3d[0].name}[pk]", lambda f:
+                    first.fused_packed(f[:n], f[n:], spec.max_disp), feats)
         acts = {}
         for step in self._steps:
             if step.op == "final":
@@ -935,28 +947,32 @@ class StereoNet(nn.Module):
                 if step.name in self.packed3D and _use_dfold(x):
                     return run(f"{step.name}+softargmin[pk]", lambda a, c=(
                         self.packed3D[step.name]): c(a, target), x)
-                if step.layout != "none":
-                    x = run("unpack[pk]", lambda a, sp=spatial, ph=(
-                        step.layout == "dh"): P.unpack_conv(
-                            a, sp, packed_h=ph), x)
-                x = run(step.name, lambda a, c=self.decoder3D[step.name]:
-                        c(a.permute(0, 4, 1, 2, 3), target), x)
-                return run("softargmin",
-                           lambda a: softargmin(a[:, 0], axis=1), x)
+                with sharded_extent(spatial):
+                    if step.layout != "none":
+                        x = run("unpack[pk]", lambda a, sp=spatial, ph=(
+                            step.layout == "dh"): P.unpack_conv(
+                                a, sp, packed_h=ph), x)
+                    x = run(step.name, lambda a, c=self.decoder3D[step.name]:
+                            c(a.permute(0, 4, 1, 2, 3), target), x)
+                with sharded_extent(target):
+                    return run("softargmin",
+                               lambda a: softargmin(a[:, 0], axis=1), x)
             if step.op == "deconv":
+                # its output slots are owned as its skip's are
                 sk, spatial = acts[step.skip]
                 x = run(f"{step.name}[pk]", lambda a, s_, c=(
                     self.packed3D[step.name]), sp=spatial: elu(
                         c(a, sp) + s_), x, sk)
                 continue
-            if step.op == "native":
-                x = run(step.name, lambda a, c=self.encoder3D[step.name]:
-                        elu(c(a.permute(0, 4, 1, 2, 3))).permute(
-                            0, 2, 3, 4, 1), x)
-            else:
-                x = run(f"{step.name}[pk]", lambda a, c=(
-                    self.packed3D[step.name]), sp=spatial: elu(c(a, sp)),
-                    x)
+            with sharded_extent(spatial):
+                if step.op == "native":
+                    x = run(step.name, lambda a, c=self.encoder3D[step.name]:
+                            elu(c(a.permute(0, 4, 1, 2, 3))).permute(
+                                0, 2, 3, 4, 1), x)
+                else:
+                    x = run(f"{step.name}[pk]", lambda a, c=(
+                        self.packed3D[step.name]), sp=spatial: elu(c(a, sp)),
+                        x)
             if step.op != "conv" and self.encoder3D[step.name].stride == 2:
                 spatial = tuple(-(-v // 2) for v in spatial)
             acts[step.name] = (x, spatial)
@@ -1012,17 +1028,9 @@ class StereoNet(nn.Module):
 
     def _check_sharded(self, sh) -> None:
         """Raise for a sharded forward this net cannot run."""
-        spec = self.spec
-        if sh.axis == DISPARITY_AXIS and spec.corr:
+        if sh.axis == DISPARITY_AXIS and self.spec.corr:
             raise ValueError("disparity sharding applies to the 3D "
                              "cost-volume models")
-        int8 = any(isinstance(m, _Int8Conv) for m in self.modules())
-        head = not spec.corr and (
-            (self._steps and use_packed3d())
-            or (isinstance(self.encoder3D[spec.enc3d[0].name], _FusedConv3D1)
-                and not use_plain_lowering()))
-        if int8 or head:
-            raise NotImplementedError(SHARDED_NOT_PORTED)
 
 
 def _half(hw) -> Tuple[int, int]:

@@ -79,7 +79,9 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from redtail_tpu_torch.ops.halo import (ShardedAxis, current_sharding,
-                                       exchange)
+                                       empty_shard, fetch, halo_rows,
+                                       image_sharding, window_rows,
+                                       window_size)
 
 Strides = Union[int, Sequence[int]]
 
@@ -125,7 +127,8 @@ def use_packed3d() -> bool:
 
 def _sharded_dim(x: torch.Tensor) -> Tuple[Optional[ShardedAxis], int]:
     """(the sharding, the spatial index of its axis in ``x``) or (None,
-    -1)."""
+    -1); ``x`` is NCHW / NCDHW (the packed ops' NDHWC tensors name their
+    axis themselves)."""
     sh = current_sharding()
     if sh is None:
         return None, -1
@@ -136,15 +139,33 @@ def _sharded_dim(x: torch.Tensor) -> Tuple[Optional[ShardedAxis], int]:
     return sh, sd
 
 
-def _exchange_rows(x, sh: ShardedAxis, sd: int, need) -> torch.Tensor:
-    return exchange(x, axis=2 + sd, global_size=sh.global_size,
-                    need=[need(r) for r in range(sh.shards)],
-                    group=sh.group)
+def sharded_conv_input(x: torch.Tensor, ksize: Sequence[int],
+                       strides: Sequence[int], padding: str = "SAME"):
+    """The TF pads of a conv over channels-first ``x`` (kernel ``ksize``,
+    ``strides``), and inside `sharded_axis` the slab its own output rows
+    read (`halo_rows`, the pads from the axis's global size): (x or the
+    slab, per-dim (lo, hi) pads, None or (the sharded spatial dim, a, b))."""
+    pads = [tf_same_padding(i, k, s) if padding == "SAME" else (0, 0)
+            for i, k, s in zip(x.shape[2:], ksize, strides)]
+    sh, sd = _sharded_dim(x)
+    if sh is None:
+        return x, pads, None
+    g, k, s = sh.global_size, ksize[sd], strides[sd]
+    x, pads[sd], (a, b) = halo_rows(
+        x, sh, 2 + sd, global_size=g, k=k, s=s,
+        pads=tf_same_padding(g, k, s) if padding == "SAME" else (0, 0))
+    return x, pads, (sd, a, b)
 
 
-def _empty_shard(src: torch.Tensor, shape, dtype) -> torch.Tensor:
-    """A shard with no rows, tied to ``src`` in the autograd graph."""
-    return (src.sum() * 0).to(dtype).expand(shape)
+def empty_conv_shard(x: torch.Tensor, out_channels: int, ksize, strides,
+                     pads, sd: int, dtype) -> torch.Tensor:
+    """The empty output shard of a conv over the slab ``x`` whose rank owns
+    no rows of spatial dim ``sd``."""
+    shape = [x.shape[0], out_channels]
+    for i, (n, k, s, p) in enumerate(zip(x.shape[2:], ksize, strides,
+                                         pads)):
+        shape.append(0 if i == sd else window_size(n, k, s, p))
+    return empty_shard(x, shape, dtype)
 
 
 def tf_same_padding(in_dim: int, kern_dim: int,
@@ -328,29 +349,10 @@ def _conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     `sharded_axis`, on this rank's rows (see the module docstring)."""
     padding = _padding(padding)
     strides = _tuple(strides, x.dim() - 2)
-    pads = [tf_same_padding(i, k, s) if padding == "SAME" else (0, 0)
-            for i, k, s in zip(x.shape[2:], w.shape[2:], strides)]
-    sh, sd = _sharded_dim(x)
-    if sh is not None:
-        k, s = w.shape[2 + sd], strides[sd]
-        g = sh.global_size
-        lo = tf_same_padding(g, k, s)[0] if padding == "SAME" else 0
-        g_out = -(-g // s) if padding == "SAME" else (g - k) // s + 1
-
-        def need(r):
-            a, b_ = (r * g_out // sh.shards, (r + 1) * g_out // sh.shards)
-            return ((a * s - lo, (b_ - 1) * s - lo + k) if b_ > a
-                    else (a * s - lo, a * s - lo))
-
-        x = _exchange_rows(x, sh, sd, need)
-        pads[sd] = (0, 0)
-        a, b_ = sh.owned(g_out)
-        if b_ == a:
-            shape = [x.shape[0], w.shape[0]]
-            for i, (n, kk, ss, (p0, p1)) in enumerate(zip(
-                    x.shape[2:], w.shape[2:], strides, pads)):
-                shape.append(0 if i == sd else (n + p0 + p1 - kk) // ss + 1)
-            return _empty_shard(x, shape, x.dtype)
+    x, pads, own = sharded_conv_input(x, w.shape[2:], strides, padding)
+    if own is not None and own[1] == own[2]:
+        return empty_conv_shard(x, w.shape[0], w.shape[2:], strides, pads,
+                                own[0], x.dtype)
     if all(lo == hi for lo, hi in pads):
         conv_pad = tuple(lo for lo, _ in pads)
     else:
@@ -371,25 +373,20 @@ def _conv_transpose(y: torch.Tensor, w: torch.Tensor,
     sh, sd = _sharded_dim(y)
     own = None
     if sh is not None:
-        k, s = w.shape[2 + sd], strides[sd]
+        k, s, g = w.shape[2 + sd], strides[sd], sh.global_size
         g_out = out_spatial[sd]
         lo = tf_same_padding(g_out, k, s)[0] if padding == "SAME" else 0
-
-        def need(r):
-            a, b_ = (r * g_out // sh.shards, (r + 1) * g_out // sh.shards)
-            if b_ == a:
-                return (0, 0)
-            return (max(0, -((k - 1 - a - lo) // s)),
-                    min(sh.global_size, (b_ - 1 + lo) // s + 1))
-
-        y = _exchange_rows(y, sh, sd, need)
-        a, b_ = sh.owned(g_out)
+        # the transposed conv is a conv of y dilated by s with the flipped
+        # kernel, padded (k - 1 - lo, ...) to g_out rows
+        y, pads, (a, b_) = halo_rows(
+            y, sh, 2 + sd, global_size=g, k=k, dil=s,
+            pads=(k - 1 - lo, g_out + lo - (g - 1) * s - 1))
         if b_ == a:
             shape = [y.shape[0], w.shape[1], *out_spatial]
             shape[2 + sd] = 0
-            return _empty_shard(y, shape, y.dtype)
-        # the slab's first row is global input row need(index)[0]
-        own = (a + lo - need(sh.index)[0] * s, b_ - a)
+            return empty_shard(y, shape, y.dtype)
+        # row a is row k - 1 - pads[0] of the unpadded transposed conv
+        own = (k - 1 - pads[0], b_ - a)
     full = _conv_sum(y, w, strides, 0, transposed=True)
     crop = []
     for i, (size, full_size, k, s) in enumerate(zip(
@@ -612,13 +609,60 @@ def conv3d_transpose_dfold(y: torch.Tensor, w: Optional[torch.Tensor],
     else unsplit). ``reduce``: a per-pixel reduction over the trailing
     (D, c_out) dims (the models' soft-argmin), applied to each parity map
     before the full-resolution weaves, after the bias and the cast;
-    requires 'dlast' and returns (N, H_out, W_out)."""
+    requires 'dlast' and returns (N, H_out, W_out).
+
+    Inside an image `sharded_axis` each rank returns its own output rows
+    (the ownership rule over H_out) from the input slots they read,
+    fetched by one `exchange`: the D-folded conv runs on that slab as on a
+    whole input of the same H parity, and its rows are cropped."""
     if h_packed and not d_packed:
         raise ValueError("h_packed input implies the 'dh' packed layout")
     if layout not in ("ndhwc", "dlast"):
         raise ValueError(f"unknown layout {layout!r}")
     if reduce is not None and layout != "dlast":
         raise ValueError("reduce= requires layout='dlast'")
+    kw = dict(d_packed=d_packed, h_packed=h_packed, layout=layout,
+              d_block=d_block, reduce=reduce, blocks=blocks)
+    sh = image_sharding()
+    if sh is None:
+        return _dfold(y, w, b, out_spatial=out_spatial, **kw)
+    d_out, h_out, w_out = out_spatial
+    lo = tf_same_padding(h_out, 3, 2)[0]
+    per = 2 if h_packed else 1      # input rows a slot of axis 2 holds
+    h_in = -(-h_out // 2)
+
+    def need(a, b_):
+        # the transposed conv's window (output row o reads input rows i
+        # with o = 2 i - lo + t, t in [0, 3)), cut to the axis, in slots
+        i0, i1 = window_rows(a, b_, k=3, lo=2 - lo, dil=2)
+        return max(i0, 0) // per, -(-min(i1, h_in) // per)
+
+    y, (a, b_), (s0, s1) = fetch(y, sh, 2, global_size=-(-h_in // per),
+                                 out_size=h_out, need=need)
+    if b_ == a:
+        if blocks is None:
+            c_out = w.shape[3]
+        else:   # a block's output channels: (parities, depths, c_out)
+            _, _, ob, ob_hi, weight = blocks[0]
+            c_out = weight.shape[0] // (4 * per * (ob_hi - ob))
+        shape = ((y.shape[0], d_out, 0, w_out, c_out) if layout == "ndhwc"
+                 else (y.shape[0], 0, w_out) if reduce is not None
+                 else (y.shape[0], 0, w_out, d_out, c_out))
+        return empty_shard(y, shape, y.dtype)
+    n_in = per * (s1 - s0)
+    out = _dfold(y, w, b, out_spatial=(d_out, 2 * n_in - h_out % 2, w_out),
+                 **kw)
+    # local output row 0 is global row 2 * per * s0
+    return out.narrow(2 if layout == "ndhwc" else 1, a - 2 * per * s0,
+                      b_ - a)
+
+
+def _dfold(y: torch.Tensor, w: Optional[torch.Tensor],
+           b: Optional[torch.Tensor], *, out_spatial, d_packed: bool,
+           h_packed: bool, layout: str, d_block: Optional[int],
+           reduce: Optional[Callable], blocks: Optional[List[DfoldBlock]]
+           ) -> torch.Tensor:
+    """`conv3d_transpose_dfold` on a whole input."""
     d_out_n, h_out, w_out = out_spatial
     if h_packed:
         n, dp_n, hs_n, w_in, c4 = y.shape

@@ -14,6 +14,16 @@ output from them with bias and ELU, never materialising the
 unpacked 3D stack, ``emit="dh_shifted"`` the packed head's
 (N, (D + 1) // 2 + 1, (H + 1) // 2 + 1, W, 4K) layout (`ops/packed3d.py`),
 with exact zeros in its padding slots and rows.
+
+Inside an image `sharded_axis` the 2D convs exchange their 3x3 halos and
+the assembly is row-local (output row h reads row h of the maps): under
+``"full"`` each rank emits its own rows. Under ``"dh_shifted"`` slot j
+holds rows (2j - 1, 2j), so each rank owns whole slots (the ownership rule
+over the slot count (H + 1) // 2 + 1), fetches the map rows they read (one
+`exchange`) and emits from a slab that starts at an even row 2o (o = the
+slot before its first, or 0), keeping only its own slots: the slab is cut
+to [0, H), so the kernel's own boundary gives the exact zeros of the
+global first and last slots and an interior boundary slot its real rows.
 """
 
 from __future__ import annotations
@@ -25,6 +35,8 @@ import torch
 from redtail_tpu_torch.kernels.fused_cv_emit import fused_cv_emit
 from redtail_tpu_torch.ops.activations import elu
 from redtail_tpu_torch.ops.convolution import conv2d_nchw
+from redtail_tpu_torch.ops.halo import (empty_shard, fetch, image_sharding,
+                                       window_rows)
 
 
 def split_kernels(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -51,11 +63,38 @@ def cost_volume_conv3d_nchw(left: torch.Tensor, right: torch.Tensor,
                             apply_elu: bool,
                             emit: str = "full") -> torch.Tensor:
     """The model's form: (N, C, H, W) feature maps (`torch.channels_last`)
-    and the `split_kernels` pair in OIHW -> the ``emit`` layout,
-    contiguous."""
+    and the `split_kernels` pair in OIHW -> the ``emit`` layout
+    (contiguous unless it is a shard of the dh-shifted layout)."""
     la = conv2d_nchw(left, k_la).permute(0, 2, 3, 1).contiguous()
     rb = conv2d_nchw(right, k_rb).permute(0, 2, 3, 1).contiguous()
-    return fused_cv_emit(la, rb, b, max_disp, elu=apply_elu, layout=emit)
+    sh = image_sharding()
+    if sh is None:
+        return fused_cv_emit(la, rb, b, max_disp, elu=apply_elu, layout=emit)
+    n, _, w, k3 = la.shape
+    k = k3 // 3
+    if emit == "full":
+        if la.shape[1] == 0:   # the kernel takes no empty operand
+            return empty_shard(la, (n, max_disp, 0, w, k), la.dtype)
+        return fused_cv_emit(la, rb, b, max_disp, elu=apply_elu, layout=emit)
+    h = sh.global_size
+
+    def need(a, b_):
+        # slot j reads rows 2j - 1 and 2j; the slab starts at an even row
+        # and stops at the axis's end, where the kernel writes the zeros
+        i0, i1 = window_rows(a, b_, k=2, s=2, lo=1)
+        return max(i0 - i0 % 2, 0), min(i1, h)
+
+    maps, (a, b_), (r0, _) = fetch(torch.cat([la, rb], dim=-1), sh, 1,
+                                   global_size=h, out_size=(h + 1) // 2 + 1,
+                                   need=need)
+    if b_ == a:
+        return empty_shard(maps, (n, (max_disp + 1) // 2 + 1, 0, w, 4 * k),
+                           la.dtype)
+    out = fused_cv_emit(maps[..., :k3].contiguous(),
+                        maps[..., k3:].contiguous(), b, max_disp,
+                        elu=apply_elu, layout=emit)
+    # the slab starts at row r0: its slot j is slot r0 // 2 + j
+    return out.narrow(2, a - r0 // 2, b_ - a)
 
 
 def cost_volume_conv3d(left: torch.Tensor, right: torch.Tensor,

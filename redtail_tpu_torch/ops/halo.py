@@ -30,8 +30,18 @@ activations), for the traffic's share.
 NCHW / NCDHW activations each rank of ``group`` holds its rows of, along
 ``axis`` (`IMAGE_AXIS`, H, or `DISPARITY_AXIS`, D); `current_sharding()`
 reads it (`ops/convolution.py`, `ops/softargmax.py`, `models/stereo.py`)
-and `sharded_extent` moves the global size from layer to layer. The
-module imports no model and no parallel code: `parallel/` re-exports it.
+and `sharded_extent` moves the global size from layer to layer.
+
+**Rows a rank reads.** An op on a sharded axis owns the rows of its
+output under the ownership rule and fetches the input rows they read:
+`fetch` runs that one exchange for a ``need(a, b)`` rule, `window_rows`
+is the rule of a window op (a conv, a transposed conv as a conv of the
+dilated input), and `halo_rows` is `fetch` with that rule plus the pads
+that make the op over the slab give exactly its own rows. The convs,
+the packed ops, the emission and the D-folded deconv all plan through
+these. A rank that owns no rows still calls the exchange, then returns
+`empty_shard` tied to its slab. The module imports no model and no
+parallel code: `parallel/` re-exports it.
 """
 
 from __future__ import annotations
@@ -329,3 +339,66 @@ def sharded_extent(spatial: Sequence[int]):
         yield
     finally:
         _SHARDED.reset(token)
+
+
+def image_sharding() -> Optional[ShardedAxis]:
+    """The `ShardedAxis` in force where it shards the image rows (H), else
+    None: what the ops on other layouts (the packed head's NDHWC slots,
+    the emission's NHWC maps, dfold) read."""
+    sh = _SHARDED.get()
+    return sh if sh is not None and sh.axis == IMAGE_AXIS else None
+
+
+def empty_shard(src: torch.Tensor, shape, dtype) -> torch.Tensor:
+    """A shard with no rows, tied to ``src`` in the autograd graph."""
+    return (src.sum() * 0).to(dtype).expand(shape)
+
+
+def window_size(n: int, k: int, s: int = 1, pads: Tuple[int, int] = (0, 0),
+                dil: int = 1) -> int:
+    """The output size of a window of ``k`` taps at stride ``s`` over ``n``
+    rows dilated by ``dil`` (lhs dilation) and padded by ``pads``."""
+    return ((n - 1) * dil + 1 + pads[0] + pads[1] - k) // s + 1
+
+
+def window_rows(a: int, b: int, *, k: int, s: int = 1, lo: int = 0,
+                dil: int = 1) -> Range:
+    """The input rows ``[i0, i1)`` that output rows ``[a, b)`` (not empty)
+    of that window read, ``lo`` its low pad; rows outside the axis
+    included (the exchange gives them as zeros)."""
+    first, last = a * s - lo, (b - 1) * s - lo + k - 1
+    return -(-first // dil), last // dil + 1
+
+
+def fetch(x: torch.Tensor, sh: ShardedAxis, axis: int, *, global_size: int,
+          out_size: int, need) -> Tuple[torch.Tensor, Range, Range]:
+    """Each rank of ``sh`` owns rows ``[a, b)`` of an output axis of
+    ``out_size`` (`owned`) and reads rows ``need(a, b)`` of ``axis`` of
+    ``x``, whose global size is ``global_size`` (none where it owns none):
+    one `exchange`. Returns (the slab, (a, b), the rows it holds)."""
+    def rows(r):
+        a, b = owned(out_size, sh.shards, r)
+        return need(a, b) if b > a else (0, 0)
+
+    slab = exchange(x, axis=axis, global_size=global_size,
+                    need=[rows(r) for r in range(sh.shards)], group=sh.group)
+    return slab, owned(out_size, sh.shards, sh.index), rows(sh.index)
+
+
+def halo_rows(x: torch.Tensor, sh: ShardedAxis, axis: int, *,
+              global_size: int, k: int, s: int = 1,
+              pads: Tuple[int, int] = (0, 0), dil: int = 1
+              ) -> Tuple[torch.Tensor, Range, Range]:
+    """`fetch` for a window op (``k`` taps, stride ``s``, global pads
+    ``pads``, lhs dilation ``dil``) along ``axis`` of ``x``: each rank owns
+    output rows ``[a, b)`` of the op's global output. Returns (the slab,
+    the pads that make the op over the slab give exactly rows [a, b),
+    (a, b)); a rank with no rows gets an empty slab and pads (0, 0)."""
+    slab, (a, b), (i0, i1) = fetch(
+        x, sh, axis, global_size=global_size,
+        out_size=window_size(global_size, k, s, pads, dil),
+        need=lambda a, b: window_rows(a, b, k=k, s=s, lo=pads[0], dil=dil))
+    if b == a:
+        return slab, (0, 0), (a, b)
+    first, last = a * s - pads[0], (b - 1) * s - pads[0] + k - 1
+    return slab, (i0 * dil - first, last - (i1 - 1) * dil), (a, b)

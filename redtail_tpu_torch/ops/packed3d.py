@@ -52,6 +52,8 @@ import torch.nn.functional as F
 from redtail_tpu_torch.kernels.conv223 import conv223, kernel_weights
 from redtail_tpu_torch.ops.convolution import (_fp32_accumulate,
                                                tf_same_padding)
+from redtail_tpu_torch.ops.halo import (empty_shard, fetch, halo_rows,
+                                       image_sharding, window_size)
 
 Pads = Sequence[Tuple[int, int]]
 
@@ -110,12 +112,26 @@ def prepare(k: torch.Tensor, form: str) -> torch.Tensor:
 
 
 def _conv(x: torch.Tensor, wt: torch.Tensor, strides, pads: Pads,
-          dil=(1, 1, 1)) -> torch.Tensor:
+          dil=(1, 1, 1), *, rows: int) -> torch.Tensor:
     """`lax.conv_general_dilated` over NDHWC ``x``: window strides, per-axis
     (lo, hi) pads (negative ones crop) and lhs dilation ``dil``; ``wt`` in
     the `prepare` form the dilation needs. Runs on fp32 carriers (TF32
     allowed for a bf16 ``x``, exact in its products) and returns the NDHWC
-    fp32 sum, unrounded: `_bias` rounds it once."""
+    fp32 sum, unrounded: `_bias` rounds it once. ``rows``: the global size
+    of axis 2 (H or its slots); inside an image `sharded_axis` the conv
+    returns this rank's rows of its output (`halo_rows`)."""
+    sh = image_sharding()
+    if sh is not None:
+        pads = list(pads)
+        x, pads[1], (a, b) = halo_rows(x, sh, 2, global_size=rows,
+                                       k=wt.shape[3], s=strides[1],
+                                       pads=pads[1], dil=dil[1])
+        if b == a:
+            c = wt.shape[0] if all(d == 1 for d in dil) else wt.shape[1]
+            return empty_shard(x, (x.shape[0], window_size(
+                x.shape[1], wt.shape[2], strides[0], pads[0], dil[0]), 0,
+                window_size(x.shape[3], wt.shape[4], strides[2], pads[2],
+                            dil[2]), c), torch.float32)
     xc = x.permute(0, 4, 1, 2, 3)
     if all(d == 1 for d in dil):
         if all(lo == hi >= 0 for lo, hi in pads):
@@ -163,6 +179,17 @@ def _mask_slot(y: torch.Tensor, axis: int, slot: int,
     view = y.select(axis, slot)
     for lo, hi in ranges:
         view[..., lo:hi] = 0
+
+
+def _mask_h(y: torch.Tensor, size: int, slot: int,
+            ranges: Sequence[Tuple[int, int]]) -> None:
+    """`_mask_slot` of global index ``slot`` of axis 2, whose global size
+    is ``size``: inside an image `sharded_axis` only on the rank that
+    holds it (a local index would zero a real interior slot)."""
+    sh = image_sharding()
+    first = 0 if sh is None else sh.owned(size)[0]
+    if first <= slot < first + y.shape[2]:
+        _mask_slot(y, 2, slot - first, ranges)
 
 
 # ------------------------------------------------------------ pack/unpack
@@ -222,8 +249,21 @@ def unpack_conv(xp: torch.Tensor, full_spatial, *,
                 packed_h: bool = False) -> torch.Tensor:
     """Depth-to-space of an aligned packed tensor: (N, Dp, Hp?, W, G*C) ->
     (N, D, H, W, C). (The JAX package's identity-weight lhs-dilated conv;
-    here the exact permute and reshape.)"""
-    return unpack_ref(xp, full_spatial, d=True, h=packed_h)
+    here the exact permute and reshape.) Inside an image `sharded_axis`
+    an H-packed input's rank returns its own rows of H (the ownership
+    rule), from the slots holding them (one `exchange`)."""
+    sh = image_sharding() if packed_h else None
+    if sh is None:
+        return unpack_ref(xp, full_spatial, d=True, h=packed_h)
+    D, H, W = full_spatial
+    xp, (a, b), (s0, s1) = fetch(
+        xp, sh, 2, global_size=(H + 1) // 2, out_size=H,
+        need=lambda a, b: (a // 2, (b - 1) // 2 + 1))
+    if b == a:
+        return empty_shard(xp, (xp.shape[0], D, 0, W, xp.shape[-1] // 4),
+                           xp.dtype)
+    out = unpack_ref(xp, (D, 2 * (s1 - s0), W), d=True, h=True)
+    return out.narrow(2, a - 2 * s0, b - a)
 
 
 # ------------------------------------------------------------- packed ops
@@ -248,26 +288,36 @@ def conv3d_packed(xp: torch.Tensor, w: Optional[torch.Tensor],
     D, H, _ = full_spatial
     groups = 4 if packed_h else 2
     dense223 = packed_h and in_shifted
+    # axis 2's global size: slots of H (one more when shifted), or rows
+    rows = (H + 1) // 2 + int(in_shifted) if packed_h else H
     if kernel is None:
         kernel = prepare(conv3d_packed_kernel(w.to(xp.dtype),
                                               packed_h=packed_h),
                          "conv223" if dense223 else "conv")
     if dense223:
         bt = None if b is None else b.float().repeat(groups)
+        sh = image_sharding()
+        if sh is not None:
+            xp, _, (a, b_) = halo_rows(xp, sh, 2, global_size=rows, k=2)
+            if b_ == a:   # the kernel takes no empty operand
+                n, dp, _, w_, _ = xp.shape
+                return empty_shard(xp, (n, dp - 1, 0, w_, kernel.shape[3]),
+                                   xp.dtype)
         out = conv223(xp.contiguous(), kernel, bt, "kc")
     else:
         pad = (0, 0) if in_shifted else (1, 1)
         out = _conv(xp, kernel, (1, 1, 1),
-                    [pad, pad if packed_h else (1, 1), (1, 1)])
+                    [pad, pad if packed_h else (1, 1), (1, 1)], rows=rows)
         out = _bias(out, b, groups, xp.dtype)
     c = out.shape[-1]
     co = c // groups
+    slots = rows - 1 if in_shifted else rows + 1   # packed_h: out's slots
     if in_shifted:
         # aligned out: zero the odd-size pad slots
         if D % 2:
             _mask_slot(out, 1, out.shape[1] - 1, _pd_groups(c, co, 1))
         if packed_h and H % 2:
-            _mask_slot(out, 2, out.shape[2] - 1, [(c // 2, c)])
+            _mask_h(out, slots, slots - 1, [(c // 2, c)])
     else:
         # shifted out: slot 0's r=0 is Y[-1]; the last slot holds
         # (Y[2Lp-1], Y[2Lp]), Y[2Lp] always invalid, Y[2Lp-1] too when the
@@ -276,9 +326,9 @@ def conv3d_packed(xp: torch.Tensor, w: Optional[torch.Tensor],
         _mask_slot(out, 1, out.shape[1] - 1,
                    [(0, c)] if D % 2 else _pd_groups(c, co, 1))
         if packed_h:
-            _mask_slot(out, 2, 0, [(0, c // 2)])
-            _mask_slot(out, 2, out.shape[2] - 1,
-                       [(0, c)] if H % 2 else [(c // 2, c)])
+            _mask_h(out, slots, 0, [(0, c // 2)])
+            _mask_h(out, slots, slots - 1,
+                    [(0, c)] if H % 2 else [(c // 2, c)])
     return out
 
 
@@ -318,7 +368,8 @@ def conv3d_packed_down(xp: torch.Tensor, w: Optional[torch.Tensor],
     # last D tap index = 2*(d_out2-1) + 2 -> padded length 2*d_out2 + 1
     pad_d = (lo_d, 2 * d_out2 + 1 - xp.shape[1] - lo_d)
     out = _conv(xp, kernel, (2, stride_h, 2),
-                [pad_d, pad_h, tf_same_padding(W, 3, 2)])
+                [pad_d, pad_h, tf_same_padding(W, 3, 2)],
+                rows=(H + 1) // 2 if packed_h else H)
     out = _bias(out, b, 2, xp.dtype)
     if d_out % 2:
         co = out.shape[-1] // 2
@@ -350,7 +401,7 @@ def conv3d_packed_down_unpack(xp: torch.Tensor, w: Optional[torch.Tensor],
             w.to(xp.dtype), full_spatial=full_spatial), "conv")
     out = _conv(xp, kernel, (1, 2, 2),
                 [(lo_d, 1 - lo_d), tf_same_padding(H, 3, 2),
-                 tf_same_padding(W, 3, 2)])
+                 tf_same_padding(W, 3, 2)], rows=H)
     return _bias(out, b, 1, xp.dtype)
 
 
@@ -393,7 +444,8 @@ def deconv3d_packed(x: torch.Tensor, w: Optional[torch.Tensor],
     """
     Do, Ho, Wo = out_spatial
     lo_d, lo_h, lo_w = [tf_same_padding(X, 3, 2)[0] for X in out_spatial]
-    di, hi, wi = x.shape[1], x.shape[2], x.shape[3]
+    di, wi = x.shape[1], x.shape[3]
+    hi = -(-Ho // 2)   # the input's rows (a shard's are fewer)
     if kernel is None:
         kernel = prepare(deconv3d_packed_kernel(
             w.to(x.dtype), out_spatial=out_spatial, in_packed_d=in_packed_d,
@@ -407,12 +459,13 @@ def deconv3d_packed(x: torch.Tensor, w: Optional[torch.Tensor],
     else:
         dil_h, pad_h = 2, (2 - lo_h, Ho + lo_h - 2 * (hi - 1) - 1)
     pad_w = (2 - lo_w, Wo + lo_w - 2 * (wi - 1) - 1)
-    out = _conv(x, kernel, (1, 1, 1), [pad_d, pad_h, pad_w], (dil_d, dil_h, 2))
+    out = _conv(x, kernel, (1, 1, 1), [pad_d, pad_h, pad_w], (dil_d, dil_h, 2),
+                rows=hi)
     groups = 4 if pack_h else 2
     out = _bias(out, b, groups, x.dtype)
     c = out.shape[-1]
     if Do % 2:
         _mask_slot(out, 1, out.shape[1] - 1, _pd_groups(c, c // groups, 1))
     if pack_h and Ho % 2:
-        _mask_slot(out, 2, out.shape[2] - 1, [(c // 2, c)])
+        _mask_h(out, hi, hi - 1, [(c // 2, c)])
     return out

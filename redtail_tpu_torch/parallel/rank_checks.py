@@ -8,12 +8,16 @@ results are numpy.
 
 - `mesh_cases`: `sharding.make_mesh` with given sizes: the mesh's shape
   or the error it raised;
-- `refused_cases`: a 3D model's fused head run inside `sharded_axis`: the
-  error it raised;
+- `refused_cases`: a net run inside `sharded_axis` (the correlation model
+  under disparity sharding): the error it raised;
 - `conv_cases`: one sharded conv or transposed conv (`ops/convolution.py`
   inside `sharded_axis`), its output shard and the gradients of a fixed
   linear loss through it;
-- `forward_cases`: `sharding.shard_stereo_forward` on global frames;
+- `op_cases`: one op of the 3D heads (the packed ops, dfold, the
+  emission) on this rank's rows or slots inside an image `sharded_axis`:
+  its output shard;
+- `forward_cases`: `sharding.shard_stereo_forward` on global frames under
+  a given lowering;
 - `train_cases`: one `make_train_step(mesh=)` step on a global batch: the
   metrics, the summed gradients and the params after;
 - `run_cases`: forward and train cases in one spawn.
@@ -21,7 +25,9 @@ results are numpy.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 from typing import Dict, List
 
 import numpy as np
@@ -85,9 +91,9 @@ def mesh_cases(rank: int, world_size: int, cases: List[Dict],
 def refused_cases(rank: int, world_size: int, cases: List[Dict],
                   device_type: str) -> List[Dict]:
     """Each case: ``spec``, ``params``, ``left`` / ``right`` (this rank's
-    frames) and ``axis``; the net (its default, fused head) is called
-    inside `sharded_axis` over every rank. Returns the error's type and
-    message (an empty type if it ran)."""
+    frames), ``axis`` and ``size``; the net is called inside
+    `sharded_axis` over every rank. Returns the error's type and message
+    (an empty type if it ran)."""
     from redtail_tpu_torch.models.stereo import params_from_numpy
     from redtail_tpu_torch.ops.halo import sharded_axis
 
@@ -101,7 +107,7 @@ def refused_cases(rank: int, world_size: int, cases: List[Dict],
             with torch.no_grad(), sharded_axis(None, c["axis"], c["size"]):
                 net(left, right)
             out.append({"error": "", "message": ""})
-        except (NotImplementedError, ValueError) as e:
+        except ValueError as e:
             out.append({"error": type(e).__name__, "message": str(e)})
     return out
 
@@ -138,71 +144,166 @@ def conv_cases(rank: int, world_size: int, cases: List[Dict],
     return out
 
 
+def _ops():
+    from redtail_tpu_torch.ops import packed3d as P
+    from redtail_tpu_torch.ops.convolution import conv3d_transpose_dfold
+    from redtail_tpu_torch.ops.fused_cost_volume_conv import \
+        cost_volume_conv3d
+
+    return {"conv3d_packed": P.conv3d_packed,
+            "conv3d_packed_down": P.conv3d_packed_down,
+            "conv3d_packed_down_unpack": P.conv3d_packed_down_unpack,
+            "deconv3d_packed": P.deconv3d_packed,
+            "unpack_conv": P.unpack_conv,
+            "conv3d_transpose_dfold": conv3d_transpose_dfold,
+            "cost_volume_conv3d": cost_volume_conv3d}
+
+
+def op_kwargs(kwargs: Dict) -> Dict:
+    """A case's keyword arguments with the named functions resolved
+    (``act="elu"``, ``reduce="softargmin"``, the soft-argmin over the
+    trailing D of dfold's 'dlast' output)."""
+    from redtail_tpu_torch.ops.activations import elu
+    from redtail_tpu_torch.ops.softargmax import softargmin
+
+    named = {"elu": elu,
+             "softargmin": lambda t: softargmin(t[..., 0], axis=-1)}
+    return {k: named[v] if k in ("act", "reduce") and v is not None else v
+            for k, v in kwargs.items()}
+
+
+def op_cases(rank: int, world_size: int, cases: List[Dict],
+             device_type: str) -> List[Dict]:
+    """Each case: ``op`` (a name of `_ops`), ``args`` (its positional
+    arguments, numpy or None), ``sharded`` (the indices of the arguments
+    whose ``axis`` the ranks split: global inputs here) and ``kwargs``;
+    the op runs on this rank's shards inside an image `sharded_axis` of
+    the sharded inputs' global size. Returns this rank's output."""
+    from redtail_tpu_torch.ops.halo import IMAGE_AXIS, shard, sharded_axis
+
+    device = _device(device_type)
+    out = []
+    for c in cases:
+        args = [None if a is None else torch.from_numpy(a) for a in c["args"]]
+        size = args[c["sharded"][0]].shape[c["axis"]]
+        args = [(shard(a, c["axis"], world_size, rank)
+                 if i in c["sharded"] else a) for i, a in enumerate(args)]
+        args = [None if a is None else a.to(device) for a in args]
+        with torch.no_grad(), sharded_axis(None, IMAGE_AXIS, size):
+            y = _ops()[c["op"]](*args, **op_kwargs(c["kwargs"]))
+        out.append({"y": _numpy(y)})
+    return out
+
+
+@contextlib.contextmanager
+def lowering(name: str):
+    """The 3D head a case runs, on the unsharded and the sharded forward
+    alike: ``"fused"`` (the default), ``"plain"``, ``"packed"`` (its final
+    deconv the unpack branch on the CPU, dfold on the card) or
+    ``"packed+dfold"`` (dfold on the CPU too, through
+    ``REDTAIL_TPU_DFOLD``, which has no context form); the switches are
+    set for the block and restored after. ``"fused"`` raises where the
+    environment selects the packed head (``REDTAIL_TPU_PACKED3D=1``)."""
+    from redtail_tpu_torch.ops.convolution import (packed3d_lowering,
+                                                   plain_lowering,
+                                                   use_packed3d)
+
+    if name not in LOWERINGS:
+        raise ValueError(f"lowering must be one of {LOWERINGS}, got "
+                         f"{name!r}")
+    if name == "fused" and use_packed3d():
+        raise ValueError("REDTAIL_TPU_PACKED3D=1 selects the packed head; "
+                         "the fused case needs it unset or 0")
+    saved = os.environ.get("REDTAIL_TPU_DFOLD")
+    os.environ["REDTAIL_TPU_DFOLD"] = "1" if name == "packed+dfold" else "0"
+    try:
+        with (plain_lowering() if name == "plain"
+              else packed3d_lowering() if name.startswith("packed")
+              else contextlib.nullcontext()):
+            yield
+    finally:
+        if saved is None:
+            os.environ.pop("REDTAIL_TPU_DFOLD", None)
+        else:
+            os.environ["REDTAIL_TPU_DFOLD"] = saved
+
+
+LOWERINGS = ("fused", "plain", "packed", "packed+dfold")
+
+
 def forward_cases(rank: int, world_size: int, cases: List[Dict],
                   device_type: str) -> List[Dict]:
     """Each case: ``spec`` (a `STEREO_SPECS` name and replaced fields),
     ``params`` (numpy tree), ``left`` / ``right`` (global frames),
-    ``mesh`` (data, spatial), ``mode``, ``dtype``; with ``unsharded`` rank
-    0 runs the same net on the whole frames instead (the 3D models under
-    `plain_lowering()`, the lowering the sharded forward takes) and the
-    other ranks return None. Returns the disparity (gathered), the
-    launches of the correlation and concat kernels in this rank, the bytes
-    its halo exchanges received and the bytes of the activations they were
-    called on, peak device memory, and the device time of one forward on
-    the card (CUDA events; 0 on the CPU)."""
+    ``mesh`` (data, spatial), ``mode``, ``dtype``, ``lowering`` (see
+    `lowering`; default ``"fused"``); with ``unsharded`` rank 0 runs the
+    same net on the whole frames instead, under the same lowering (and
+    under `plain_lowering()` in disparity mode, the lowering the sharded
+    forward takes there), and the other ranks return None. Returns the
+    disparity (gathered), the launches in this rank of the correlation,
+    concat, emission (``emit``: both layouts; ``packed_emit``: the
+    dh-shifted one) and conv223 kernels, the bytes its halo exchanges
+    received and the bytes of the activations they were called on, peak
+    device memory, and the device time of one forward on the card (CUDA
+    events; 0 on the CPU)."""
+    from redtail_tpu_torch.kernels import conv223
     from redtail_tpu_torch.kernels import corr_cost_volume as corr
     from redtail_tpu_torch.kernels import cost_volume_concat as concat
+    from redtail_tpu_torch.kernels import fused_cv_emit as emit
     from redtail_tpu_torch.models.stereo import params_from_numpy
-    from redtail_tpu_torch.ops.convolution import plain_lowering
     from redtail_tpu_torch.ops.halo import exchange
     from redtail_tpu_torch.parallel.sharding import shard_stereo_forward
 
+    counters = {"corr_launches": (corr.corr_softargmax, "launches"),
+                "concat_launches": (concat.cost_volume_concat, "launches"),
+                "emit_launches": (emit.fused_cv_emit, "launches"),
+                "packed_emit_launches": (emit.fused_cv_emit,
+                                         "packed_launches"),
+                "conv223_launches": (conv223.conv223, "launches"),
+                "moved_bytes": (exchange, "moved"),
+                "held_bytes": (exchange, "held")}
     device = _device(device_type)
     meshes = {}
     out = []
     for c in cases:
         spec = _spec(c["spec"])
         dtype = DTYPES[c.get("dtype", "float32")]
+        mode = c.get("mode", "image")
+        head = "plain" if mode == "disparity" else c.get("lowering", "fused")
+        if c.get("unsharded") and rank:
+            out.append(None)
+            continue
+        net = params_from_numpy(spec, c["params"], device=device,
+                                dtype=dtype)
         if c.get("unsharded"):
-            if rank:
-                out.append(None)
-                continue
-
-            def fn(_, left, right, net=params_from_numpy(
-                    spec, c["params"], device=device, dtype=dtype)):
-                with torch.no_grad(), plain_lowering():
+            def fn(_, left, right, net=net):
+                with torch.no_grad():
                     return net(left, right)
         else:
-            fn = shard_stereo_forward(
-                spec, params_from_numpy(spec, c["params"], device=device,
-                                        dtype=dtype),
-                _mesh(meshes, c["mesh"], device), mode=c.get("mode", "image"))
+            fn = shard_stereo_forward(spec, net,
+                                      _mesh(meshes, c["mesh"], device),
+                                      mode=mode)
         left, right = (torch.from_numpy(c[k]).to(device, dtype)
                        for k in ("left", "right"))
-        if device.type == "cuda":
-            fn(None, left, right)  # warm-up: kernels loaded, caches filled
-            torch.cuda.synchronize(device)
-            torch.cuda.reset_peak_memory_stats(device)
-        counts = (corr.corr_softargmax.launches,
-                  concat.cost_volume_concat.launches, exchange.moved,
-                  exchange.held)
-        disp = fn(None, left, right)
-        res = {"disp": _numpy(disp),
-               "corr_launches": corr.corr_softargmax.launches - counts[0],
-               "concat_launches": (concat.cost_volume_concat.launches
-                                   - counts[1]),
-               "moved_bytes": exchange.moved - counts[2],
-               "held_bytes": exchange.held - counts[3],
-               "peak_bytes": (torch.cuda.max_memory_allocated(device)
-                              if device.type == "cuda" else 0), "ms": 0.0}
-        if device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn(None, left, right)
-            end.record()
-            end.synchronize()
-            res["ms"] = start.elapsed_time(end)
+        with lowering(head):
+            if device.type == "cuda":
+                fn(None, left, right)  # warm-up: kernels loaded, caches
+                torch.cuda.synchronize(device)
+                torch.cuda.reset_peak_memory_stats(device)
+            before = {k: getattr(*v) for k, v in counters.items()}
+            disp = fn(None, left, right)
+            res = {k: getattr(*v) - before[k] for k, v in counters.items()}
+            res.update(disp=_numpy(disp), ms=0.0, peak_bytes=(
+                torch.cuda.max_memory_allocated(device)
+                if device.type == "cuda" else 0))
+            if device.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn(None, left, right)
+                end.record()
+                end.synchronize()
+                res["ms"] = start.elapsed_time(end)
         out.append(res)
     return out
 
@@ -255,8 +356,9 @@ def train_cases(rank: int, world_size: int, cases: List[Dict],
 
 def run_cases(rank: int, world_size: int, groups: Dict[str, List[Dict]],
               device_type: str) -> Dict[str, List[Dict]]:
-    """Several programs in one spawn: ``groups`` maps ``'forward'`` and
-    ``'train'`` to their cases."""
-    programs = {"forward": forward_cases, "train": train_cases}
+    """Several programs in one spawn: ``groups`` maps ``'forward'``,
+    ``'train'`` and ``'op'`` to their cases."""
+    programs = {"forward": forward_cases, "train": train_cases,
+                "op": op_cases}
     return {name: programs[name](rank, world_size, cases, device_type)
             for name, cases in groups.items()}

@@ -13,10 +13,10 @@ Here each rank is a process (`parallel/launch.py`), the mesh is a
 a layout is a tuple of DTensor placements (`Shard`, `Replicate`), one per
 mesh axis, and each rank computes on its own local shard
 (`local_shard`, the ownership rule of `ops/halo.py`). The few
-collectives the stereo nets need are the port's own: the convs' halo
-exchanges (`ops/halo.py:sharded_axis`), the soft-argmin's
-normalization over a sharded D (`ops/softargmax.py`) and the gathers of
-the output.
+collectives the stereo nets need are the port's own: the halo exchanges
+of the convs, of the packed head's slot-axis ops and of the emission
+(`ops/halo.py:sharded_axis`), the soft-argmin's normalization over a
+sharded D (`ops/softargmax.py`) and the gathers of the output.
 """
 
 from __future__ import annotations
@@ -145,20 +145,24 @@ def shard_stereo_forward(spec: StereoSpec, params, mesh: DeviceMesh, *,
     dtype, as `stereo_forward` does); the one given here is the
     default.
 
-    - ``mode='image'``: N over data, H over spatial, params replicated.
-      ResNet18-2D runs its usual head (the correlation kernel's fused
-      soft-argmax is row-local); the 3D models run under
-      `plain_lowering()` (the row-local concat kernel, then the convs with
-      H halos).
+    - ``mode='image'``: N over data, H over spatial, params replicated;
+      each rank computes its own rows of H plus the halos its convs
+      fetch. ResNet18-2D runs its usual head (the correlation kernel's
+      fused soft-argmax is row-local); the 3D models run the head the
+      lowering in force selects, as the unsharded `StereoNet` does: the
+      fused cost volume + conv3D_1 (the emission kernel on each rank's
+      rows) by default, the packed head on each rank's slots (the
+      emission's dh-shifted layout, conv223, the D-folded final deconv on
+      the card or with ``REDTAIL_TPU_DFOLD=1``) under
+      `packed3d_lowering()` / ``REDTAIL_TPU_PACKED3D=1``, the explicit
+      concat volume under `plain_lowering()`. Int8 leaves run sharded.
     - ``mode='disparity'`` (3D models only): the images split over data
-      only; each spatial rank builds its own disparities of the concat
-      volume (`cost_volume_concat(d_offset=...)`) and runs the 3D stack on
-      them with D halos; the soft-argmin's normalization is the one
-      cross-D reduction. The (D, H, W, 2C) volume, the memory peak, is
-      split over the ranks.
-
-    The fused and packed 3D heads are not sharded yet and raise
-    `NotImplementedError` (`models/stereo.py:SHARDED_NOT_PORTED`)."""
+      only; under `plain_lowering()`, whatever the caller's, each spatial
+      rank builds its own disparities of the concat volume
+      (`cost_volume_concat(d_offset=...)`) and runs the unpacked 3D stack
+      on them with D halos (as the JAX package's disparity mode); the
+      soft-argmin's normalization is the one cross-D reduction. The (D,
+      H, W, 2C) volume, the memory peak, is split over the ranks."""
     if mode not in MODES:
         raise ValueError(f"unknown sharding mode {mode!r}")
     if mode == "disparity" and spec.corr:
@@ -188,7 +192,7 @@ def shard_stereo_forward(spec: StereoSpec, params, mesh: DeviceMesh, *,
                   for a in (left, right))
         with contextlib.ExitStack() as stack:
             stack.enter_context(torch.no_grad())
-            if not spec.corr:
+            if mode == "disparity":
                 stack.enter_context(plain_lowering())
             if spatial > 1:
                 axis, size = ((IMAGE_AXIS, rows) if mode == "image"

@@ -16,11 +16,15 @@ ranks run the programs of `parallel/rank_checks.py` and hand back numpy.
   32x64 (and 33x64, odd H), max_disp 4, raw and s2d frames, mesh (2, 2)
   and (1, 4), against JAX's unsharded `stereo_forward` at atol 2e-4 (the
   tolerance of `tests/test_parallel.py`), ResNet18-2D's residual weights
-  scaled by 0.3 and every bias random;
+  scaled by 0.3 and every bias random; NVTiny under the plain lowering
+  there, and at max_disp 8 under the fused head, the packed head (its
+  final deconv the unpack branch) and the packed head with
+  ``REDTAIL_TPU_DFOLD=1``, each against JAX's unsharded forward under the
+  same switches;
 - disparity mode, NVTiny max_disp 8 on mesh (1, 4) (D = 8 over 4 ranks,
   halved to 4 and 2 by the strided layers: shards of 1 and 0), against
   JAX at 2e-4;
-- the fused head under sharding raises.
+- the correlation model under disparity sharding raises.
 """
 
 import dataclasses
@@ -235,40 +239,61 @@ def _jax_forward(name, hw, max_disp, params, left, right):
     return np.asarray(fn(jax.tree.map(jnp.asarray, params), left, right))
 
 
-# (model, frames hw, max_disp, s2d, mesh, mode)
+# (model, frames hw, max_disp, s2d, mesh, mode, lowering): the 3D model's
+# head on both sides (`rank_checks.lowering`; JAX's switches are the
+# REDTAIL_TPU_PACKED3D / _DFOLD environment, its default head the fused
+# one); "plain" against JAX's fused head, the same function
 FORWARDS = [
-    ("resnet18_2d", (32, 64), 4, False, (2, 2), "image"),
-    ("resnet18_2d", (33, 64), 4, False, (2, 2), "image"),
-    ("resnet18_2d", (33, 64), 4, True, (2, 2), "image"),
-    ("resnet18_2d", (33, 64), 4, False, (1, 4), "image"),
-    ("nvtiny", (32, 64), 4, False, (2, 2), "image"),
-    ("nvtiny", (33, 64), 4, False, (2, 2), "image"),
-    ("nvtiny", (33, 64), 4, True, (2, 2), "image"),
-    ("nvtiny", (33, 64), 4, False, (1, 4), "image"),
-    ("nvtiny", (32, 64), 8, False, (1, 4), "disparity"),
-    ("nvtiny", (33, 64), 8, True, (1, 4), "disparity"),
-]
+    ("resnet18_2d", (32, 64), 4, False, (2, 2), "image", "fused"),
+    ("resnet18_2d", (33, 64), 4, False, (2, 2), "image", "fused"),
+    ("resnet18_2d", (33, 64), 4, True, (2, 2), "image", "fused"),
+    ("resnet18_2d", (33, 64), 4, False, (1, 4), "image", "fused"),
+    ("nvtiny", (32, 64), 4, False, (2, 2), "image", "plain"),
+    ("nvtiny", (33, 64), 4, False, (2, 2), "image", "plain"),
+    ("nvtiny", (33, 64), 4, True, (2, 2), "image", "plain"),
+    ("nvtiny", (33, 64), 4, False, (1, 4), "image", "plain"),
+    ("nvtiny", (32, 64), 8, False, (1, 4), "disparity", "plain"),
+    ("nvtiny", (33, 64), 8, True, (1, 4), "disparity", "plain"),
+] + [("nvtiny", hw, 8, s2d, mesh, "image", lowering)
+     for lowering in ("fused", "packed", "packed+dfold")
+     for hw, s2d, mesh in (((32, 64), False, (2, 2)),
+                           ((33, 64), False, (2, 2)),
+                           ((33, 64), True, (2, 2)),
+                           ((33, 64), False, (1, 4)),
+                           ((32, 64), True, (1, 4)))]
 FORWARD_IDS = [f"{m}-{hw[0]}x{hw[1]}-d{d}-{'s2d' if s else 'raw'}-"
                f"{mesh[0]}x{mesh[1]}-{mode}"
-               for m, hw, d, s, mesh, mode in FORWARDS]
+               + ("" if (m, low, d) in (("resnet18_2d", "fused", 4),
+                                        ("nvtiny", "plain", 4))
+                  or mode == "disparity" else f"-{low}")
+               for m, hw, d, s, mesh, mode, low in FORWARDS]
 
 
 @pytest.fixture(scope="module")
 def forwards(monkeypatch_module):
-    monkeypatch_module.setenv("REDTAIL_TPU_PACKED3D", "0")
+    for var in ("REDTAIL_TPU_PALLAS_CONV3D", "REDTAIL_TPU_PACKED3D",
+                "REDTAIL_TPU_DFOLD"):
+        monkeypatch_module.delenv(var, raising=False)
     cases, wants = [], []
-    for i, (name, hw, max_disp, s2d, mesh, mode) in enumerate(FORWARDS):
+    for i, (name, hw, max_disp, s2d, mesh, mode, lowering) in enumerate(
+            FORWARDS):
         spec = dataclasses.replace(STEREO_SPECS[name], input_hw=hw,
                                    max_disp=max_disp)
         params = conditioned(init_stereo_params(spec, seed=1))
         left, right = _frames(hw, 2, seed=i)
         if s2d:
             left, right = space_to_depth2_np(left), space_to_depth2_np(right)
-        wants.append(_jax_forward(name, hw, max_disp, params, left, right))
+        with pytest.MonkeyPatch.context() as mp:   # JAX's switches
+            mp.setenv("REDTAIL_TPU_PACKED3D", "1" if (
+                lowering.startswith("packed")) else "0")
+            mp.setenv("REDTAIL_TPU_DFOLD", "1" if (
+                lowering == "packed+dfold") else "0")
+            wants.append(_jax_forward(name, hw, max_disp, params, left,
+                                      right))
         cases.append({"spec": {"name": name, "input_hw": hw,
                                "max_disp": max_disp},
                       "params": params, "left": left, "right": right,
-                      "mesh": mesh, "mode": mode})
+                      "mesh": mesh, "mode": mode, "lowering": lowering})
     results = _spawn(rank_checks.forward_cases, cases)
     return wants, results
 
@@ -347,17 +372,19 @@ def test_sharded_forward_runs_on_the_meshs_device(monkeypatch):
         shard_stereo_forward(spec, net, mesh)(None, left, right)
 
 
-def test_fused_head_under_sharding_raises():
-    spec = dataclasses.replace(STEREO_SPECS["nvtiny"], input_hw=(32, 64),
+def test_corr_model_under_disparity_sharding_raises():
+    """The one sharded forward a net refuses: the correlation model has no
+    disparity axis to split."""
+    spec = dataclasses.replace(STEREO_SPECS["resnet18_2d"], input_hw=(32, 64),
                                max_disp=4)
-    params = init_stereo_params(spec, seed=1)
-    left, right = _frames((8, 64), 1, seed=0)
-    case = {"spec": {"name": "nvtiny", "input_hw": (32, 64), "max_disp": 4},
-            "params": params, "left": left, "right": right, "axis": -2,
-            "size": 32}
-    for res in _spawn(rank_checks.refused_cases, [case]):
-        assert res[0]["error"] == "NotImplementedError"
-        assert "item 13" in res[0]["message"]
+    left, right = _frames((32, 64), 1, seed=0)
+    case = {"spec": {"name": "resnet18_2d", "input_hw": (32, 64),
+                     "max_disp": 4},
+            "params": init_stereo_params(spec, seed=1), "left": left,
+            "right": right, "axis": -3, "size": 4}
+    for res in _spawn(rank_checks.refused_cases, [case], ranks=2):
+        assert res[0]["error"] == "ValueError"
+        assert "3D cost-volume" in res[0]["message"]
 
 
 def test_a_failing_rank_fails_the_spawn_with_its_traceback():
