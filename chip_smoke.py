@@ -35,12 +35,28 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
    time, one empty kernel timed the same way;
    conv223 (weights in the K-major form the packed head holds) also beside
    cuDNN's `F.conv3d` of the same dense conv (its library yardstick);
+   the corr kernel's grouped soft-argmax (groups = 2, the H-packed head's
+   launch) against its plain version at ResNet18-2D's packed features at
+   321x1025 ((1, 81, 513, 64), D = 48, 161 rows: a pad row; read as
+   channel slices of the towers' map, as the head passes them) and at its
+   edges (even rows, odd rows at batch 2, W = 63, 65, 513 with D = 47, 49,
+   1, C = 3), fp32 and bf16, its pad rows exactly 0 and each group bit for
+   bit the ungrouped launch on that group's rows; timed at the main call
+   beside its bound (`--corr-parent DIR` instead holds groups = 1 bit for
+   bit against the kernel built from an earlier checkout at DIR);
 4. slice, card vs CPU: ResNet18-2D at 129x257 (max_disp 16) and NVTiny,
    NVSmall, ResNet-18 3D at 65x129 (max_disp 8; the fused, plain and
    packed lowerings, the packed one with the D-folded final deconv on the
    card and the unpack branch on the CPU), seeded weights: card fp32
    (TF32 off) against the CPU within a stated tolerance, card bf16
-   against CPU fp32 under a stated mean;
+   against CPU fp32 under a stated mean; then the layout forms with the
+   same gates: ResNet18-2D at 129x257 on s2d frames under block-diagonal
+   towers, H-packed towers and H-packed towers with the H-packed head (the
+   grouped corr launch there and nowhere else), NVSmall's packed head at
+   65x129 under ``REDTAIL_TPU_MASK_FORM=mul`` and ``where``; and the 2D and
+   3D shuffle transposes against the dilated form on the card at
+   deconv2D_3's (y (1, 161, 513, 32)) and deconv3D_3's (y (1, 48, 161,
+   513, 32)) shapes, fp32 within 1e-4 and bf16 within one bf16 step;
 5. serving, the main paths at full 321x1025 width in bf16, each driven
    with every launch count set to 0 just before and read just after:
    a. `StereoNode` ResNet18-2D, random weights, 10 frames: the corr
@@ -232,6 +248,25 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
     emission and conv223 kernels and 11 alone and ends with a
     `{"partial": true, ...}` line, not the `ok` line.
 
+12. the layout forms served (the JAX package's switches, set in this
+    process around each path), at 321x1025 in bf16 on s2d frames, 10
+    frames each, every count set to 0 just before and read just after:
+    `StereoNode` ResNet18-2D (random conditioned weights) under the
+    default towers, ``REDTAIL_TPU_FUSED_TOWERS=1`` (block-diagonal),
+    ``+ REDTAIL_TPU_HPACK2D=1`` (H-packed) and ``+ REDTAIL_TPU_HPACK_CORR=1``
+    (the H-packed head): the corr kernel's grouped soft-argmax once a frame
+    under the H-packed head and never otherwise, each form's disparity
+    within phase 4's bf16 mean (1e-2 sigmoid units) of the default path's
+    on the same frames; NVSmall's packed head (real weights) under mask
+    forms auto, mul and where, each against auto within 5d's gates (and
+    whether bit-equal); each with its median latency, device busy and idle
+    share, launches a frame and peak memory beside the card's name and
+    power limit; then deconv2D_3 at its shape timed in its dilated and
+    shuffle forms (dilated, shuffle, shuffle, dilated).
+    `python3 chip_smoke.py --forms-only` runs phases 1-2, 3's grouped corr
+    kernel, 4's layout forms and 12 alone and ends with a `{"partial":
+    true, ...}` line.
+
 Then one JSON line describing every ported kernel, and last the line
 `{"ok": true, "device": {...}}`.
 """
@@ -338,6 +373,45 @@ CONV223_CASES = (("nvsmall", (1, 25, 82, 513, 128), 128),
                  ("shard 40", (1, 25, 41, 513, 128), 128),
                  ("shard 41", (1, 25, 42, 513, 128), 128),
                  ("shard Hp=2", (1, 25, 2, 513, 128), 128))
+# The corr kernel's grouped soft-argmax (name, (N, Hp, W, G * C) packed
+# features, D, original rows, read as channel slices): ResNet18-2D's
+# H-packed towers at 321x1025 first (161 rows in 81 slots, the last slot's
+# second group a pad row; each tower's half read where it lies in the
+# towers' (1, 81, 513, 128) map, as the head passes it), then an even row
+# count, odd rows at batch 2, the warp edges W = 63, 65, 513 with D = 47,
+# 49, 1, and C = 3 (loaded element by element).
+CORR_GROUPED_CASES = (("resnet18_2d hp", (1, 81, 513, 64), 48, 161, True),
+                      ("even rows", (1, 8, 65, 64), 48, 16, False),
+                      ("odd rows b2", (2, 5, 37, 16), 9, 9, True),
+                      ("W=63 D=47", (1, 3, 63, 64), 47, 5, True),
+                      ("W=65 D=49", (1, 3, 65, 64), 49, 6, False),
+                      ("W=513 D=1", (1, 2, 513, 64), 1, 3, True),
+                      ("C=3", (1, 3, 9, 6), 5, 5, False))
+GROUPS = 2
+# The tower and head forms of ResNet-18 (the JAX package's switches, read
+# by the port at each call), and the packed head's mask forms.
+FORM_ENVS = {"default": {},
+             "bd": {"REDTAIL_TPU_FUSED_TOWERS": "1"},
+             "hp": {"REDTAIL_TPU_FUSED_TOWERS": "1",
+                    "REDTAIL_TPU_HPACK2D": "1"},
+             "hp+corr": {"REDTAIL_TPU_FUSED_TOWERS": "1",
+                         "REDTAIL_TPU_HPACK2D": "1",
+                         "REDTAIL_TPU_HPACK_CORR": "1"}}
+MASK_FORMS = ("mul", "where")
+# 12: each form's disparity against the default path's on the same bf16
+# frames, sigmoid units (px / 1025): the forms round in other places (the
+# packed convs add bias and ELU before their one rounding, as JAX's do),
+# gated at phase 4's bf16 mean for ResNet18-2D
+FORMS_2D_MEAN = 1e-2
+# deconv2D_3 of ResNet18-2D at 321x1025 (y (1, 161, 513, 32), w (3, 3, 1,
+# 32)) and deconv3D_3 of NVSmall (y (1, 48, 161, 513, 32), w (3, 3, 3, 1,
+# 32)): the shuffle transposes against the dilated one on the card
+SHUFFLE_CASES = (("deconv2D_3", (1, 161, 513, 32), (3, 3, 1, 32),
+                  (321, 1025)),
+                 ("deconv3D_3", (1, 48, 161, 513, 32), (3, 3, 3, 1, 32),
+                  (96, 321, 1025)))
+FORMS_ONLY = "--forms-only"   # phases 1-2, 3's grouped corr, 4's forms, 12
+CORR_PARENT = "--corr-parent"  # DIR: the corr kernel of an earlier tree
 FULL_HW = (321, 1025)
 SLICE_3D_HW, SLICE_3D_DISP = (65, 129), 8
 SLICE_3D_FP32_ATOL = 1e-3   # px: card fp32 vs CPU fp32, summation order
@@ -674,6 +748,154 @@ def phase_corr(torch, corr, softargmax, gen):
     return entry
 
 
+def _grouped_inputs(torch, gen, shape, dtype, slices):
+    """The pair of packed feature maps of a grouped case: contiguous, or
+    (``slices``) the two halves of one (N, Hp, W, 2 G C) map, as the
+    H-packed head passes the towers' output."""
+    if not slices:
+        return tuple(_randn(torch, gen, shape, dtype) for _ in range(2))
+    n, h, w, gc = shape
+    both = _randn(torch, gen, (n, h, w, 2 * gc), dtype)
+    return both[..., :gc], both[..., gc:]
+
+
+def phase_corr_grouped(torch, corr, gen):
+    """The corr kernel's grouped soft-argmax (G = 2, the H-packed head's)
+    against its plain version at every grouped case, fp32 and bf16, on
+    inputs scaled by 1/sqrt(C); its pad rows exactly 0; each group bit for
+    bit the ungrouped kernel's launch on that group's rows alone (the same
+    arithmetic in the same order); then timed at the main path's call.
+    Returns its entry of the `kernels` line."""
+    max_err = 0.0
+    for name, shape, d, rows, slices in CORR_GROUPED_CASES:
+        n, hp, w, gc = shape
+        c = gc // GROUPS
+        for dtype in (torch.bfloat16, torch.float32):
+            left, right = (t * c ** -0.5 for t in _grouped_inputs(
+                torch, gen, shape, dtype, slices))
+            if slices:   # the scaling copied them: slices again
+                both = torch.cat([left, right], dim=-1)
+                left, right = both[..., :gc], both[..., gc:]
+            got = corr.corr_softargmax(left, right, d, groups=GROUPS,
+                                       rows=rows)
+            torch.cuda.synchronize()
+            want = corr.corr_softargmax_plain(left, right, d, GROUPS, rows)
+            check(got.shape == want.shape == (n, hp, w, GROUPS)
+                  and got.dtype == torch.float32,
+                  f"corr grouped {name}: {got.shape} {got.dtype}")
+            err = (got - want).abs().max().item()
+            check(err <= SOFTARGMAX_ATOL, f"corr grouped {name} {dtype}: "
+                  f"max abs err {err} > {SOFTARGMAX_ATOL}")
+            max_err = max(max_err, err)
+            pad = [(i, g) for i in range(hp) for g in range(GROUPS)
+                   if GROUPS * i + g >= rows]
+            check(all(bool((got[:, i, :, g] == 0).all()) for i, g in pad),
+                  f"corr grouped {name}: a pad row is not 0")
+            same = True
+            for g in range(GROUPS):
+                one = corr.corr_softargmax(
+                    left[..., g * c:(g + 1) * c].contiguous(),
+                    right[..., g * c:(g + 1) * c].contiguous(), d)
+                real = [i for i in range(hp) if GROUPS * i + g < rows]
+                same &= torch.equal(got[:, real, :, g], one[:, real])
+            check(same, f"corr grouped {name} {dtype}: a group differs from "
+                  f"the ungrouped launch on its rows")
+            print(f"corr grouped {name:14s} {str(shape):18s} D={d:<3d} "
+                  f"rows={rows:<4d} {'slices' if slices else 'contig':6s} "
+                  f"{str(dtype):15s} max_abs_err={err:.3e} (tol "
+                  f"{SOFTARGMAX_ATOL}); pad rows 0: {len(pad)} entries; "
+                  f"each group bit-equal to the ungrouped launch")
+    name, shape, d, rows, _ = CORR_GROUPED_CASES[0]
+    left, right = _grouped_inputs(torch, gen, shape, torch.bfloat16, True)
+    n, hp, w, gc = shape
+    nbytes = 2 * n * hp * w * gc * 2 + n * hp * w * GROUPS * 4
+    flops = 2 * gc * n * hp * sum(max(w - k, 0) for k in range(d))
+    timed = time_kernel(
+        torch, f"corr grouped softargmax at {shape} D={d} bf16 (channel "
+        f"slices of the towers' map)",
+        lambda: corr.corr_softargmax(left, right, d, groups=GROUPS,
+                                     rows=rows),
+        lambda: corr.corr_softargmax_plain(left, right, d, GROUPS, rows),
+        nbytes, flops, peak_flops=PEAK_BF16_FLOPS)
+    entry = {"name": "corr_cost_volume[softargmax, groups=2]",
+             "route": "cuda",
+             "source": "redtail_tpu_torch/csrc/corr_cost_volume.cu",
+             "replaces": "redtail_tpu/kernels/cost_volume_pallas.py:43",
+             "launches": None, "max_abs_err": max_err}
+    entry.update(timed)
+    return entry
+
+
+def phase_corr_parent(np, torch, corr, gen, parent: Path):
+    """The corr kernel at groups = 1 bit for bit against the same kernel
+    built from an earlier tree's source (``parent``, a checkout's root):
+    every corr case, both dtypes, the three epilogues."""
+    src = parent / "redtail_tpu_torch" / "csrc" / "corr_cost_volume.cu"
+    out = corr._build.BUILD / "libcorr_cost_volume-parent.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([corr._build._nvcc(), *corr._build.NVCC_FLAGS,
+                           "-o", str(out), str(src)], capture_output=True,
+                          text=True, timeout=600)
+    check(proc.returncode == 0, f"the earlier corr source did not build: "
+          f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  earlier corr_cost_volume: {line.strip()[:160]}")
+    import ctypes
+    lib = ctypes.CDLL(str(out))
+    lib.corr_cost_volume_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    lib.corr_cost_volume_launch.restype = ctypes.c_int
+    cases = 0
+    for name, shape, d in CORR_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            left, right = (_randn(torch, gen, shape, dtype)
+                           for _ in range(2))
+            for mode in ("hdw", "dlast", "softargmax"):
+                new = corr._forward(left, right, d, mode)
+                old = torch.empty_like(new)
+                n, h, w, c = shape
+                err = lib.corr_cost_volume_launch(
+                    left.data_ptr(), right.data_ptr(), old.data_ptr(), n, h,
+                    w, c, d, int(dtype == torch.bfloat16),
+                    corr.MODES[mode], 0,
+                    torch.cuda.current_stream().cuda_stream)
+                torch.cuda.synchronize()
+                check(err == 0, f"the earlier corr kernel failed ({err})")
+                check(torch.equal(new, old), f"corr {name} {dtype} {mode}: "
+                      f"groups = 1 differs from the earlier kernel")
+                cases += 1
+    print(f"corr groups = 1 bit-equal to the kernel built from {src}: "
+          f"{cases} launches (every case, both dtypes, three epilogues)")
+    # the two builds timed in turns (earlier, now, now, earlier) at the
+    # main path's call, each epilogue
+    _, shape, d = CORR_CASES[0]
+    left, right = (_randn(torch, gen, shape, torch.bfloat16)
+                   for _ in range(2))
+    n, h, w, c = shape
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for mode in ("softargmax", "dlast", "hdw"):
+        out = corr._forward(left, right, d, mode)
+
+        def earlier(mode=mode, out=out):
+            lib.corr_cost_volume_launch(
+                left.data_ptr(), right.data_ptr(), out.data_ptr(), n, h, w,
+                c, d, 1, corr.MODES[mode], 0,
+                torch.cuda.current_stream().cuda_stream)
+        def now(mode=mode):
+            corr._forward(left, right, d, mode)
+        times = {"earlier": [], "now": []}
+        for who in ("earlier", "now", "now", "earlier"):
+            times[who].append(cuda_ms(
+                torch, earlier if who == "earlier" else now, flush,
+                label=f"corr {mode} {who}"))
+        print(f"corr {mode} at {shape} D={d} bf16, device time (L2 evicted; "
+              f"earlier, now, now, earlier): earlier "
+              f"{[round(t, 4) for t in times['earlier']]} ms, now "
+              f"{[round(t, 4) for t in times['now']]} ms "
+              f"({nvidia_smi('name,power.limit')})")
+
+
 def phase_concat(torch, concat, gen):
     """The concat kernel against its plain version, bit for bit, then
     timed at NVSmall's plain-lowering call. Each case launches
@@ -940,6 +1162,187 @@ def phase_slice(np, torch, models, s2d, lowerings):
               f"CPU fp32 by mean {err16.mean()}")
 
 
+def phase_slice_forms(np, torch, models, s2d, packed3d_lowering, corr, gen):
+    """4, the layout forms, card against CPU: ResNet18-2D at 129x257 (max
+    disparity 16) on s2d frames under each tower form and NVSmall's packed
+    head at 65x129 under each mask form, seeded conditioned weights, with
+    phase 4's gates (the CPU runs the same form: its plain versions);
+    then the shuffle transposes against the dilated form on the card at
+    deconv2D_3's and deconv3D_3's shapes."""
+    from redtail_tpu_torch.parallel.rank_checks import environ
+    cases = [("resnet18_2d", (129, 257), 16, form, FORM_ENVS[form], None,
+              1e-3, 1e-2, "") for form in ("bd", "hp", "hp+corr")]
+    cases += [("nvsmall", SLICE_3D_HW, SLICE_3D_DISP, f"packed {form}",
+               {"REDTAIL_TPU_MASK_FORM": form}, packed3d_lowering,
+               SLICE_3D_FP32_ATOL, SLICE_3D_BF16_MEAN, " px")
+              for form in MASK_FORMS]
+    for name, hw, max_disp, label, env, head, atol, mean_gate, unit in cases:
+        spec = dataclasses.replace(models.STEREO_SPECS[name], input_hw=hw,
+                                   max_disp=max_disp)
+        tree = conditioned_params(np, models.init_stereo_params(spec, seed=1),
+                                  2)
+        rs = np.random.RandomState(3)
+        left, right = (torch.from_numpy(s2d(rs.rand(1, *hw, 3)
+                                            .astype(np.float32)))
+                       for _ in range(2))
+        got = {}
+        with torch.inference_mode(), environ(env), \
+                (head or contextlib.nullcontext)():
+            ref = models.stereo_forward(spec, tree, left, right).numpy()
+            for dtype in (torch.float32, torch.bfloat16):
+                net = models.params_from_numpy(spec, tree, dtype=dtype)
+                if name == "resnet18_2d":
+                    check(net._tower_form(True) == label.split("+")[0],
+                          f"{label}: the net took {net._tower_form(True)}")
+                before = corr.corr_softargmax.grouped_launches
+                got[dtype] = net(left.cuda(), right.cuda()).float().cpu() \
+                    .numpy()
+                grouped = corr.corr_softargmax.grouped_launches - before
+                check(grouped == (label == "hp+corr"),
+                      f"{label}: {grouped} grouped corr launches")
+        err32 = np.abs(got[torch.float32] - ref)
+        err16 = np.abs(got[torch.bfloat16] - ref)
+        print(f"slice {name} {hw[0]}x{hw[1]} D={max_disp} {label}: card "
+              f"fp32 vs CPU fp32 max abs err {err32.max():.3e}{unit} (tol "
+              f"{atol}); card bf16 vs CPU fp32 mean {err16.mean():.3e}{unit} "
+              f"(gate {mean_gate}) max {err16.max():.3e}")
+        check(err32.max() <= atol, f"{name} {label}: card fp32 off CPU "
+              f"by {err32.max()}")
+        check(err16.mean() < mean_gate, f"{name} {label}: card bf16 off "
+              f"CPU fp32 by mean {err16.mean()}")
+
+    from redtail_tpu_torch.ops import convolution as conv
+    for name, yshape, wshape, out in SHUFFLE_CASES:
+        transpose = conv.conv2d_transpose if len(out) == 2 \
+            else conv.conv3d_transpose
+        y = _randn(torch, gen, yshape, torch.float32)
+        w = _randn(torch, gen, wshape, torch.float32) * 0.3
+        b = _randn(torch, gen, wshape[-2:-1], torch.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            yt, wt, bt = (t.to(dtype) for t in (y, w, b))
+            with torch.inference_mode():
+                want = transpose(yt, wt, bt, out_spatial=out, impl="dilated")
+                got = transpose(yt, wt, bt, out_spatial=out, impl="shuffle")
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if dtype == torch.float32:
+                ok, tol = err <= FP32_ATOL, f"{FP32_ATOL}"
+            else:
+                ok = bf16_ulp_ok(torch, got, want, FP32_ATOL)
+                tol = f"1 bf16 ulp + {FP32_ATOL}"
+            print(f"slice {name} shuffle vs dilated transpose, y {yshape} "
+                  f"-> {tuple(got.shape)} {dtype}: max abs err {err:.3e} "
+                  f"(tol {tol})")
+            check(got.shape == want.shape and ok,
+                  f"{name}: the shuffle transpose is off the dilated one")
+            del want, got
+
+
+def forms_setup(np, models):
+    """12's ResNet18-2D (full width, random conditioned weights) and
+    frames."""
+    spec = dataclasses.replace(models.STEREO_SPECS["resnet18_2d"],
+                               input_hw=FULL_HW)
+    return (spec, conditioned_params(
+        np, models.init_stereo_params(spec, seed=0), 4),
+        stereo_frames(np, 12, SERVE_FRAMES))
+
+
+def phase_forms(np, torch, models, nodes, counters, packed3d_lowering, gen):
+    """12: the layout forms served at full width in bf16 on s2d frames,
+    each driven with every count set to 0 just before and read just after:
+    `StereoNode` ResNet18-2D under the default, block-diagonal, H-packed
+    and H-packed + H-packed head forms, NVSmall's packed head (real
+    weights) under each mask form; each form's median latency, device busy
+    and idle share, launches a frame, peak memory and its disparity's
+    distance from the default path's on the same frames; then
+    deconv2D_3 timed in its dilated and shuffle forms. Returns (the
+    grouped corr launches by path, the figures)."""
+    from redtail_tpu_torch.parallel.rank_checks import environ
+    card = nvidia_smi("name,power.limit")
+    spec, tree, frames = forms_setup(np, models)
+    node = nodes.StereoNode(spec, tree, dtype=torch.bfloat16)
+    figures, outs, by_path = {}, {}, {}
+    for form, env in FORM_ENVS.items():
+        with environ(env):
+            label = f"12 resnet18_2d {form} 321x1025 bf16"
+            outs[form], counts, med = serve(np, torch, node, frames, counters,
+                                            FULL_HW[1], label)
+            traced = trace_frames(torch, node, frames[:3], med, table=False)
+            peak = torch.cuda.max_memory_allocated()
+        grouped = counts["corr_softargmax.grouped"]
+        want = SERVE_FRAMES if form == "hp+corr" else 0
+        check(counts["corr_softargmax"] == SERVE_FRAMES and grouped == want,
+              f"{label}: corr launches {counts['corr_softargmax']}, grouped "
+              f"{grouped}, for {SERVE_FRAMES} frames")
+        if grouped:
+            by_path[f"12 resnet18_2d {form}"] = grouped
+        diff = np.abs(np.stack(outs[form]) - np.stack(outs["default"])) \
+            / FULL_HW[1]
+        figures[form] = {"median_ms": med, "busy_ms": traced and traced[0],
+                         "launches_per_frame": traced and traced[1],
+                         "idle_share": traced and 1 - traced[0] / med,
+                         "corr_per_frame": counts["corr_softargmax"]
+                         / SERVE_FRAMES, "grouped_per_frame": grouped
+                         / SERVE_FRAMES, "peak_gib": peak / 2 ** 30,
+                         "mean_vs_default": float(diff.mean()),
+                         "max_vs_default": float(diff.max())}
+        print(f"{label} vs the default path, the same frames: mean abs "
+              f"diff {diff.mean():.4e} (gate {FORMS_2D_MEAN}), max "
+              f"{diff.max():.4e} (sigmoid units)")
+        check(diff.mean() < FORMS_2D_MEAN, f"{label}: off the default "
+              f"path by mean {diff.mean()}")
+
+    spec3d = models.STEREO_SPECS["nvsmall"]
+    node3d = nodes.StereoNode(spec3d, models.params_from_npz(
+        ROOT / NVSMALL_NPZ), dtype=torch.bfloat16)
+    frames3d = stereo_frames(np, 13, SERVE_FRAMES)
+    masks = {}
+    with packed3d_lowering():
+        for form in ("auto",) + MASK_FORMS:
+            with environ({"REDTAIL_TPU_MASK_FORM": form}):
+                label = f"12 nvsmall packed mask {form} 321x1025 bf16"
+                masks[form], counts, med = serve(
+                    np, torch, node3d, frames3d, counters,
+                    spec3d.full_max_disp, label)
+                traced = trace_frames(torch, node3d, frames3d[:3], med,
+                                      table=False)
+            check(counts["conv223"] == SERVE_FRAMES,
+                  f"{label}: conv223 launched {counts['conv223']} times")
+            diff = np.abs(np.stack(masks[form]) - np.stack(masks["auto"]))
+            figures[f"nvsmall mask {form}"] = {
+                "median_ms": med, "busy_ms": traced and traced[0],
+                "launches_per_frame": traced and traced[1],
+                "idle_share": traced and 1 - traced[0] / med,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "bit_equal_to_auto": bool(diff.max() == 0)}
+            print(f"{label} vs mask auto, the same frames: bit-equal "
+                  f"{diff.max() == 0}, max abs diff {diff.max():.4e} px "
+                  f"(gates mean {PACKED_MEAN}, max {PACKED_MAX})")
+            check(diff.mean() < PACKED_MEAN and diff.max() < PACKED_MAX,
+                  f"{label}: the mask forms disagree")
+
+    from redtail_tpu_torch.ops import convolution as conv
+    name, yshape, wshape, out = SHUFFLE_CASES[0]
+    y, w, b = (_randn(torch, gen, sh, torch.bfloat16)
+               for sh in (yshape, wshape, (1,)))
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    times = {}
+    with torch.inference_mode():
+        for impl in ("dilated", "shuffle", "shuffle", "dilated"):
+            times.setdefault(impl, []).append(cuda_ms(
+                torch, lambda: conv.conv2d_transpose(
+                    y, w, b, out_spatial=out, impl=impl), flush,
+                label=f"{name} {impl}"))
+    figures[name] = {impl: statistics.median(t) for impl, t in times.items()}
+    print(f"12 {name} bf16 y {yshape} -> {out}, device time (L2 evicted, "
+          f"dilated, shuffle, shuffle, dilated): "
+          f"{json.dumps({k: [round(v, 4) for v in t] for k, t in times.items()})}"
+          f" ms")
+    print(f"12 figures ({card}): {json.dumps(figures)}")
+    return by_path, figures
+
+
 def stereo_frames(np, seed, count):
     """``count`` uint8 BGR frame pairs at the full width: random texture,
     the right frame the left one shifted by a few pixels."""
@@ -952,10 +1355,13 @@ def stereo_frames(np, seed, count):
 
 
 def read_counts(counters):
-    """Each kernel wrapper's launch count (the emission's packed ones too)."""
+    """Each kernel wrapper's launch count (the emission's packed ones and
+    the corr kernel's grouped ones too)."""
     counts = {c.__name__: c.launches for c in counters}
     counts.update({f"{c.__name__}.packed": c.packed_launches
                    for c in counters if hasattr(c, "packed_launches")})
+    counts.update({f"{c.__name__}.grouped": c.grouped_launches
+                   for c in counters if hasattr(c, "grouped_launches")})
     return counts
 
 
@@ -964,6 +1370,8 @@ def zero_counts(counters):
         c.launches = 0
         if hasattr(c, "packed_launches"):
             c.packed_launches = 0
+        if hasattr(c, "grouped_launches"):
+            c.grouped_launches = 0
 
 
 def serve(np, torch, node, frames, counters, max_disp_px, label):
@@ -1016,6 +1424,8 @@ def phase_serve_2d(np, torch, models, nodes, counters):
     check(counts["corr_cost_volume"] == 0,
           f"the fused path launched the corr volume "
           f"{counts['corr_cost_volume']} times")
+    check(counts["corr_softargmax.grouped"] == 0,
+          "the default path launched the grouped corr soft-argmax")
     trace_frames(torch, node, frames[:3], med, match="corr_kernel")
     return counts["corr_softargmax"], counts["corr_cost_volume"]
 
@@ -3430,6 +3840,22 @@ def main() -> int:
                     print(f"  {name}: {line.strip()[:160]}")
 
     gen = seeded_generator(0)
+    if sys.argv[1:2] == [CORR_PARENT]:
+        phase_corr_parent(np, torch, corr, gen, Path(sys.argv[2]))
+        print(json.dumps({"partial": True, "phases": "1-2, corr groups = 1 "
+                          "against an earlier tree's kernel"}))
+        return 0
+    if sys.argv[1:] == [FORMS_ONLY]:
+        entry = phase_corr_grouped(torch, corr, gen)
+        phase_slice_forms(np, torch, models, space_to_depth2_np,
+                          packed3d_lowering, corr, gen)
+        entry["launches_by_path"], _ = phase_forms(
+            np, torch, models, nodes, counters, packed3d_lowering, gen)
+        entry["launches"] = sum(entry["launches_by_path"].values())
+        print(json.dumps({"kernels": [entry]}))
+        print(json.dumps({"partial": True, "phases": "1-2, 3 grouped corr, "
+                          "4 forms, 12"}))
+        return 0
     if sys.argv[1:] == [PARALLEL_ONLY]:
         phase_concat(torch, concat, gen)
         phase_emit(torch, emit, gen)
@@ -3440,13 +3866,17 @@ def main() -> int:
         print(json.dumps({"partial": True,
                           "phases": "1-2, 3 concat, emit, conv223, 11"}))
         return 0
+    grouped_entry = "corr_cost_volume[softargmax, groups=2]"
     entries = {"corr_cost_volume": phase_corr(torch, corr, softargmax, gen),
+               grouped_entry: phase_corr_grouped(torch, corr, gen),
                "cost_volume_concat": phase_concat(torch, concat, gen),
                "fused_cv_emit": phase_emit(torch, emit, gen),
                "conv223": phase_conv223(torch, c223, gen)}
     phase_slice(np, torch, models, space_to_depth2_np,
                 {"fused": contextlib.nullcontext, "plain": plain_lowering,
                  "packed": packed3d_lowering})
+    phase_slice_forms(np, torch, models, space_to_depth2_np,
+                      packed3d_lowering, corr, gen)
     fused, volume = phase_serve_2d(np, torch, models, nodes, counters)
     by_path = {"corr_cost_volume": {"5a resnet18_2d": fused}}
     for mode in entries["corr_cost_volume"]["modes"]:
@@ -3532,6 +3962,11 @@ def main() -> int:
                                            trailnet, space_to_depth2_np,
                                            counters).items():
         by_path.setdefault(entry, {}).update(paths)
+
+    # the layout forms served: the grouped corr launch under the H-packed
+    # head, and never on another path
+    by_path[grouped_entry], _ = phase_forms(np, torch, models, nodes,
+                                            counters, packed3d_lowering, gen)
 
     for name, paths in by_path.items():
         check(all(paths.values()), f"{name} was not launched on {paths}")

@@ -22,15 +22,17 @@ the pair in every serving rung, ``fp32``, ``bf16``, ``bf16+packed``,
 ``w8``, ``int8``, and prints a D1 / EPE table against the golden
 disparity (times ``--golden-scale``; a ``resnet18_2d`` golden in [0, 1]
 is scaled by the width) and one JSON line of rows. "packed" is
-`packed3d_lowering()`, the 3D models' packed head; the JAX package's
-fused and H-packed 2D towers are TPU layouts the port does not have, so
-``resnet18_2d``'s ``bf16+packed`` row runs its ``bf16`` path again. The w8
-and int8 rows run under the packed head too, as in the JAX app.
+`packed3d_lowering()`, the 3D models' packed head, with the block-diagonal
+towers (`fused_towers_lowering()`, ResNet-18's towers), as the JAX app
+sets ``REDTAIL_TPU_PACKED3D=1`` and ``REDTAIL_TPU_FUSED_TOWERS=1``; the w8
+and int8 rows run under both too (int8 towers fall back to the batched
+form, as in JAX).
 
 ``--profile-layers`` prints the per-layer device-time table
 (`runtime/layer_profiler.py`) to stderr, on the frames in the form
-`StereoNode` serves them: space-to-depth packed for the 3x3 stem, raw for
-an int8 stem. ``--save-engine PATH`` builds an AOTInductor engine of the
+`StereoNode` serves them: space-to-depth packed for the 3x3 stem unless
+``REDTAIL_TPU_S2D=0`` (`use_s2d_stem`), raw for an int8 stem; the tower
+and head switches in the environment select the layers it times. ``--save-engine PATH`` builds an AOTInductor engine of the
 configuration (dtype, rung, head) for that same input form in a pristine
 subprocess (`runtime/engine_builder.py`); ``--engine PATH`` runs one on the
 pair with no weights and no model code (`runtime/cache.load_engine`) and
@@ -57,7 +59,7 @@ import numpy as np
 import torch
 
 RUNGS = (
-    # (name, dtype, packed head, quantize)
+    # (name, dtype, packed head and block-diagonal towers, quantize)
     ("fp32", torch.float32, False, None),
     ("bf16", torch.bfloat16, False, None),
     ("bf16+packed", torch.bfloat16, True, None),
@@ -91,8 +93,8 @@ def build_argparser():
                    help="run every serving rung (fp32 / bf16 / bf16+packed "
                    "/ w8 / int8) on the pair and print a D1 / EPE table "
                    "against this golden disparity (.npy, .npz 'disp' or "
-                   ".bin); bf16+packed is the 3D models' packed head, the "
-                   "bf16 path again for resnet18_2d")
+                   ".bin); bf16+packed, w8 and int8 run the 3D models' "
+                   "packed head and ResNet-18's block-diagonal towers")
     p.add_argument("--golden-scale", type=float, default=1.0,
                    help="multiply the golden by this to get pixels "
                    "(resnet18_2d goldens are [0, 1] and scale by the width "
@@ -200,7 +202,8 @@ def run_accuracy_table(spec, tree, left_f32, right_f32, golden_px,
     """D1 / EPE (px, dense: every pixel counts) of each serving rung on one
     pair against a golden disparity map; ``left_f32`` / ``right_f32`` are
     (1, H, W, 3) float32 numpy."""
-    from redtail_tpu_torch.ops.convolution import packed3d_lowering
+    from redtail_tpu_torch.ops.convolution import (fused_towers_lowering,
+                                                   packed3d_lowering)
     from redtail_tpu_torch.utils.metrics import disparity_errors
 
     dense = np.ones_like(golden_px, bool)
@@ -211,8 +214,11 @@ def run_accuracy_table(spec, tree, left_f32, right_f32, golden_px,
                             right_f32)
         l, r = (torch.from_numpy(a).to(device=device, dtype=dtype)
                 for a in (left_f32, right_f32))
-        with (packed3d_lowering() if packed else contextlib.nullcontext()), \
-                torch.inference_mode():
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(torch.inference_mode())
+            if packed:
+                stack.enter_context(packed3d_lowering())
+                stack.enter_context(fused_towers_lowering())
             disp = net(l, r).float().cpu().numpy()[0]
         disp_px = disp * w if spec.corr else disp
         m = disparity_errors(disp_px, golden_px, dense)
@@ -323,8 +329,11 @@ def main(argv=None):
         disp = net(*(torch.from_numpy(a).to(device=device, dtype=dtype)
                      for a in (left, right))).float().cpu().numpy()[0]
 
-    # the serving input form: an int8 stem has no s2d form (StereoNode)
-    served = serving_frames(left, right, s2d=args.quantize != "int8")
+    # the serving input form (StereoNode's): s2d frames unless
+    # REDTAIL_TPU_S2D=0, raw for an int8 stem, which has no s2d form
+    from redtail_tpu_torch.ops.space_to_depth import use_s2d_stem
+    served = serving_frames(left, right,
+                            s2d=use_s2d_stem() and args.quantize != "int8")
     if args.save_engine:
         from redtail_tpu_torch.runtime.engine_builder import (
             build_stereo_engine)

@@ -18,6 +18,18 @@
 //     (`ops/softargmax.py` with scale 1), so the volume never reaches
 //     device memory.
 //
+// Groups (`softargmax` only): with G groups each pixel holds G groups of
+// C channels, at a pixel stride S >= G * C elements (a channel slice of a
+// wider NHWC map is read where it lies), and each (row, group) is an
+// independent correlation row: group g of pixel x starts at x * S + g * C.
+// The output is (N, H, W, G). This is the H-packed layout of
+// `ops/packed2d.py` (G = 2: group q of packed row i holds original row
+// 2 i + q): an entry whose original row G * i + g is at or past `rows` is a
+// pad row and is written as 0, where the soft-argmax of its all-zero
+// volume would be the mean index. G = 1, S = C and rows = H is the
+// ungrouped kernel, the same arithmetic in the same order; the grouped
+// index arithmetic is a template instantiation of its own (GROUPED).
+//
 // What bounds it: memory. At the flagship shape (L and R (1, 161, 513, 32)
 // bf16, D = 48) the inputs are 10.57 MB; `dlast` writes 15.86 MB more
 // (7.9 us of HBM traffic at 3.35 TB/s), `softargmax` 0.33 MB (3.3 us),
@@ -97,10 +109,15 @@ struct Params {
   void* out;
   int W, C, D;
   int x_groups;  // ceil(W / WX)
-  int units;     // N * H * x_groups: one a warp
+  int units;     // N * H * x_groups * G: one a warp
   int d_chunks;  // ceil(D / DC)
   int warp_out;  // elements of a warp's output staging (volume modes)
-  int vec;       // 16-byte loads: C a multiple of 16 bytes, rows aligned
+  int vec;       // 16-byte loads: C and S multiples of 16 bytes, aligned
+  // the grouped `softargmax` (GROUPED instantiations) only:
+  int H;
+  int G;         // groups a pixel
+  int S;         // pixel stride, elements (>= G * C)
+  int rows;      // original rows: entries of row G * h + g >= rows are 0
 };
 
 // 2^x, flushing results below 2^-126 to 0 (MUFU.EX2 alone)
@@ -116,8 +133,8 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 }
 
 // 16 bytes of row x of a (W, C) map at channel c (8 bf16 or 4 fp32), zero
-// outside [0, W) and past C.
-template <typename T>
+// outside [0, W) and past C; pixels C apart, or S apart when GROUPED.
+template <bool GROUPED, typename T>
 __device__ __forceinline__ uint4 load16(const T* map, int x, int c,
                                         const Params& p) {
   constexpr int V = 16 / sizeof(T);
@@ -127,7 +144,7 @@ __device__ __forceinline__ uint4 load16(const T* map, int x, int c,
   } v;
   v.u = make_uint4(0, 0, 0, 0);
   if (x < 0 || x >= p.W || c >= p.C) return v.u;
-  const T* src = map + (int64_t)x * p.C + c;
+  const T* src = map + (int64_t)x * (GROUPED ? p.S : p.C) + c;
   if (p.vec) return __ldg(reinterpret_cast<const uint4*>(src));
 #pragma unroll
   for (int i = 0; i < V; ++i)
@@ -148,19 +165,20 @@ __device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1,
 // One chunk of channels from c0 into the warp's accumulators acc[j]: its 16
 // x rows from x0 by y tile j's 8 columns from yb + 8 j, in the m16n8
 // fragment layout (lane: rows g, g + 8; columns 2t, 2t + 1).
-template <int NT>
+template <int NT, bool GROUPED>
 __device__ __forceinline__ void accumulate(const __nv_bfloat16* lmap,
                                            const __nv_bfloat16* rmap,
                                            const Params& p, int x0, int yb,
                                            int nt, int c0, float (*acc)[4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int c = c0 + 8 * t;
-  const uint4 lo = load16(lmap, x0 + g, c, p);
-  const uint4 hi = load16(lmap, x0 + g + 8, c, p);
+  const uint4 lo = load16<GROUPED>(lmap, x0 + g, c, p);
+  const uint4 hi = load16<GROUPED>(lmap, x0 + g + 8, c, p);
   uint4 b[NT];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
-    b[j] = j < nt ? load16(rmap, yb + 8 * j + g, c, p) : make_uint4(0, 0, 0, 0);
+    b[j] = j < nt ? load16<GROUPED>(rmap, yb + 8 * j + g, c, p)
+                  : make_uint4(0, 0, 0, 0);
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     if (j < nt) {
@@ -170,21 +188,21 @@ __device__ __forceinline__ void accumulate(const __nv_bfloat16* lmap,
   }
 }
 
-template <int NT>
+template <int NT, bool GROUPED>
 __device__ __forceinline__ void accumulate(const float* lmap,
                                            const float* rmap,
                                            const Params& p, int x0, int yb,
                                            int nt, int c0, float (*acc)[4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const uint4 lo = load16(lmap, x0 + g, c0, p);
-  const uint4 hi = load16(lmap, x0 + g + 8, c0, p);
+  const uint4 lo = load16<GROUPED>(lmap, x0 + g, c0, p);
+  const uint4 hi = load16<GROUPED>(lmap, x0 + g + 8, c0, p);
   const float* a0 = reinterpret_cast<const float*>(&lo);
   const float* a1 = reinterpret_cast<const float*>(&hi);
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     if (j < nt) {
-      const uint4 r0 = load16(rmap, yb + 8 * j + 2 * t, c0, p);
-      const uint4 r1 = load16(rmap, yb + 8 * j + 2 * t + 1, c0, p);
+      const uint4 r0 = load16<GROUPED>(rmap, yb + 8 * j + 2 * t, c0, p);
+      const uint4 r1 = load16<GROUPED>(rmap, yb + 8 * j + 2 * t + 1, c0, p);
       const float* b0 = reinterpret_cast<const float*>(&r0);
       const float* b1 = reinterpret_cast<const float*>(&r1);
 #pragma unroll
@@ -228,7 +246,10 @@ __device__ void store_runs(T* out, const T* sm, int runs, int len,
   }
 }
 
-template <typename T, int MODE, int NT>
+// GROUPED (`softargmax` with G > 1, pad rows or S != C) is its own
+// instantiation, so the ungrouped launches run the index arithmetic they
+// always ran.
+template <typename T, int MODE, int NT, bool GROUPED>
 __global__ void __launch_bounds__(THREADS)
 corr_kernel(const Params p) {
   extern __shared__ __align__(16) char smem[];
@@ -239,11 +260,17 @@ corr_kernel(const Params p) {
   const int g = lane >> 2, t = lane & 3;
   const int unit = blockIdx.x * WARPS + warp;
   if (unit >= p.units) return;  // no block barrier follows
-  const int64_t nh = unit / p.x_groups;
-  const int x0 = (unit - (int)nh * p.x_groups) * WX;
+  // units in (n, h, x group, g) order: the groups of one x group are
+  // adjacent warps, reading the same lines
+  const int xg_unit = GROUPED ? unit / p.G : unit;
+  const int gi = GROUPED ? unit - xg_unit * p.G : 0;
+  const int64_t nh = xg_unit / p.x_groups;
+  const int x0 = (xg_unit - (int)nh * p.x_groups) * WX;
   const int cols = min(WX, p.W - x0);
-  const T* lmap = static_cast<const T*>(p.left) + nh * p.W * p.C;
-  const T* rmap = static_cast<const T*>(p.right) + nh * p.W * p.C;
+  const int64_t map_off = GROUPED ? nh * p.W * p.S + (int64_t)gi * p.C
+                                  : nh * p.W * p.C;
+  const T* lmap = static_cast<const T*>(p.left) + map_off;
+  const T* rmap = static_cast<const T*>(p.right) + map_off;
   OutT* wsm = reinterpret_cast<OutT*>(smem) + warp * p.warp_out;
 
   // running softmax state of rows g and g + 8: max, sum of exp, sum of d exp
@@ -256,7 +283,7 @@ corr_kernel(const Params p) {
     for (int j = 0; j < NT; ++j)
       acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
     for (int c0 = 0; c0 < p.C; c0 += CK)
-      accumulate<NT>(lmap, rmap, p, x0, yb, nt, c0, acc);
+      accumulate<NT, GROUPED>(lmap, rmap, p, x0, yb, nt, c0, acc);
 
     // Entry (j, r): row k = g + 8 (r >> 1), column y = yb + 8 j + 2t +
     // (r & 1), disparity d = x0 + k - y = d0 + base[r] - 8 j, in the band
@@ -353,19 +380,30 @@ corr_kernel(const Params p) {
       }
     }
     float* out = static_cast<float*>(p.out);
+    // nh < N * H < 2^31 (the launch caps the units)
+    const bool pad_row = GROUPED && ((int)nh % p.H) * p.G + gi >= p.rows;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int k = g + 8 * h;
-      if (t == 0 && k < cols) out[nh * p.W + x0 + k] = ws[h] / s[h];
+      if (t == 0 && k < cols) {
+        if (GROUPED)
+          out[(nh * p.W + x0 + k) * p.G + gi] = pad_row ? 0.f
+                                                        : ws[h] / s[h];
+        else
+          out[nh * p.W + x0 + k] = ws[h] / s[h];
+      }
     }
   }
 }
 
 template <typename T, int MODE>
 cudaError_t launch(const void* left, const void* right, void* out, int N,
-                   int H, int W, int C, int D, cudaStream_t stream) {
+                   int H, int W, int C, int D, int G, int S, int rows,
+                   cudaStream_t stream) {
   using OutT = typename std::conditional<MODE == HDW, T, float>::type;
   constexpr int VO = 16 / sizeof(OutT);
+  if (G < 1 || S < G * C || (MODE != SOFTARGMAX && (G != 1 || S != C)))
+    return cudaErrorInvalidValue;
   Params p;
   p.left = left;
   p.right = right;
@@ -373,15 +411,20 @@ cudaError_t launch(const void* left, const void* right, void* out, int N,
   p.W = W;
   p.C = C;
   p.D = D;
+  p.H = H;
+  p.G = G;
+  p.S = S;
+  p.rows = rows;
   p.x_groups = (W + WX - 1) / WX;
-  const int64_t units = (int64_t)N * H * p.x_groups;
+  const int64_t units = (int64_t)N * H * p.x_groups * G;
   if (units > INT_MAX - THREADS) return cudaErrorInvalidConfiguration;
   p.units = (int)units;
   p.d_chunks = (D + DC - 1) / DC;
   const auto aligned = [](const void* q) {
     return reinterpret_cast<uintptr_t>(q) % 16 == 0;
   };
-  p.vec = (C * sizeof(T)) % 16 == 0 && aligned(left) && aligned(right);
+  p.vec = (C * sizeof(T)) % 16 == 0 && (S * sizeof(T)) % 16 == 0 &&
+          aligned(left) && aligned(right);
   if (!aligned(out)) return cudaErrorMisalignedAddress;
   p.warp_out = 0;
   if (MODE == DLAST)
@@ -390,43 +433,64 @@ cudaError_t launch(const void* left, const void* right, void* out, int N,
     p.warp_out = (D < DC ? D : DC) * (WX + VO);
   const size_t smem = (size_t)WARPS * p.warp_out * sizeof(OutT);
   const int blocks = (p.units + WARPS - 1) / WARPS;
-  if (y_tiles(D < DC ? D : DC) <= NT_SMALL)
-    corr_kernel<T, MODE, NT_SMALL><<<blocks, THREADS, smem, stream>>>(p);
+  const bool small = y_tiles(D < DC ? D : DC) <= NT_SMALL;
+  if constexpr (MODE == SOFTARGMAX) {
+    if (G > 1 || rows < G * H || S != C) {
+      if (small)
+        corr_kernel<T, MODE, NT_SMALL, true>
+            <<<blocks, THREADS, smem, stream>>>(p);
+      else
+        corr_kernel<T, MODE, NT_MAX, true>
+            <<<blocks, THREADS, smem, stream>>>(p);
+      return cudaGetLastError();
+    }
+  }
+  if (small)
+    corr_kernel<T, MODE, NT_SMALL, false><<<blocks, THREADS, smem, stream>>>(p);
   else
-    corr_kernel<T, MODE, NT_MAX><<<blocks, THREADS, smem, stream>>>(p);
+    corr_kernel<T, MODE, NT_MAX, false><<<blocks, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_mode(int mode, const void* left, const void* right,
-                        void* out, int n, int h, int w, int c, int d,
-                        cudaStream_t s) {
+                        void* out, int n, int h, int w, int c, int d, int g,
+                        int stride, int rows, cudaStream_t s) {
   switch (mode) {
-    case HDW: return launch<T, HDW>(left, right, out, n, h, w, c, d, s);
-    case DLAST: return launch<T, DLAST>(left, right, out, n, h, w, c, d, s);
+    case HDW:
+      return launch<T, HDW>(left, right, out, n, h, w, c, d, g, stride,
+                            rows, s);
+    case DLAST:
+      return launch<T, DLAST>(left, right, out, n, h, w, c, d, g, stride,
+                              rows, s);
     case SOFTARGMAX:
-      return launch<T, SOFTARGMAX>(left, right, out, n, h, w, c, d, s);
+      return launch<T, SOFTARGMAX>(left, right, out, n, h, w, c, d, g,
+                                   stride, rows, s);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// left, right: (N, H, W, C) contiguous, fp32 (bf16 == 0) or bf16 (bf16 ==
-// 1). mode 0 (`hdw`): out (N, H, D, W) in the input dtype; 1 (`dlast`):
-// (N, H, W, D) fp32; 2 (`softargmax`): (N, H, W) fp32. out 16-byte
-// aligned. Returns the cudaError_t of the launch (0 on success).
+// left, right: (N, H, W, groups * C) at pixel stride `stride` elements
+// (rows of W pixels back to back), fp32 (bf16 == 0) or bf16 (bf16 == 1).
+// mode 0 (`hdw`): out (N, H, D, W) in the input dtype; 1 (`dlast`):
+// (N, H, W, D) fp32; both with groups = 1 and stride = C. 2
+// (`softargmax`): (N, H, W, groups) fp32, an entry of original row
+// groups * h + g >= rows written as 0. out 16-byte aligned. Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int corr_cost_volume_launch(const void* left, const void* right,
                                        void* out, int n, int h, int w, int c,
                                        int max_disp, int bf16, int mode,
+                                       int groups, int stride, int rows,
                                        int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   e = bf16 ? launch_mode<__nv_bfloat16>(mode, left, right, out, n, h, w, c,
-                                        max_disp, s)
+                                        max_disp, groups, stride, rows, s)
            : launch_mode<float>(mode, left, right, out, n, h, w, c, max_disp,
-                                s);
+                                groups, stride, rows, s);
   return (int)e;
 }
 

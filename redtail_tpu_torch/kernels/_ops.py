@@ -3,7 +3,7 @@ can trace a model through them and an AOTInductor engine can call them.
 
 | op | wrapper | kernel |
 | --- | --- | --- |
-| `redtail_torch::corr_cost_volume(left, right, max_disp, mode)` | `corr_cost_volume.corr_cost_volume`, `corr_softargmax` | `csrc/corr_cost_volume.cu` (``mode``: `hdw`, `dlast`, `softargmax`) |
+| `redtail_torch::corr_cost_volume(left, right, max_disp, mode, groups, rows)` | `corr_cost_volume.corr_cost_volume`, `corr_softargmax` | `csrc/corr_cost_volume.cu` (``mode``: `hdw`, `dlast`, `softargmax`; ``groups`` > 1 and ``rows``: the grouped `softargmax`) |
 | `redtail_torch::cost_volume_concat(left, right, max_disp, d_offset, d_count)` | `cost_volume_concat.cost_volume_concat` | `csrc/cost_volume_concat.cu` |
 | `redtail_torch::fused_cv_emit(la, rb, bias, max_disp, elu, layout)` | `fused_cv_emit.fused_cv_emit` | `csrc/fused_cv_emit.cu` (``layout``: `full`, `dh_shifted`) |
 | `redtail_torch::conv223(xp, k, bias, k_layout)` | `conv223.conv223` | `csrc/conv223.cu` |
@@ -55,17 +55,16 @@ DEVICES = ("cpu", "cuda")
 @torch.library.custom_op(f"{NAMESPACE}::corr_cost_volume", mutates_args=(),
                          device_types=DEVICES)
 def corr_cost_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
-                     mode: str) -> torch.Tensor:
-    return _corr._forward(left, right, max_disp, mode)
+                     mode: str, groups: int = 1,
+                     rows: int = 0) -> torch.Tensor:
+    return _corr._forward(left, right, max_disp, mode, groups, rows)
 
 
 @corr_cost_volume.register_fake
-def _(left, right, max_disp, mode):
-    n, h, w, _ = left.shape
-    shape, dtype = {"dlast": ((n, h, w, max_disp), torch.float32),
-                    "hdw": ((n, h, max_disp, w), left.dtype),
-                    "softargmax": ((n, h, w), torch.float32)}[mode]
-    return left.new_empty(shape, dtype=dtype)
+def _(left, right, max_disp, mode, groups=1, rows=0):
+    return left.new_empty(
+        _corr._out_shape(left, max_disp, mode, groups),
+        dtype=left.dtype if mode == "hdw" else torch.float32)
 
 
 @torch.library.custom_op(f"{NAMESPACE}::cost_volume_concat", mutates_args=(),
@@ -120,7 +119,8 @@ def _(xp, k, bias, k_layout):
 
 
 def corr_flops(left_shape, max_disp: int) -> int:
-    """2 C a valid (x, d) pair: the products and sums of the volume."""
+    """2 C a valid (x, d) pair: the products and sums of the volume (with
+    G groups of C channels, 2 C a pair in each group: 2 G C all the same)."""
     n, h, w, c = left_shape
     return 2 * c * n * h * sum(max(w - d, 0) for d in range(max_disp))
 

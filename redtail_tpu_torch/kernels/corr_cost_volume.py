@@ -15,6 +15,11 @@ epilogues:
 - `corr_softargmax`: (N, H, W) fp32, the soft-argmax over D of the `dlast`
   volume (`ops/softargmax.py`, scale 1; the masked zeros take part), the
   ResNet18-2D model's use of it, without the volume in device memory.
+  With ``groups=G`` each pixel holds G independent groups of C channels
+  and the result is (N, H, W, G): the H-packed correlation head
+  (`ops/packed2d.py`, G = 2), whose pad rows (original row G h + g at or
+  past ``rows``) come out 0. The features may be a channel slice of a wider
+  NHWC map (pixel stride > G C): the kernel reads them where they lie.
 
 Each wrapper runs its plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; nothing falls back. Without grad
@@ -42,6 +47,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -245,15 +251,34 @@ def corr_cost_volume_plain(left: torch.Tensor, right: torch.Tensor,
 
 
 def corr_softargmax_plain(left: torch.Tensor, right: torch.Tensor,
-                          max_disp: int) -> torch.Tensor:
+                          max_disp: int, groups: int = 1,
+                          rows: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of the fused epilogue: the `dlast` volume,
-    then `ops/softargmax.py:softargmax` over its last axis."""
+    then `ops/softargmax.py:softargmax` over its last axis; with
+    ``groups`` > 1 one volume and soft-argmax per group, (N, H, W, G),
+    entries of original row G h + g >= ``rows`` set to 0 (the H-packed
+    layout's pad rows)."""
     # imported here: `ops` imports this module through `ops/cost_volume.py`
     from redtail_tpu_torch.ops.softargmax import softargmax
 
-    return softargmax(
-        corr_cost_volume_plain(left, right, max_disp, layout="dlast"),
-        axis=-1)
+    if groups == 1 and rows is None:
+        return softargmax(
+            corr_cost_volume_plain(left, right, max_disp, layout="dlast"),
+            axis=-1)
+    n, h, w, gc = left.shape
+    c = gc // groups
+
+    def rows_of(x):   # (N, H, W, G C) -> (N H G, 1, W, C): a row a group
+        return x.reshape(n, h, w, groups, c).permute(0, 1, 3, 2, 4) \
+            .reshape(n * h * groups, 1, w, c)
+    out = softargmax(corr_cost_volume_plain(rows_of(left), rows_of(right),
+                                            max_disp), axis=-1)
+    out = out.reshape(n, h, groups, w).permute(0, 1, 3, 2).contiguous()
+    if rows is not None:
+        orig = (groups * torch.arange(h, device=out.device)[:, None]
+                + torch.arange(groups, device=out.device))  # (H, G)
+        out = out.masked_fill((orig >= rows)[:, None, :], 0.0)
+    return out
 
 
 def corr_cost_volume_bwd_plain(left: torch.Tensor, right: torch.Tensor,
@@ -287,10 +312,13 @@ def corr_softargmax_bwd_plain(left: torch.Tensor, right: torch.Tensor,
     return corr_cost_volume_bwd_plain(left, right, gvol, max_disp)
 
 
-def _check(left, right, max_disp):
+def _check(left, right, max_disp, groups: int = 1):
     if left.dim() != 4 or left.shape != right.shape:
         raise ValueError("left and right must be NHWC tensors of one shape; "
                          f"got {tuple(left.shape)} and {tuple(right.shape)}")
+    if int(groups) != groups or groups < 1 or left.shape[-1] % groups:
+        raise ValueError(f"groups must be an integer >= 1 dividing the "
+                         f"{left.shape[-1]} channels, got {groups}")
     if left.dtype not in DTYPES or right.dtype != left.dtype:
         raise TypeError("left and right must both be float32 or bfloat16; "
                         f"got {left.dtype} and {right.dtype}")
@@ -300,7 +328,18 @@ def _check(left, right, max_disp):
         raise ValueError(f"max_disp must be an integer >= 1, got {max_disp}")
 
 
-def _on_cpu(left, right) -> bool:
+def _rows_of_pixels(x: torch.Tensor) -> bool:
+    """Whether NHWC ``x`` has unit channel stride and its pixels back to
+    back at one stride >= its channels: a contiguous map or a channel slice
+    of one."""
+    n, h, w, c = x.shape
+    s = x.stride(2)
+    return (x.stride(3) == 1 or c == 1) and s >= c and \
+        (h == 1 or x.stride(1) == w * s) and \
+        (n == 1 or x.stride(0) == h * w * s)
+
+
+def _on_cpu(left, right, groups: int = 1) -> bool:
     """True for a CPU pair; raises on a pair the kernel does not take."""
     if left.device.type == "cpu" and right.device.type == "cpu":
         return True
@@ -308,12 +347,18 @@ def _on_cpu(left, right) -> bool:
         raise ValueError("left and right must lie on one CUDA device (or "
                          f"both on the CPU); got {left.device} and "
                          f"{right.device}")
-    if not (left.is_contiguous() and right.is_contiguous()):
+    if groups > 1:
+        if not (_rows_of_pixels(left) and _rows_of_pixels(right)
+                and left.stride() == right.stride()):
+            raise ValueError("the grouped CUDA kernel takes NHWC maps of one "
+                             "pixel stride with their pixels back to back "
+                             "(contiguous, or channel slices of one)")
+    elif not (left.is_contiguous() and right.is_contiguous()):
         raise ValueError("the CUDA kernel takes contiguous NHWC tensors")
     n, h, w, _ = left.shape
-    if n * h * -(-w // WX) > 2 ** 31 - 1 - 32 * WARPS:
-        raise ValueError(f"N * H * ceil(W / {WX}) warps must be < 2**31; "
-                         f"got N={n}, H={h}, W={w}")
+    if n * h * groups * -(-w // WX) > 2 ** 31 - 1 - 32 * WARPS:
+        raise ValueError(f"N * H * G * ceil(W / {WX}) warps must be < "
+                         f"2**31; got N={n}, H={h}, G={groups}, W={w}")
     return False
 
 
@@ -321,25 +366,32 @@ def _on_cpu(left, right) -> bool:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("corr_cost_volume")
     lib.corr_cost_volume_launch.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
     lib.corr_cost_volume_launch.restype = ctypes.c_int
     lib.corr_cost_volume_error_string.argtypes = [ctypes.c_int]
     lib.corr_cost_volume_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(left, right, max_disp, mode) -> torch.Tensor:
-    n, h, w, c = left.shape
-    shape, dtype = {"dlast": ((n, h, w, max_disp), torch.float32),
-                    "hdw": ((n, h, max_disp, w), left.dtype),
-                    "softargmax": ((n, h, w), torch.float32)}[mode]
-    out = torch.empty(shape, dtype=dtype, device=left.device)
+def _out_shape(left, max_disp, mode, groups=1):
+    n, h, w, _ = left.shape
+    if mode == "softargmax":
+        return (n, h, w) if groups == 1 else (n, h, w, groups)
+    return (n, h, w, max_disp) if mode == "dlast" else (n, h, max_disp, w)
+
+
+def _launch(left, right, max_disp, mode, groups=1, rows=0) -> torch.Tensor:
+    n, h, w, gc = left.shape
+    dtype = left.dtype if mode == "hdw" else torch.float32
+    out = torch.empty(_out_shape(left, max_disp, mode, groups), dtype=dtype,
+                      device=left.device)
     lib = _lib()
     with on_device(left.device):
         err = lib.corr_cost_volume_launch(
-            left.data_ptr(), right.data_ptr(), out.data_ptr(), n, h, w, c,
-            int(max_disp), int(left.dtype == torch.bfloat16), MODES[mode],
-            left.device.index,
+            left.data_ptr(), right.data_ptr(), out.data_ptr(), n, h, w,
+            gc // groups, int(max_disp), int(left.dtype == torch.bfloat16),
+            MODES[mode], groups, left.stride(2) if w > 1 else gc,
+            rows or groups * h, left.device.index,
             torch.cuda.current_stream(left.device).cuda_stream)
     if err:
         raise RuntimeError(
@@ -440,17 +492,20 @@ def corr_softargmax_bwd(left: torch.Tensor, right: torch.Tensor,
     return out
 
 
-def _forward(left, right, max_disp, mode):
+def _forward(left, right, max_disp, mode, groups=1, rows=0):
     """One forward call, the body of the op
     `redtail_torch::corr_cost_volume` (`_ops.py`): the plain version on the
-    CPU, else the kernel, counted on its wrapper."""
-    if _on_cpu(left, right):
+    CPU, else the kernel, counted on its wrapper (a grouped launch also on
+    ``corr_softargmax.grouped_launches``). ``rows`` 0: no pad rows."""
+    if _on_cpu(left, right, groups):
         if mode == "softargmax":
-            return corr_softargmax_plain(left, right, max_disp)
+            return corr_softargmax_plain(left, right, max_disp, groups,
+                                         rows or None)
         return corr_cost_volume_plain(left, right, max_disp, layout=mode)
-    out = _launch(left, right, max_disp, mode)
+    out = _launch(left, right, max_disp, mode, groups, rows)
     if mode == "softargmax":
         corr_softargmax.launches += 1
+        corr_softargmax.grouped_launches += groups > 1
     else:
         corr_cost_volume.launches += 1
     return out
@@ -502,19 +557,37 @@ def corr_cost_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
 
 
 def corr_softargmax(left: torch.Tensor, right: torch.Tensor,
-                    max_disp: int) -> torch.Tensor:
+                    max_disp: int, *, groups: int = 1,
+                    rows: Optional[int] = None) -> torch.Tensor:
     """NHWC pair -> (N, H, W) fp32 soft-argmax over D of the correlation
-    volume (see the module docstring).
+    volume, or with ``groups`` > 1 (N, H, W, G), one per group, entries of
+    original row G h + g >= ``rows`` set to 0 (see the module docstring).
 
     CPU tensors take `corr_softargmax_plain`. CUDA tensors launch the
     kernel's fused epilogue on the current stream and add one to
-    ``corr_softargmax.launches``; they must be contiguous NHWC on one
-    device. Differentiable: the gradient is `corr_softargmax_bwd`."""
-    _check(left, right, max_disp)
-    return _call(left, right, max_disp, "softargmax")
+    ``corr_softargmax.launches`` (and a grouped launch to
+    ``corr_softargmax.grouped_launches``); they must be contiguous NHWC on
+    one device, or for ``groups`` > 1 channel slices of one pixel stride.
+    Differentiable with ``groups=1``: the gradient is
+    `corr_softargmax_bwd`. A grouped launch is a serving path: on CUDA
+    inputs that require grad it raises (`_build.refuse_autograd`); on the
+    CPU the plain version is differentiable."""
+    _check(left, right, max_disp, groups)
+    if rows is not None and (int(rows) != rows or rows < 1):
+        raise ValueError(f"rows must be an integer >= 1, got {rows}")
+    if groups == 1 and rows is None:
+        return _call(left, right, max_disp, "softargmax")
+    if _on_cpu(left, right, groups):
+        if _build.needs_grad(left, right):
+            return corr_softargmax_plain(left, right, max_disp, groups, rows)
+    else:
+        _build.refuse_autograd("corr_softargmax (groups > 1)", left, right)
+    return torch.ops.redtail_torch.corr_cost_volume(
+        left, right, int(max_disp), "softargmax", int(groups), int(rows or 0))
 
 
 corr_cost_volume.launches = 0
 corr_softargmax.launches = 0
+corr_softargmax.grouped_launches = 0
 corr_cost_volume_bwd.launches = 0
 corr_softargmax_bwd.launches = 0

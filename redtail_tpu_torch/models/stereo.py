@@ -39,13 +39,34 @@ dh-shifted packed layout and the 3D stack runs on D (and H) pairs folded
 into channels (`ops/packed3d.py`; its in-shifted, H-packed conv is the CUDA
 `conv223` kernel), ending on the card in the D-folded final deconv with the
 soft-argmin fused (`ops/convolution.py:conv3d_transpose_dfold`). Its
+pad-slot masks take each layer's form from ``REDTAIL_TPU_MASK_FORM`` /
+``REDTAIL_TPU_MASK_MUL`` (`_mask_scope`), as JAX's do. Its
 band-composed kernels are derived from the same DHWIO weights once, at
 load, for each boundary parity an input size can give. The fused unpacked
 head stays the default.
 
-The 2D encoders are the JAX package's unpacked path (its CPU defaults):
-per-tower encoders, no H-packing, no block-diagonal towers. The two towers
-run as one batch-2 chain of convs, which is exact.
+By default the two siamese towers run as one batch-2N chain of convs,
+which is exact. ResNet-18's towers (ResNet18-2D and ResNet-18 3D) have the
+JAX package's two TPU layouts too, behind its switches
+(`ops/convolution.py`):
+
+- **block-diagonal** (`use_fused_towers`, ``REDTAIL_TPU_FUSED_TOWERS=1``):
+  one chain of convs over the channel-concatenated pair, each kernel the
+  block diagonal of the tower's (twice the channels; the stem the block
+  diagonal of its s2d 3x3 form on s2d frames, of the 5x5 stride-2 one on
+  raw frames), built once at load;
+- **H-packed** (`use_hpack2d`, ``REDTAIL_TPU_HPACK2D=1``, on s2d frames
+  under block-diagonal towers): the same chain with row pairs folded into
+  channels too (`ops/packed2d.py`), its packed kernels built at load, then
+  unpacked; and for ResNet18-2D under ``REDTAIL_TPU_HPACK_CORR=1`` the
+  H-packed correlation head (`_bneck_head_hpacked`): the corr kernel's
+  grouped soft-argmax reads the packed features where they lie, and the
+  bottleneck's leading stride-1 convs run packed before one unpack.
+
+Both fall back to the batched towers where the JAX package does: int8
+leaves in the towers, a calibration tap (`conv_tap`), a trainable net. The
+block-diagonal towers run image-sharded like any conv; the H-packed forms
+raise there (a ROADMAP item).
 
 `StereoNet.forward` is `StereoNet.layers(left, right, run)`, the network
 one named layer at a time with each layer computed as ``run(name, fn,
@@ -67,6 +88,8 @@ exchanged before it is quantized); disparity mode runs under
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 import os
 from dataclasses import dataclass
@@ -79,6 +102,7 @@ from torch import nn
 from redtail_tpu_torch import resolve_device
 from redtail_tpu_torch.io.tf_checkpoint import load_checkpoint
 from redtail_tpu_torch.ops.activations import elu, sigmoid
+from redtail_tpu_torch.ops import packed2d as P2
 from redtail_tpu_torch.ops import packed3d as P
 from redtail_tpu_torch.ops.convolution import (
     conv2d_nchw,
@@ -89,6 +113,9 @@ from redtail_tpu_torch.ops.convolution import (
     dfold_weights,
     empty_conv_shard,
     sharded_conv_input,
+    use_fused_towers,
+    use_hpack2d,
+    use_hpack_corr,
     use_packed3d,
     use_plain_lowering,
 )
@@ -263,6 +290,30 @@ def _spec_layer_shapes(spec: StereoSpec):
     return out
 
 
+def bneck_lead_count(spec: StereoSpec) -> int:
+    """How many leading stride-1 bottleneck layers the H-packed head runs
+    packed (`redtail_tpu/models/stereo.py:bneck_lead_count`): an even count
+    (the chain returns to the aligned convention) whose interior layers
+    serve no decoder skip (skips are read unpacked)."""
+    layers = list(spec.bneck_channels)
+    n_lead = 0
+    while n_lead < len(layers) and layers[n_lead][2] == 1:
+        n_lead += 1
+    n_lead -= n_lead % 2
+    skip_names = {s for _, _, s in spec.bneck_dec if s is not None}
+    while n_lead > 0 and any(layers[i][0] in skip_names
+                             for i in range(n_lead - 1)):
+        n_lead -= 2
+    return n_lead
+
+
+def _has_quantized(node) -> bool:
+    if isinstance(node, dict):
+        return "weights_q" in node or any(
+            _has_quantized(v) for v in node.values() if isinstance(v, dict))
+    return False
+
+
 # ------------------------------------------------------------- params
 
 
@@ -406,6 +457,43 @@ def _carrier(a, device, dtype) -> torch.Tensor:
     the round-once convs take (`ops/convolution.py`); 4D / 5D in channels-
     last memory."""
     return _tensor(a, device, dtype).float()
+
+
+def _blockdiag(w: np.ndarray) -> np.ndarray:
+    """(kh, kw, ci, co) -> (kh, kw, 2 ci, 2 co): two copies of w on the
+    diagonal, so one conv computes both towers (`redtail_tpu/models/
+    stereo.py:_blockdiag`)."""
+    z = np.zeros_like(w)
+    return np.concatenate([np.concatenate([w, z], axis=3),
+                           np.concatenate([z, w], axis=3)], axis=2)
+
+
+_CONV_TAP = contextvars.ContextVar("redtail_torch_conv_tap", default=False)
+
+
+@contextlib.contextmanager
+def conv_tap():
+    """A calibration tap is recording the towers' conv inputs inside the
+    block (`quant/stereo_int8.py`): the towers run as the 2N batch, per
+    layer, as the JAX package's `_conv_tap` makes them."""
+    token = _CONV_TAP.set(True)
+    try:
+        yield
+    finally:
+        _CONV_TAP.reset(token)
+
+
+class _HPackedConv(nn.Module):
+    """One H-packed conv of `ops/packed2d.py`: its packed kernel in
+    `F.conv2d`'s layout and its bias, fp32 carriers of the net's dtype
+    derived at load (every packed entry is a weight or zero, so exact)."""
+
+    def __init__(self, kernel_hwio: torch.Tensor, bias, device, dtype):
+        super().__init__()
+        self.register_buffer("kernel", P2.prepare(kernel_hwio).to(
+            device=device, dtype=dtype).float(), persistent=False)
+        self.register_buffer("bias", _carrier(bias, device, dtype),
+                             persistent=False)
 
 
 class _Weights(nn.Module):
@@ -645,7 +733,12 @@ class _PackedConv3d(nn.Module):
 
     def forward(self, x, spatial):
         """``x``: NDHWC packed; ``spatial``: the original (D, H, W) of the
-        input, or for 'deconv' of the output."""
+        input, or for 'deconv' of the output. The pad-slot masks take the
+        layer's form (`_mask_scope`)."""
+        with _mask_scope(self.step.name):
+            return self._forward(x, spatial)
+
+    def _forward(self, x, spatial):
         s = self.step
         k = getattr(self, f"kernel{spatial[1] % 2 if self.h_parity else 0}")
         if s.op == "conv":
@@ -662,6 +755,18 @@ class _PackedConv3d(nn.Module):
         return P.deconv3d_packed(x, None, self.bias, out_spatial=spatial,
                                  in_packed_d=s.in_packed_d,
                                  pack_h=s.packed_h, kernel=k)
+
+
+def _mask_scope(name: str):
+    """The mask form of the packed layer ``name``, as the JAX package reads
+    it per layer: ``REDTAIL_TPU_MASK_FORM`` (one form for every layer), else
+    ``'mul'`` where ``REDTAIL_TPU_MASK_MUL`` (a comma list of layer names)
+    names it, else the form in force (`ops.packed3d.mask_form`; ``'auto'``
+    unless a caller set one)."""
+    form = os.environ.get("REDTAIL_TPU_MASK_FORM") or (
+        "mul" if name in os.environ.get("REDTAIL_TPU_MASK_MUL", "").split(",")
+        else None)
+    return P.mask_form(form) if form else contextlib.nullcontext()
 
 
 class _DfoldDeconv3d(nn.Module):
@@ -798,6 +903,66 @@ class StereoNet(nn.Module):
             conv5s2_kernel_to_s2d(np.asarray(stem["weights"], np.float32),
                                   spec.input_hw),
             stem["biases"], 1, device, dtype)
+        self.towers_bd = self.towers_hp = self.bneck_hp = None
+        if (spec.encoder2d == "resnet18" and not trainable
+                and not _has_quantized(params["encoder2D"])):
+            self._build_fused_towers(params, device, dtype)
+
+    def _build_fused_towers(self, params: Params, device, dtype) -> None:
+        """The block-diagonal towers' convs (`towers_bd`), their H-packed
+        kernels (`towers_hp`) and, for the correlation model, the H-packed
+        head's bottleneck convs (`bneck_hp`), derived once from the float
+        weights."""
+        spec = self.spec
+        enc = params["encoder2D"]
+        f = spec.enc2d_channels[0]
+
+        def leaf(node):
+            return (np.asarray(node["weights"], np.float32),
+                    np.asarray(node["biases"], np.float32))
+
+        names = [f"resblock{i}/res_conv{j}" for i in range(1, 9)
+                 for j in (1, 2)] + ["encoder2D_out"]
+        w5, b1 = leaf(enc["conv1"])
+        k3 = conv5s2_kernel_to_s2d(w5, spec.input_hw)
+        bd = {"conv1": _Conv(_blockdiag(w5), np.tile(b1, 2), 2, device,
+                             dtype),
+              "conv1_s2d": _Conv(_blockdiag(k3), np.tile(b1, 2), 1, device,
+                                 dtype)}
+        hp = {"conv1": _HPackedConv(P2.stem_kernel(torch.from_numpy(
+            _blockdiag(k3))), np.tile(b1, 2), device, dtype)}
+        for name in names:
+            node = enc
+            for part in name.split("/"):
+                node = node[part]
+            w, b = leaf(node)
+            key = name.replace("/", "_")
+            bd[key] = _Conv(_blockdiag(w), np.tile(b, 2), 1, device, dtype)
+            wt = torch.from_numpy(_blockdiag(w))
+            hp[key] = _HPackedConv(
+                P2.keep_kernel(wt) if name == "encoder2D_out"
+                else P2.flip_kernel(wt), np.tile(b, 2), device, dtype)
+        self.towers_bd = nn.ModuleDict(bd)
+        self.towers_hp = nn.ModuleDict(hp)
+        bneck = params.get("bneck_encoder2D", {})
+        lead = [name for name, _, _ in spec.bneck_channels[
+            :bneck_lead_count(spec)]]
+        if not spec.corr or _has_quantized(bneck):
+            return
+        # the H-packed head reads the towers' last conv with its output
+        # channels as (tower, parity, f), each tower's half one channel
+        # slice: the kernel's and the (fully tiled) bias's channels moved
+        # from (parity, tower, f)
+        w, b = leaf(enc["encoder2D_out"])
+        perm = torch.arange(4 * f).reshape(2, 2, f).transpose(0, 1) \
+            .reshape(-1)
+        k = P2.keep_kernel(torch.from_numpy(_blockdiag(w)))[..., perm]
+        self.towers_hp["encoder2D_out_corr"] = _HPackedConv(
+            k, np.tile(b, 4)[perm.numpy()], device, dtype)
+        self.bneck_hp = nn.ModuleDict({
+            name: _HPackedConv(P2.flip_kernel(torch.from_numpy(
+                leaf(bneck[name])[0])), leaf(bneck[name])[1], device, dtype)
+            for name in lead})
 
     def _add(self, path: str, layer: nn.Module) -> None:
         *scopes, name = path.split("/")
@@ -834,6 +999,64 @@ class StereoNet(nn.Module):
         return self._conv1(torch.cat([left, right]).to(self.dtype)
                            .permute(0, 3, 1, 2))
 
+    def _tower_form(self, s2d: bool) -> str:
+        """The towers' form for this forward: ``"batch"`` (2N), ``"bd"``
+        (block-diagonal) or ``"hp"`` (H-packed, s2d frames only)."""
+        if (self.towers_bd is None or not use_fused_towers()
+                or _CONV_TAP.get()):
+            return "batch"
+        if not (s2d and use_hpack2d()):
+            return "bd"
+        if current_sharding() is not None:
+            raise NotImplementedError(
+                "the H-packed towers (REDTAIL_TPU_HPACK2D) do not run "
+                "sharded yet (ROADMAP.md item 14: the H-packed forms under "
+                "image sharding); the block-diagonal towers do")
+        return "hp"
+
+    def _bd_conv1(self, left, right):
+        """Both towers' stem as one block-diagonal conv over the
+        channel-concatenated pair (s2d: 24 channels, raw: 6)."""
+        x = torch.cat([left, right], dim=-1).to(self.dtype) \
+            .permute(0, 3, 1, 2)
+        stem = self.towers_bd.conv1_s2d if x.shape[1] == 24 \
+            else self.towers_bd.conv1
+        return elu(stem(x))
+
+    def _bd_encoder(self, x, run):
+        """The block-diagonal resblocks and encoder2D_out after the stem."""
+        bd = self.towers_bd
+        for i in range(1, 9):
+            x = run(f"towers_resblock{i}[bd]", lambda a, c1=bd[
+                f"resblock{i}_res_conv1"], c2=bd[f"resblock{i}_res_conv2"]:
+                    elu(c2(elu(c1(a))) + a), x)
+        return run("towers_out[bd]", bd.encoder2D_out, x)
+
+    def _hp_towers(self, left, right, h_half: int, run, keep: bool):
+        """The H-packed towers on s2d frames: (stem output, towers' output),
+        NHWC packed, the stem's channels (parity, tower, f); the output's
+        (parity, tower, f), or with ``keep`` (tower, parity, f) for the
+        H-packed head."""
+        hp = self.towers_hp
+
+        def conv(c, a, **kw):
+            return P2.conv2d_hpacked(a, None, c.bias, h=h_half,
+                                     kernel=c.kernel, **kw)
+        stem = run("towers_conv1[hp]", lambda a, b: P2.conv1_s2d_hpacked(
+            torch.cat([a, b], dim=-1).to(self.dtype), None, hp.conv1.bias,
+            h_half=h_half, act=elu, kernel=hp.conv1.kernel), left, right)
+        x = stem
+        for i in range(1, 9):
+            x = run(f"towers_resblock{i}[hp]", lambda a, c1=hp[
+                f"resblock{i}_res_conv1"], c2=hp[f"resblock{i}_res_conv2"]:
+                    elu(conv(c2, conv(c1, a, in_shifted=False, act=elu),
+                             in_shifted=True) + a), x)
+        out = hp.encoder2D_out_corr if keep else hp.encoder2D_out
+        x = run("towers_out[hp]", lambda a, c=out: P2.conv2d_hpacked_keep(
+            a, None, c.bias, h=h_half, kernel=c.kernel,
+            blocks=2 if keep else 1), x)
+        return stem, x
+
     def _plain_encoder(self, x, run):
         """NVTiny/NVSmall towers: conv2..4 + conv5 (no activation on
         conv5) after the stem."""
@@ -851,16 +1074,49 @@ class StereoNet(nn.Module):
                     elu(blk.res_conv2(elu(blk.res_conv1(a))) + a), x)
         return run("towers_encoder2D_out", enc.encoder2D_out, x)
 
-    def _bneck_head(self, d, conv1_act, full_hw, run):
+    def _bneck_head(self, d, conv1_act, left_of, full_hw, run):
         """Feature concat + 2D bottleneck over the soft-argmax map ``d``
-        (N, H', W'), ``conv1_act`` both towers' stem output -> (N, H, W) in
-        [0, 1]."""
-        n = d.shape[0]
+        (N, H', W'), ``conv1_act`` the stem's output (``left_of`` takes the
+        left tower's features from it) -> (N, H, W) in [0, 1]."""
         x = run("concat_conv1", lambda c, dd: torch.cat(
-            [c[:n], dd.to(c.dtype).unsqueeze(1)], dim=1), conv1_act, d)
+            [left_of(c), dd.to(c.dtype).unsqueeze(1)], dim=1), conv1_act, d)
+        return self._bneck_layers(x, 0, {}, full_hw, run)
+
+    def _bneck_head_hpacked(self, stem, out, full_hw, run):
+        """The H-packed correlation head (`redtail_tpu/models/stereo.py:
+        _bneck_head_hpacked`): the corr kernel's grouped soft-argmax on the
+        towers' packed (tower, parity, f) map, each tower's half read where
+        it lies; the packed concat with the left stem features; the leading
+        stride-1 bottleneck convs packed (`bneck_lead_count`); one unpack;
+        the rest of the bottleneck as `_bneck_head`'s."""
+        spec = self.spec
+        h2 = -(-full_hw[0] // 2)
+        f = out.shape[-1] // 4
+        d = run("corr_cost_volume[hp]+softargmax[hp]", lambda o: (
+            P2.corr_softargmax_hpacked(o[..., :2 * f], o[..., 2 * f:],
+                                       spec.max_disp, h2)), out)
+        # (parity, [left stem f, d]) from the stem's (parity, tower, f)
+        x = run("concat_conv1[hp]", lambda c, dd: torch.cat(
+            [c[..., :f], dd.to(c.dtype)[..., :1], c[..., 2 * f:3 * f],
+             dd.to(c.dtype)[..., 1:]], dim=-1), stem, d)
+        lead = [name for name, _, _ in spec.bneck_channels[
+            :bneck_lead_count(spec)]]
+        for i, name in enumerate(lead):
+            x = run(f"{name}[hp]", lambda a, c=self.bneck_hp[name], i=i: (
+                P2.conv2d_hpacked(a, None, c.bias, h=h2,
+                                  in_shifted=i % 2 == 1, act=elu,
+                                  kernel=c.kernel)), x)
+        x = run("bneck_unpack[hp]", lambda a: P2.unpack_h2d(a, h2)
+                .permute(0, 3, 1, 2), x)
+        acts = {lead[-1]: (x, _half(full_hw))} if lead else {}
+        return self._bneck_layers(x, len(lead), acts, full_hw, run)
+
+    def _bneck_layers(self, x, start: int, acts, full_hw, run):
+        """The bottleneck from its layer ``start`` on (``acts``: the
+        activations earlier layers left for the decoder's skips), the
+        decoder and the sigmoid."""
         extent = _half(full_hw)
-        acts = {}
-        for name, _out_ch, stride in self.spec.bneck_channels:
+        for name, _out_ch, stride in self.spec.bneck_channels[start:]:
             with sharded_extent(extent):
                 x = run(name, lambda a, c=self.bneck_encoder2D[name]:
                         elu(c(a)), x)
@@ -877,27 +1133,27 @@ class StereoNet(nn.Module):
                     x = run(name, lambda a, c=layer: c(a, full_hw), x)
         return run("sigmoid", lambda a: sigmoid(a)[:, 0], x)
 
-    def _volume_head(self, feats, full_hw, run):
+    def _volume_head(self, feats, sides, full_hw, run):
         """Cost volume + conv3D_1 (fused, or explicit under
         `plain_lowering()`), the 3D encoder/decoder and the soft-argmin:
-        both towers' (2N, C, H', W') features -> (N, H, W) disparity in
-        pixels."""
+        both towers' features (``sides``: the left and right (N, C, H', W')
+        of them) -> (N, H, W) disparity in pixels."""
         spec = self.spec
         enc, first = self.encoder3D, spec.enc3d[0]
-        n = feats.shape[0] // 2
+        fl, fr = sides
         if self._steps and use_packed3d():
-            return self._volume_head_packed(feats, full_hw, run)
+            return self._volume_head_packed(feats, sides, full_hw, run)
         extent = (spec.max_disp, *_half(full_hw))
         if isinstance(enc[first.name], _FusedConv3D1) \
                 and not use_plain_lowering():
             with sharded_extent(extent):
                 x = run(f"cost_volume+{first.name}", lambda f: enc[
-                    first.name].fused(f[:n], f[n:], spec.max_disp), feats)
+                    first.name].fused(fl(f), fr(f), spec.max_disp), feats)
         else:
             d_lo, d_hi = _disparity_block(spec.max_disp)
             vol = run("cost_volume", lambda f: cost_volume(
-                f[:n].permute(0, 2, 3, 1).contiguous(),
-                f[n:].permute(0, 2, 3, 1).contiguous(), spec.max_disp,
+                fl(f).permute(0, 2, 3, 1).contiguous(),
+                fr(f).permute(0, 2, 3, 1).contiguous(), spec.max_disp,
                 d_offset=d_lo, d_count=d_hi - d_lo), feats)
             with sharded_extent(extent):
                 x = run(first.name, lambda v: elu(
@@ -924,7 +1180,7 @@ class StereoNet(nn.Module):
             return run("softargmin", lambda a: softargmin(a[:, 0], axis=1),
                        x)
 
-    def _volume_head_packed(self, feats, full_hw, run):
+    def _volume_head_packed(self, feats, sides, full_hw, run):
         """The packed head (`_packed_plan`): the emission kernel's
         dh-shifted conv3D_1 output through the packed 3D stack to the
         final deconv: dfold + fused soft-argmin on the card (or with
@@ -932,14 +1188,14 @@ class StereoNet(nn.Module):
         soft-argmin, the JAX package's off-accelerator branch. NDHWC
         activations throughout; (N, H, W) disparity in pixels."""
         spec = self.spec
-        n = feats.shape[0] // 2
+        fl, fr = sides
         first = self.encoder3D[spec.enc3d[0].name]
         # every layer takes the global extent: a kernel's band, a pad and a
         # slot count follow the image's parities, not a shard's
         spatial = (spec.max_disp, *_half(full_hw))
         with sharded_extent(spatial):
             x = run(f"cost_volume+{spec.enc3d[0].name}[pk]", lambda f:
-                    first.fused_packed(f[:n], f[n:], spec.max_disp), feats)
+                    first.fused_packed(fl(f), fr(f), spec.max_disp), feats)
         acts = {}
         for step in self._steps:
             if step.op == "final":
@@ -1010,21 +1266,50 @@ class StereoNet(nn.Module):
         else:
             full_hw = in_hw = (rows, left.shape[2])
         n = left.shape[0]
-        with sharded_extent(in_hw):
-            conv1_act = run("towers_conv1", self._towers_conv1, left, right)
-        with sharded_extent(_half(full_hw)):
-            if spec.encoder2d == "plain":
-                feats = self._plain_encoder(conv1_act, run)
-            else:
-                feats = self._resnet_encoder(conv1_act, run)
+        form = self._tower_form(left.shape[-1] == 12)
+        if form == "hp":
+            h_half = _half(full_hw)[0]
+            keep = spec.corr and self.bneck_hp is not None \
+                and use_hpack_corr()
+            stem, out = self._hp_towers(left, right, h_half, run, keep)
+            if keep:
+                return self._bneck_head_hpacked(stem, out, full_hw, run)
+            f = out.shape[-1] // 4
+            conv1_act = run("conv1_left_unpack[hp]", lambda a: _left_rows(
+                a, h_half).permute(0, 3, 1, 2), stem)
+            feats = run("towers_unpack[hp]", lambda a: P2.unpack_h2d(
+                a, h_half).permute(0, 3, 1, 2), out)
+            sides = (lambda t: t[:, :f], lambda t: t[:, f:])
+            left_of = _identity
+        elif form == "bd":
+            with sharded_extent(in_hw):
+                conv1_act = run("towers_conv1[bd]", self._bd_conv1, left,
+                                right)
+            with sharded_extent(_half(full_hw)):
+                feats = self._bd_encoder(conv1_act, run)
+            f = feats.shape[1] // 2
+            sides = (lambda t: t[:, :f], lambda t: t[:, f:])
+            left_of = sides[0]
+        else:
+            with sharded_extent(in_hw):
+                conv1_act = run("towers_conv1", self._towers_conv1, left,
+                                right)
+            with sharded_extent(_half(full_hw)):
+                if spec.encoder2d == "plain":
+                    feats = self._plain_encoder(conv1_act, run)
+                else:
+                    feats = self._resnet_encoder(conv1_act, run)
+            sides = (lambda t: t[:n], lambda t: t[n:])
+            left_of = sides[0]
         if not spec.corr:
-            return self._volume_head(feats, full_hw, run)
+            return self._volume_head(feats, sides, full_hw, run)
         # the correlation volume and its soft-argmax over D, one kernel,
         # on NHWC features (row-local: a shard's rows need no halo)
-        d = run("corr_cost_volume+softargmax", lambda f: corr_softargmax_dlast(
-            f[:n].permute(0, 2, 3, 1).contiguous(),
-            f[n:].permute(0, 2, 3, 1).contiguous(), spec.max_disp), feats)
-        return self._bneck_head(d, conv1_act, full_hw, run)
+        fl, fr = sides
+        d = run("corr_cost_volume+softargmax", lambda t: corr_softargmax_dlast(
+            fl(t).permute(0, 2, 3, 1).contiguous(),
+            fr(t).permute(0, 2, 3, 1).contiguous(), spec.max_disp), feats)
+        return self._bneck_head(d, conv1_act, left_of, full_hw, run)
 
     def _check_sharded(self, sh) -> None:
         """Raise for a sharded forward this net cannot run."""
@@ -1061,6 +1346,19 @@ def _disparity_block(max_disp: int) -> Tuple[int, int]:
 
 def _call(_name: str, fn: Callable, *args):
     return fn(*args)
+
+
+def _identity(x):
+    return x
+
+
+def _left_rows(stem: torch.Tensor, h: int) -> torch.Tensor:
+    """The left tower's rows of the H-packed stem output (N, hp, W,
+    (parity, tower, f)) unpacked: (N, h, W, f), one copy."""
+    n, hp, w, c4 = stem.shape
+    f = c4 // 4
+    return stem.unflatten(-1, (2, 2, f))[..., 0, :].permute(0, 1, 3, 2, 4) \
+        .reshape(n, 2 * hp, w, f)[:, :h]
 
 
 def params_from_numpy(spec: StereoSpec, params: Params, *, device=None,

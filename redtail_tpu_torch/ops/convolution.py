@@ -105,14 +105,9 @@ def use_plain_lowering() -> bool:
     return _PLAIN_LOWERING.get()
 
 
-@contextlib.contextmanager
 def packed3d_lowering():
     """Run the 3D models' packed head inside the block (`use_packed3d`)."""
-    token = _PACKED3D.set(True)
-    try:
-        yield
-    finally:
-        _PACKED3D.reset(token)
+    return _switched_on(_PACKED3D)
 
 
 def use_packed3d() -> bool:
@@ -120,9 +115,69 @@ def use_packed3d() -> bool:
     `packed3d_lowering()`, or where ``REDTAIL_TPU_PACKED3D=1`` (the JAX
     package's switch; ``0`` or unset is off: the fused unpacked head is the
     port's default). `plain_lowering()` wins over both."""
+    return _switch(_PACKED3D, "REDTAIL_TPU_PACKED3D")
+
+
+def _switch(var: contextvars.ContextVar, env: str) -> bool:
+    """A layout switch: on inside its context manager or where ``env`` is
+    ``1`` (the JAX package's variable; ``0`` or unset is off, the port's
+    default), off under `plain_lowering()` whatever either says."""
     if use_plain_lowering():
         return False
-    return _PACKED3D.get() or os.environ.get("REDTAIL_TPU_PACKED3D") == "1"
+    return var.get() or os.environ.get(env) == "1"
+
+
+@contextlib.contextmanager
+def _switched_on(var: contextvars.ContextVar):
+    token = var.set(True)
+    try:
+        yield
+    finally:
+        var.reset(token)
+
+
+_FUSED_TOWERS = contextvars.ContextVar("redtail_torch_fused_towers",
+                                       default=False)
+_HPACK2D = contextvars.ContextVar("redtail_torch_hpack2d", default=False)
+_HPACK_CORR = contextvars.ContextVar("redtail_torch_hpack_corr",
+                                     default=False)
+
+
+def fused_towers_lowering():
+    """Run ResNet-18's siamese towers as one chain of block-diagonal convs
+    over the channel-concatenated pair inside the block (`use_fused_towers`;
+    `models/stereo.py`)."""
+    return _switched_on(_FUSED_TOWERS)
+
+
+def use_fused_towers() -> bool:
+    """Block-diagonal siamese towers: inside `fused_towers_lowering()` or
+    where ``REDTAIL_TPU_FUSED_TOWERS=1``."""
+    return _switch(_FUSED_TOWERS, "REDTAIL_TPU_FUSED_TOWERS")
+
+
+def hpack2d_lowering():
+    """Fold the block-diagonal towers' row pairs into channels inside the
+    block (`use_hpack2d`; `ops/packed2d.py`)."""
+    return _switched_on(_HPACK2D)
+
+
+def use_hpack2d() -> bool:
+    """H-packed towers (under block-diagonal towers, on s2d frames): inside
+    `hpack2d_lowering()` or where ``REDTAIL_TPU_HPACK2D=1``."""
+    return _switch(_HPACK2D, "REDTAIL_TPU_HPACK2D")
+
+
+def hpack_corr_lowering():
+    """Let ResNet18-2D's correlation head read the H-packed features where
+    they lie inside the block (`use_hpack_corr`)."""
+    return _switched_on(_HPACK_CORR)
+
+
+def use_hpack_corr() -> bool:
+    """The H-packed correlation head (under H-packed towers): inside
+    `hpack_corr_lowering()` or where ``REDTAIL_TPU_HPACK_CORR=1``."""
+    return _switch(_HPACK_CORR, "REDTAIL_TPU_HPACK_CORR")
 
 
 def _sharded_dim(x: torch.Tensor) -> Tuple[Optional[ShardedAxis], int]:
@@ -450,12 +505,36 @@ def conv2d(x: torch.Tensor, w: torch.Tensor,
     return out.permute(0, 2, 3, 1)
 
 
+TRANSPOSE_IMPLS = ("dilated", "shuffle", "dfold")
+
+
+def _transpose_impl(impl: Optional[str], nd: int, w: torch.Tensor,
+                    strides) -> str:
+    """``impl`` checked: None is ``"dilated"`` (cuDNN's transposed conv,
+    the port's choice on the card); the decompositions take k=3, stride 2
+    only, ``"dfold"`` in 3D only."""
+    impl = impl or "dilated"
+    if impl not in TRANSPOSE_IMPLS or (impl == "dfold" and nd == 2):
+        raise ValueError(f"unknown {nd}D transpose impl {impl!r}")
+    if impl != "dilated" and (tuple(w.shape[:nd]) != (3,) * nd
+                              or tuple(strides) != (2,) * nd):
+        raise ValueError(f"the {impl} transpose takes a k=3 stride-2 "
+                         f"kernel, got {tuple(w.shape)} at {strides}")
+    return impl
+
+
 def conv2d_transpose(y: torch.Tensor, w: torch.Tensor,
                      b: Optional[torch.Tensor] = None, *,
                      out_spatial: Sequence[int],
-                     strides: Tuple[int, int] = (2, 2)) -> torch.Tensor:
+                     strides: Tuple[int, int] = (2, 2),
+                     impl: Optional[str] = None) -> torch.Tensor:
     """TF ``conv2d_transpose``: NHWC activations, HWIO weights with
-    I = output channels of the transpose and O = its input channels."""
+    I = output channels of the transpose and O = its input channels.
+
+    ``impl``: ``"dilated"`` (None; cuDNN's transposed conv) or
+    ``"shuffle"`` (`conv2d_transpose_shuffle`, k=3 stride 2 SAME)."""
+    if _transpose_impl(impl, 2, w, strides) == "shuffle":
+        return conv2d_transpose_shuffle(y, w, b, out_spatial=out_spatial)
     out = conv2d_transpose_nchw(y.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
                                 b, out_spatial=out_spatial,
                                 stride=_square(strides))
@@ -476,9 +555,21 @@ def conv3d_transpose(y: torch.Tensor, w: torch.Tensor,
                      b: Optional[torch.Tensor] = None, *,
                      out_spatial: Sequence[int],
                      strides: Tuple[int, int, int] = (2, 2, 2),
-                     padding: str = "SAME") -> torch.Tensor:
+                     padding: str = "SAME",
+                     impl: Optional[str] = None) -> torch.Tensor:
     """TF ``conv3d_transpose``: NDHWC activations, DHWIO weights with
-    I = output channels of the transpose and O = its input channels."""
+    I = output channels of the transpose and O = its input channels.
+
+    ``impl``: ``"dilated"`` (None; cuDNN's transposed conv), ``"shuffle"``
+    (`conv3d_transpose_shuffle`) or ``"dfold"`` (`conv3d_transpose_dfold`),
+    the last two k=3 stride 2 SAME only."""
+    impl = _transpose_impl(impl, 3, w, strides)
+    if impl != "dilated" and _padding(padding) != "SAME":
+        raise ValueError(f"the {impl} transpose is TF-SAME only")
+    if impl == "shuffle":
+        return conv3d_transpose_shuffle(y, w, b, out_spatial=out_spatial)
+    if impl == "dfold":
+        return conv3d_transpose_dfold(y, w, b, out_spatial=out_spatial)
     out = conv3d_transpose_ncdhw(
         y.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2), b,
         out_spatial=out_spatial, stride=tuple(strides), padding=padding)
@@ -523,6 +614,90 @@ def _parity_taps(lo: int, r: int) -> List[Optional[int]]:
     if lo == 0:
         return [2, 0] if r == 0 else [None, 1]
     return [None, 1] if r == 0 else [2, 0]
+
+
+def shuffle_weights(w: torch.Tensor, out_spatial) -> torch.Tensor:
+    """The k=2 conv kernel of a sub-pixel transpose: (3,)*nd + (c_out,
+    c_in) TF weights -> (2,)*nd + (c_in, 2**nd * c_out) (HWIO / DHWIO),
+    output channels (parities, c_out) with the parities in row-major
+    order; conv position a = 0 reads y[j - 1], a = 1 reads y[j]
+    (`_parity_taps`, by the parity of each output extent). Every entry is
+    one weight or zero."""
+    nd = w.dim() - 2
+    los = [tf_same_padding(X, 3, 2)[0] for X in out_spatial]
+    wz = torch.zeros_like(w[(0,) * nd])          # (c_out, c_in)
+    parts = []
+    for rs in np.ndindex(*(2,) * nd):
+        taps = [_parity_taps(lo, r) for lo, r in zip(los, rs)]
+        parts.append(torch.stack([
+            wz if any(taps[i][a] is None for i, a in enumerate(pos))
+            else w[tuple(taps[i][a] for i, a in enumerate(pos))]
+            for pos in np.ndindex(*(2,) * nd)]))
+    k = torch.stack(parts, dim=1)   # (positions, parities, c_out, c_in)
+    c_out, c_in = w.shape[-2:]
+    return k.permute(0, 3, 1, 2).reshape(*(2,) * nd, c_in,
+                                         2 ** nd * c_out)
+
+
+def _shuffle(y: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+             out_spatial) -> torch.Tensor:
+    """`conv{2,3}d_transpose_shuffle` on channels-last ``y``."""
+    nd = y.dim() - 2
+    if current_sharding() is not None:
+        raise NotImplementedError("the shuffle transpose does not run "
+                                  "inside sharded_axis")
+    if tuple(w.shape[:nd]) != (3,) * nd:
+        raise ValueError(f"the shuffle transpose takes a k=3 kernel, got "
+                         f"{tuple(w.shape)}")
+    c_out = w.shape[-2]
+    k2 = shuffle_weights(w.to(y.dtype), out_spatial)
+    perm = (nd + 1, nd, *range(nd))                  # -> (O, I, *k)
+    xc = y.permute(0, nd + 1, *range(1, nd + 1))     # channels first
+    conv = _conv_sum(xc, k2.permute(*perm).float(), 1, 1)
+    # (N, *(Y + 1), parities, c_out), the fp32 sums
+    conv = conv.permute(0, *range(2, nd + 2), 1).reshape(
+        *conv.shape[:1], *conv.shape[2:], 2 ** nd, c_out)
+    los = [tf_same_padding(X, 3, 2)[0] for X in out_spatial]
+    parts = {}
+    for i, rs in enumerate(np.ndindex(*(2,) * nd)):
+        t = conv[..., i, :]
+        for axis, (r, lo) in enumerate(zip(rs, los)):
+            # conv[m] = K0 y[m - 1] + K1 y[m]: parity j aligns with m = j,
+            # but for lo = 1's odd parity (the w0 y[j + 1] term) m = j + 1
+            if lo == 1 and r == 1:
+                t = t.narrow(1 + axis, 1, t.shape[1 + axis] - 1)
+        parts[rs] = t
+    # weave the parities back, the last axis first
+    for axis in reversed(range(nd)):
+        merged = {}
+        for rs, t in parts.items():
+            merged.setdefault(rs[:axis], {})[rs[axis]] = t
+        parts = {key: _weave_axis(v[0], v[1], 1 + axis, out_spatial[axis])
+                 for key, v in merged.items()}
+    return _add_bias_last(parts[()], b, y.dtype)
+
+
+def conv2d_transpose_shuffle(y: torch.Tensor, w: torch.Tensor,
+                             b: Optional[torch.Tensor] = None, *,
+                             out_spatial) -> torch.Tensor:
+    """TF conv2d_transpose (k=3, s=2, SAME) as one k=2 conv with 4x the
+    output channels and a sub-pixel weave
+    (`redtail_tpu/ops/convolution.py:conv2d_transpose_shuffle`): y NHWC,
+    w (3, 3, c_out, c_in). Per axis, output 2j + r takes the kernel taps
+    of `_parity_taps`; the four parities are the conv's output channels,
+    each cropped by one where the low pad is 1 and the parity odd, then
+    woven back. The conv is cuDNN's on fp32 carriers, the bias added
+    after the weave in fp32 and the result rounded once. Exact."""
+    return _shuffle(y, w, b, out_spatial)
+
+
+def conv3d_transpose_shuffle(y: torch.Tensor, w: torch.Tensor,
+                             b: Optional[torch.Tensor] = None, *,
+                             out_spatial) -> torch.Tensor:
+    """The 3D `conv2d_transpose_shuffle`: y NDHWC, w (3, 3, 3, c_out,
+    c_in), one k=2 conv3d with 8x the output channels and three weaves
+    (`redtail_tpu/ops/convolution.py:conv3d_transpose_shuffle`)."""
+    return _shuffle(y, w, b, out_spatial)
 
 
 DfoldBlock = Tuple[int, int, int, int, torch.Tensor]

@@ -36,13 +36,23 @@ load. The in-shifted, H-packed stride-1 conv (the head's conv3D_2 /
 conv3D_1b) runs the CUDA kernel `kernels/conv223.py` on the card; every
 other conv is cuDNN's on fp32 carriers, TF32 off for fp32 and allowed for
 bf16, its sum plus bias rounded once (`ops/convolution.py`). The model
-holds those kernels widened to fp32 at load. Masks that zero a padding
-slot are in-place slice assignments; the JAX package's `mask_form` choice
-between two forms is a TPU fusion knob with no counterpart here.
+holds those kernels widened to fp32 at load.
+
+Masks that zero a padding slot take one of the JAX package's two forms
+(`mask_form`, a scope as in JAX): ``'where'``, here an in-place slice
+assignment of zeros, or ``'mul'``, an in-place multiply by a constant 0/1
+mask of the axis and channels (built once per shape and device). Both give
+the same values on finite inputs (``'mul'`` leaves -0.0 where a negative
+value is masked, as JAX's does). ``'auto'``, the default, takes each call
+site's form in the JAX package: ``'mul'`` for the shifted-out masks of the
+aligned-in stride-1 conv, ``'where'`` elsewhere.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -172,24 +182,78 @@ def _pd_groups(c: int, co: int, pd: int) -> List[Tuple[int, int]]:
     return [(g * co, (g + 1) * co) for g in range(c // co) if g % 2 == pd]
 
 
+MASK_FORMS = ("auto", "where", "mul")
+_MASK_FORM = contextvars.ContextVar("redtail_torch_mask_form",
+                                    default="auto")
+
+
+@contextlib.contextmanager
+def mask_form(form: str):
+    """The pad-slot mask form of the ops issued inside the block:
+    ``'where'``, ``'mul'`` or ``'auto'`` (each call site's JAX form),
+    per scope, so a model can set it per layer."""
+    if form not in MASK_FORMS:
+        raise ValueError(f"mask form must be one of {MASK_FORMS}, got "
+                         f"{form!r}")
+    token = _MASK_FORM.set(form)
+    try:
+        yield
+    finally:
+        _MASK_FORM.reset(token)
+
+
+def _mask_const(n_ax: int, c: int, slot: int,
+                ranges: Tuple[Tuple[int, int], ...], device: torch.device,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The 'mul' form's constant: ones, with zeros at ``slot`` of the axis
+    in the channel ``ranges``; (n_ax, c). Made once per shape and device;
+    while a graph is traced (`torch.export`: fake tensors) made afresh,
+    so no traced tensor is kept."""
+    if torch._guards.detect_fake_mode() is not None:
+        return _make_mask(n_ax, c, slot, ranges, device, dtype)
+    return _cached_mask(n_ax, c, slot, ranges, device, dtype)
+
+
+def _make_mask(n_ax, c, slot, ranges, device, dtype) -> torch.Tensor:
+    m = torch.ones(n_ax, c, dtype=dtype, device=device)
+    for lo, hi in ranges:
+        m[slot, lo:hi] = 0
+    return m
+
+
+_cached_mask = functools.lru_cache(maxsize=256)(_make_mask)
+
+
 def _mask_slot(y: torch.Tensor, axis: int, slot: int,
-               ranges: Sequence[Tuple[int, int]]) -> None:
+               ranges: Sequence[Tuple[int, int]],
+               auto: str = "where") -> None:
     """Zero the channel ``ranges`` of one index of ``axis`` of NDHWC
-    ``y``, in place."""
+    ``y``, in place, in the form `mask_form` sets (``auto``: this call
+    site's)."""
+    form = _MASK_FORM.get()
+    if form == "auto":
+        form = auto
+    if form == "mul":
+        m = _mask_const(y.shape[axis], y.shape[-1], slot,
+                        tuple(map(tuple, ranges)), y.device, y.dtype)
+        shape = [1] * y.dim()
+        shape[axis], shape[-1] = m.shape
+        y.mul_(m.reshape(shape))
+        return
     view = y.select(axis, slot)
     for lo, hi in ranges:
         view[..., lo:hi] = 0
 
 
 def _mask_h(y: torch.Tensor, size: int, slot: int,
-            ranges: Sequence[Tuple[int, int]]) -> None:
+            ranges: Sequence[Tuple[int, int]], auto: str = "where") -> None:
     """`_mask_slot` of global index ``slot`` of axis 2, whose global size
     is ``size``: inside an image `sharded_axis` only on the rank that
     holds it (a local index would zero a real interior slot)."""
     sh = image_sharding()
     first = 0 if sh is None else sh.owned(size)[0]
     if first <= slot < first + y.shape[2]:
-        _mask_slot(y, 2, slot - first, ranges)
+        _mask_slot(y, 2, slot - first, ranges, auto)
 
 
 # ------------------------------------------------------------ pack/unpack
@@ -322,13 +386,14 @@ def conv3d_packed(xp: torch.Tensor, w: Optional[torch.Tensor],
         # shifted out: slot 0's r=0 is Y[-1]; the last slot holds
         # (Y[2Lp-1], Y[2Lp]), Y[2Lp] always invalid, Y[2Lp-1] too when the
         # size is odd (it equals Y[size])
-        _mask_slot(out, 1, 0, _pd_groups(c, co, 0))
+        # the JAX package measured these as constant multiplies fastest
+        _mask_slot(out, 1, 0, _pd_groups(c, co, 0), auto="mul")
         _mask_slot(out, 1, out.shape[1] - 1,
-                   [(0, c)] if D % 2 else _pd_groups(c, co, 1))
+                   [(0, c)] if D % 2 else _pd_groups(c, co, 1), auto="mul")
         if packed_h:
-            _mask_h(out, slots, 0, [(0, c // 2)])
+            _mask_h(out, slots, 0, [(0, c // 2)], auto="mul")
             _mask_h(out, slots, slots - 1,
-                    [(0, c)] if H % 2 else [(c // 2, c)])
+                    [(0, c)] if H % 2 else [(c // 2, c)], auto="mul")
     return out
 
 

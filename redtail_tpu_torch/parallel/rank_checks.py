@@ -9,7 +9,7 @@ results are numpy.
 - `mesh_cases`: `sharding.make_mesh` with given sizes: the mesh's shape
   or the error it raised;
 - `refused_cases`: a net run inside `sharded_axis` (the correlation model
-  under disparity sharding): the error it raised;
+  under disparity sharding, the H-packed towers): the error it raised;
 - `conv_cases`: one sharded conv or transposed conv (`ops/convolution.py`
   inside `sharded_axis`), its output shard and the gradients of a fixed
   linear loss through it;
@@ -88,12 +88,28 @@ def mesh_cases(rank: int, world_size: int, cases: List[Dict],
     return out
 
 
+@contextlib.contextmanager
+def environ(env: Dict[str, str]):
+    """The variables of ``env`` set in this rank for the block (the JAX
+    package's switches, which the port reads too), restored after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def refused_cases(rank: int, world_size: int, cases: List[Dict],
                   device_type: str) -> List[Dict]:
     """Each case: ``spec``, ``params``, ``left`` / ``right`` (this rank's
-    frames), ``axis`` and ``size``; the net is called inside
-    `sharded_axis` over every rank. Returns the error's type and message
-    (an empty type if it ran)."""
+    frames), ``axis``, ``size`` and optionally ``env`` (`environ`); the
+    net is called inside `sharded_axis` over every rank. Returns the
+    error's type and message (an empty type if it ran)."""
     from redtail_tpu_torch.models.stereo import params_from_numpy
     from redtail_tpu_torch.ops.halo import sharded_axis
 
@@ -104,10 +120,11 @@ def refused_cases(rank: int, world_size: int, cases: List[Dict],
         left, right = (torch.from_numpy(c[k]).to(device)
                        for k in ("left", "right"))
         try:
-            with torch.no_grad(), sharded_axis(None, c["axis"], c["size"]):
+            with torch.no_grad(), environ(c.get("env", {})), \
+                    sharded_axis(None, c["axis"], c["size"]):
                 net(left, right)
             out.append({"error": "", "message": ""})
-        except ValueError as e:
+        except (ValueError, NotImplementedError) as e:
             out.append({"error": type(e).__name__, "message": str(e)})
     return out
 
@@ -236,7 +253,9 @@ def forward_cases(rank: int, world_size: int, cases: List[Dict],
     """Each case: ``spec`` (a `STEREO_SPECS` name and replaced fields),
     ``params`` (numpy tree), ``left`` / ``right`` (global frames),
     ``mesh`` (data, spatial), ``mode``, ``dtype``, ``lowering`` (see
-    `lowering`; default ``"fused"``); with ``unsharded`` rank 0 runs the
+    `lowering`; default ``"fused"``), ``env`` (`environ`: the tower
+    switches; returned ``tower_form``, the towers' form the forward took,
+    `StereoNet._tower_form`); with ``unsharded`` rank 0 runs the
     same net on the whole frames instead, under the same lowering (and
     under `plain_lowering()` in disparity mode, the lowering the sharded
     forward takes there), and the other ranks return None. Returns the
@@ -285,7 +304,7 @@ def forward_cases(rank: int, world_size: int, cases: List[Dict],
                                       mode=mode)
         left, right = (torch.from_numpy(c[k]).to(device, dtype)
                        for k in ("left", "right"))
-        with lowering(head):
+        with lowering(head), environ(c.get("env", {})):
             if device.type == "cuda":
                 fn(None, left, right)  # warm-up: kernels loaded, caches
                 torch.cuda.synchronize(device)
@@ -293,7 +312,8 @@ def forward_cases(rank: int, world_size: int, cases: List[Dict],
             before = {k: getattr(*v) for k, v in counters.items()}
             disp = fn(None, left, right)
             res = {k: getattr(*v) - before[k] for k, v in counters.items()}
-            res.update(disp=_numpy(disp), ms=0.0, peak_bytes=(
+            res.update(disp=_numpy(disp), ms=0.0, tower_form=(
+                net._tower_form(left.shape[-1] == 12)), peak_bytes=(
                 torch.cuda.max_memory_allocated(device)
                 if device.type == "cuda" else 0))
             if device.type == "cuda":

@@ -4,9 +4,12 @@
 `StereoNode` answers one frame pair per call: resize on the host only when
 the frame size differs from the model's (`cv2`, imported then),
 space-to-depth pack with BGR -> RGB folded in on the host (the native
-runtime's single pass, `native.pack_s2d`), upload the uint8 frames to the
-node's device, normalize there, run the model (stem in its 3x3 s2d form,
-cost volumes in the CUDA kernels on the card) and return the (H, W)
+runtime's single pass, `native.pack_s2d`; raw frames instead under
+``REDTAIL_TPU_S2D=0``, `ops.space_to_depth.use_s2d_stem`), upload the uint8
+frames to the node's device, normalize there, run the model (stem in its
+3x3 s2d form, cost volumes in the CUDA kernels on the card; the towers in
+the form the switches of `models/stereo.py` select at the call) and
+return the (H, W)
 float32 disparity in pixels: the 3D models return pixels already, the
 correlation model's sigmoid output is multiplied by the width
 (`stereo_dnn_ros_node.cpp:77-95`). The 3D models serve their fused
@@ -55,6 +58,7 @@ from redtail_tpu_torch.models.stereo import (
     params_from_numpy,
 )
 from redtail_tpu_torch.models.trailnet import INPUT_HW, load_trailnet
+from redtail_tpu_torch.ops.space_to_depth import use_s2d_stem
 from redtail_tpu_torch.quant import (calibrate_stereo, dequantize_tree,
                                      quantize_stereo_params_int8,
                                      quantize_stereo_params_w8)
@@ -386,8 +390,9 @@ class StereoNode(_OverlapMixin):
             params = quantize_stereo_params_int8(params, scales)
         elif quantize == "w8":
             params = dequantize_tree(quantize_stereo_params_w8(params))
-        # an int8 stem has no s2d form (JAX: use_s2d_stem() and not int8)
-        self._s2d = quantize != "int8"
+        # s2d frames for a float stem unless REDTAIL_TPU_S2D=0; an int8
+        # stem has no s2d form (JAX: use_s2d_stem() and not int8)
+        self._s2d = use_s2d_stem() and quantize != "int8"
         if isinstance(params, StereoNet) and params.dtype != dtype:
             raise ValueError(f"the StereoNet was built in {params.dtype}; "
                              f"this node serves {dtype}")

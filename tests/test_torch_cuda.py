@@ -193,6 +193,87 @@ def test_stereo_node_serves_through_the_kernel(cuda_device):
     assert np.isfinite(disp).all() and 0 <= disp.min() <= disp.max() <= hw[1]
 
 
+# The grouped soft-argmax (N, Hp, W, 2 C), D, original rows, channel
+# slices: ResNet18-2D's H-packed head at 321x1025 (161 rows: a pad row,
+# the towers' map halves), even rows, odd rows at batch 2, the warp and
+# chunk edges, C = 3.
+GROUPED = [((1, 81, 513, 64), 48, 161, True), ((1, 8, 65, 64), 48, 16, False),
+           ((2, 5, 37, 16), 9, 9, True), ((1, 3, 63, 64), 47, 5, True),
+           ((1, 3, 65, 64), 49, 6, False), ((1, 2, 513, 64), 1, 3, True),
+           ((1, 3, 9, 6), 5, 5, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,d,rows,slices", GROUPED)
+def test_grouped_softargmax_kernel_matches_plain_on_card(
+        cuda_device, shape, d, rows, slices, dtype):
+    n, hp, w, gc = shape
+    if slices:   # each half of one wider map, as the H-packed head reads
+        both = _pair(cuda_device, (n, hp, w, 2 * gc), dtype, seed=2)[0]
+        left, right = both[..., :gc], both[..., gc:]
+    else:
+        left, right = _pair(cuda_device, shape, dtype, seed=2)
+    scale = (gc // 2) ** -0.5
+    left, right = left * scale, right * scale
+    if slices:
+        both = torch.cat([left, right], dim=-1)
+        left, right = both[..., :gc], both[..., gc:]
+    before = (corr.corr_softargmax.launches,
+              corr.corr_softargmax.grouped_launches)
+    got = corr.corr_softargmax(left, right, d, groups=2, rows=rows)
+    torch.cuda.synchronize()
+    assert (corr.corr_softargmax.launches,
+            corr.corr_softargmax.grouped_launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    want = corr.corr_softargmax_plain(left, right, d, 2, rows)
+    assert got.shape == want.shape == (n, hp, w, 2)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    # each group is, bit for bit, the ungrouped launch on its rows
+    c = gc // 2
+    for g in (0, 1):
+        one = corr.corr_softargmax(left[..., g * c:(g + 1) * c].contiguous(),
+                                   right[..., g * c:(g + 1) * c].contiguous(),
+                                   d)
+        real = [i for i in range(hp) if 2 * i + g < rows]
+        assert torch.equal(got[:, real, :, g], one[:, real])
+        assert (got[:, [i for i in range(hp) if 2 * i + g >= rows], :, g]
+                == 0).all()
+
+
+def test_grouped_softargmax_refuses_autograd_on_card(cuda_device):
+    left, right = _pair(cuda_device, (1, 3, 20, 16))
+    left.requires_grad_(True)
+    before = corr.corr_softargmax.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        corr.corr_softargmax(left, right, 5, groups=2, rows=6)
+    assert corr.corr_softargmax.launches == before
+
+
+def test_stereo_node_serves_the_hpacked_head_on_card(cuda_device,
+                                                     monkeypatch):
+    """Under the H-packed head the grouped launch once a frame; the
+    disparity within phase 4's fp32 gate of the default path's."""
+    hw = (65, 129)
+    spec = dataclasses.replace(STEREO_SPECS["resnet18_2d"], input_hw=hw,
+                               max_disp=8)
+    node = StereoNode(spec, init_stereo_params(spec, seed=0),
+                      dtype=torch.float32)
+    rs = np.random.RandomState(0)
+    left, right = (rs.randint(0, 256, hw + (3,)).astype(np.uint8)
+                   for _ in range(2))
+    ref = node(left, right)
+    for var in ("REDTAIL_TPU_FUSED_TOWERS", "REDTAIL_TPU_HPACK2D",
+                "REDTAIL_TPU_HPACK_CORR"):
+        monkeypatch.setenv(var, "1")
+    before = (corr.corr_softargmax.launches,
+              corr.corr_softargmax.grouped_launches)
+    disp = node(left, right)
+    assert (corr.corr_softargmax.launches,
+            corr.corr_softargmax.grouped_launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    assert np.abs(disp - ref).max() / hw[1] < 1e-3
+
+
 def _ulp_ok(got, want, atol):
     """Within one bf16 ulp of the larger magnitude plus ``atol``."""
     mag = torch.maximum(got.float().abs(), want.float().abs())

@@ -266,7 +266,8 @@ def test_port_scan_covers_the_weight_and_quant_modules():
                  "runtime/layer_profiler.py", "runtime/cache.py",
                  "runtime/engine_builder.py", "parallel/launch.py",
                  "ops/halo.py", "parallel/sharding.py",
-                 "parallel/rank_checks.py"):
+                 "parallel/rank_checks.py", "ops/packed2d.py",
+                 "apps/convert_model.py", "apps/eval_disparity.py"):
         assert f"redtail_tpu_torch/{name}" in scanned
 
 
