@@ -40,8 +40,10 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
    321x1025 ((1, 81, 513, 64), D = 48, 161 rows: a pad row; read as
    channel slices of the towers' map, as the head passes them) and at its
    edges (even rows, odd rows at batch 2, W = 63, 65, 513 with D = 47, 49,
-   1, C = 3), fp32 and bf16, its pad rows exactly 0 and each group bit for
-   bit the ungrouped launch on that group's rows; timed at the main call
+   1, C = 3) and phase 11a's two shards of the first ((1, 40, 513, 64),
+   rows 161; (1, 41, 513, 64), rows 81), fp32 and bf16, its pad rows
+   exactly 0 and each group bit for bit the ungrouped launch on that
+   group's rows; timed at the main call
    beside its bound (`--corr-parent DIR` instead holds groups = 1 bit for
    bit against the kernel built from an earlier checkout at DIR);
 4. slice, card vs CPU: ResNet18-2D at 129x257 (max_disp 16) and NVTiny,
@@ -214,8 +216,13 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
        80 / 81, conditioned random weights: mean within 1e-2 sigmoid units
        of the unsharded forward (phase 4's gate) and max within one bf16
        step at 1 (2^-8; a fault in the rows beside the shards' boundary
-       passes a mean gate); fp32 at 129x257 within 1e-4; the corr
-       kernel's fused soft-argmax launched in each rank. NVSmall at
+       passes a mean gate); fp32 at 129x257 within 1e-4; each under the
+       default towers, the H-packed towers (``REDTAIL_TPU_HPACK2D``: 81
+       slots split 40 / 41, the shifted convs' 82 split 41 / 41) and the
+       H-packed head (``+ REDTAIL_TPU_HPACK_CORR``), beside rank 0's
+       unsharded forward under the same switches; a rank makes, a frame,
+       exactly one corr soft-argmax launch: the ungrouped one, or under
+       the H-packed head the grouped one on its own slots. NVSmall at
        321x1025 with the real weights, bf16 and fp32, under the fused
        head (161 feature rows split 80 / 81: the emission's full layout
        on each rank's rows) and the packed head (82 dh-shifted slots
@@ -244,8 +251,8 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
        halo bytes each rank received (`exchange.moved`) against the bytes
        of the activations exchanged (`exchange.held`), and peak device
        memory per rank against the unsharded forward's.
-    `python3 chip_smoke.py --parallel-only` runs phases 1-2, 3's concat,
-    emission and conv223 kernels and 11 alone and ends with a
+    `python3 chip_smoke.py --parallel-only` runs phases 1-2, 3's grouped
+    corr, concat, emission and conv223 kernels and 11 alone and ends with a
     `{"partial": true, ...}` line, not the `ok` line.
 
 12. the layout forms served (the JAX package's switches, set in this
@@ -377,10 +384,14 @@ CONV223_CASES = (("nvsmall", (1, 25, 82, 513, 128), 128),
 # features, D, original rows, read as channel slices): ResNet18-2D's
 # H-packed towers at 321x1025 first (161 rows in 81 slots, the last slot's
 # second group a pad row; each tower's half read where it lies in the
-# towers' (1, 81, 513, 128) map, as the head passes it), then an even row
-# count, odd rows at batch 2, the warp edges W = 63, 65, 513 with D = 47,
-# 49, 1, and C = 3 (loaded element by element).
+# towers' (1, 81, 513, 128) map, as the head passes it), then its two
+# ranks' slots under phase 11a's image sharding (slots 0-39, no pad row;
+# 40-80, rows counted from slot 40), an even row count, odd rows at batch
+# 2, the warp edges W = 63, 65, 513 with D = 47, 49, 1, and C = 3 (loaded
+# element by element).
 CORR_GROUPED_CASES = (("resnet18_2d hp", (1, 81, 513, 64), 48, 161, True),
+                      ("11a rank 0", (1, 40, 513, 64), 48, 161, True),
+                      ("11a rank 1", (1, 41, 513, 64), 48, 81, True),
                       ("even rows", (1, 8, 65, 64), 48, 16, False),
                       ("odd rows b2", (2, 5, 37, 16), 9, 9, True),
                       ("W=63 D=47", (1, 3, 63, 64), 47, 5, True),
@@ -388,6 +399,7 @@ CORR_GROUPED_CASES = (("resnet18_2d hp", (1, 81, 513, 64), 48, 161, True),
                       ("W=513 D=1", (1, 2, 513, 64), 1, 3, True),
                       ("C=3", (1, 3, 9, 6), 5, 5, False))
 GROUPS = 2
+GROUPED_ENTRY = "corr_cost_volume[softargmax, groups=2]"  # its kernels entry
 # The tower and head forms of ResNet-18 (the JAX package's switches, read
 # by the port at each call), and the packed head's mask forms.
 FORM_ENVS = {"default": {},
@@ -817,8 +829,7 @@ def phase_corr_grouped(torch, corr, gen):
                                      rows=rows),
         lambda: corr.corr_softargmax_plain(left, right, d, GROUPS, rows),
         nbytes, flops, peak_flops=PEAK_BF16_FLOPS)
-    entry = {"name": "corr_cost_volume[softargmax, groups=2]",
-             "route": "cuda",
+    entry = {"name": GROUPED_ENTRY, "route": "cuda",
              "source": "redtail_tpu_torch/csrc/corr_cost_volume.cu",
              "replaces": "redtail_tpu/kernels/cost_volume_pallas.py:43",
              "launches": None, "max_abs_err": max_err}
@@ -3457,8 +3468,8 @@ def phase_engines(np, torch, models, nodes, ckpt, stereo_app, plain_lowering,
 # gloo (NCCL refuses two ranks on one card); with two cards or more the
 # same phases run again over NCCL, a card a rank. A mesh (data, spatial).
 PAR_RANKS = 2
-PARALLEL_ONLY = "--parallel-only"  # phases 1-2, 3's concat, emission and
-#                                    conv223, and 11 alone
+PARALLEL_ONLY = "--parallel-only"  # phases 1-2, 3's grouped corr, concat,
+#                                    emission and conv223, and 11 alone
 PAR_2D_FP32 = ((129, 257), 16)   # phase 4's ResNet18-2D slice
 PAR_2D_BF16_MEAN = 1e-2    # sigmoid units: sharded bf16 vs unsharded
 #                            (phase 4's bf16 gate)
@@ -3473,9 +3484,14 @@ PAR_MESHES = ((2, 1), (1, 2))
 # 11a's 3D heads (`rank_checks.lowering`): the fused one and the packed
 # one, on the card with the D-folded final deconv
 PAR_3D_LOWERINGS = ("fused", "packed")
+# 11a's ResNet18-2D forms (`FORM_ENVS`, through `rank_checks.
+# forward_cases`' ``env``): the default 2N batch, the H-packed towers and
+# the H-packed head (the corr kernel's grouped soft-argmax), the last two on
+# every rank's slots; the corr soft-argmax launches a rank makes for a frame
+# under each, (ungrouped, grouped), exactly
+PAR_CORR_LAUNCHES = {"default": (1, 0), "hp": (1, 0), "hp+corr": (0, 1)}
 # the kernels a sharded forward must launch in each rank, by its case
-PAR_KERNELS = {"corr": (("corr_launches", "corr_cost_volume"),),
-               "disparity": (("concat_launches", "cost_volume_concat"),),
+PAR_KERNELS = {"disparity": (("concat_launches", "cost_volume_concat"),),
                "fused": (("emit_launches", "fused_cv_emit"),),
                "packed": (("packed_emit_launches", "fused_cv_emit"),
                           ("conv223_launches", "conv223"))}
@@ -3503,11 +3519,15 @@ def par_cases(np, models, s2d):
             dataclasses.replace(models.STEREO_SPECS["resnet18_2d"],
                                 input_hw=hw, max_disp=max_disp), seed=0), 2)
         left, right = par_frames(np, s2d, hw, 11)
-        for extra in ({"mesh": (1, PAR_RANKS), "mode": "image"},
-                      {"unsharded": True}):
-            fwd.append(dict(spec=spec, params=tree, left=left, right=right,
-                            dtype=dtype, tag=f"11a resnet18_2d {dtype}",
-                            **extra))
+        for form in PAR_CORR_LAUNCHES:
+            env = FORM_ENVS[form]
+            for extra in ({"mesh": (1, PAR_RANKS), "mode": "image"},
+                          {"unsharded": True}):
+                fwd.append(dict(spec=spec, params=tree, left=left,
+                                right=right, dtype=dtype, env=env, form=form,
+                                tag=f"11a resnet18_2d {form} {dtype}"
+                                if env else f"11a resnet18_2d {dtype}",
+                                **extra))
     tree = models.params_from_npz(ROOT / NVSMALL_NPZ)
     left, right = par_frames(np, s2d, FULL_HW, 12)
     nvsmall = dict(spec={"name": "nvsmall", "input_hw": FULL_HW},
@@ -3573,15 +3593,29 @@ def par_forward_gates(np, fwd, results, backend, card="cuda"):
             top = PAR_2D_BF16_MAX if corr else PAR_3D_BF16_MAX
             check(fp32 or err.max() <= top, f"{c['tag']} rank {rank}: max "
                   f"{err.max()} off the unsharded forward (gate {top}{unit})")
-            kind = ("corr" if corr else "disparity" if c["mode"] ==
-                    "disparity" else c["lowering"])
             launched = []
-            for key, entry in PAR_KERNELS[kind]:
+            path = f"{c['tag']} {c['mode']} {backend} rank {rank}"
+            if corr:
+                # one soft-argmax launch a frame, grouped under the H-packed
+                # head only
+                grouped = got["grouped_corr_launches"]
+                pair = (got["corr_launches"] - grouped, grouped)
+                check(pair == PAR_CORR_LAUNCHES[c["form"]] or card == "cpu",
+                      f"{c['tag']} rank {rank}: (ungrouped, grouped) corr "
+                      f"launches {pair}, not "
+                      f"{PAR_CORR_LAUNCHES[c['form']]}")
+                for n, entry in zip(pair, ("corr_cost_volume",
+                                           GROUPED_ENTRY)):
+                    if n:
+                        by_path.setdefault(entry, {})[path] = n
+                launched.append(f"corr launches (ungrouped, grouped) "
+                                f"{pair}")
+            for key, entry in () if corr else PAR_KERNELS[
+                    "disparity" if c["mode"] == "disparity"
+                    else c["lowering"]]:
                 check(got[key] >= 1 or card == "cpu", f"{c['tag']} rank "
                       f"{rank}: {key} {got[key]}")
-                by_path.setdefault(entry, {})[
-                    f"{c['tag']} {c['mode']} {backend} rank {rank}"] = \
-                    got[key]
+                by_path.setdefault(entry, {})[path] = got[key]
                 launched.append(f"{key} {got[key]}")
             print(f"{c['tag']} {c['mode']} mesh {c['mesh']} ({backend}) rank "
                   f"{rank}: vs unsharded max {err.max():.3e} mean "
@@ -3857,18 +3891,18 @@ def main() -> int:
                           "4 forms, 12"}))
         return 0
     if sys.argv[1:] == [PARALLEL_ONLY]:
+        phase_corr_grouped(torch, corr, gen)
         phase_concat(torch, concat, gen)
         phase_emit(torch, emit, gen)
         phase_conv223(torch, c223, gen)
         phase_multi_device(np, torch, models, nodes, trailnet,
                            space_to_depth2_np, counters)
         # a partial run: not the contract's ok line
-        print(json.dumps({"partial": True,
-                          "phases": "1-2, 3 concat, emit, conv223, 11"}))
+        print(json.dumps({"partial": True, "phases": "1-2, 3 grouped corr, "
+                          "concat, emit, conv223, 11"}))
         return 0
-    grouped_entry = "corr_cost_volume[softargmax, groups=2]"
     entries = {"corr_cost_volume": phase_corr(torch, corr, softargmax, gen),
-               grouped_entry: phase_corr_grouped(torch, corr, gen),
+               GROUPED_ENTRY: phase_corr_grouped(torch, corr, gen),
                "cost_volume_concat": phase_concat(torch, concat, gen),
                "fused_cv_emit": phase_emit(torch, emit, gen),
                "conv223": phase_conv223(torch, c223, gen)}
@@ -3965,8 +3999,9 @@ def main() -> int:
 
     # the layout forms served: the grouped corr launch under the H-packed
     # head, and never on another path
-    by_path[grouped_entry], _ = phase_forms(np, torch, models, nodes,
-                                            counters, packed3d_lowering, gen)
+    paths, _ = phase_forms(np, torch, models, nodes, counters,
+                           packed3d_lowering, gen)
+    by_path.setdefault(GROUPED_ENTRY, {}).update(paths)
 
     for name, paths in by_path.items():
         check(all(paths.values()), f"{name} was not launched on {paths}")

@@ -64,9 +64,11 @@ JAX package's two TPU layouts too, behind its switches
   bottleneck's leading stride-1 convs run packed before one unpack.
 
 Both fall back to the batched towers where the JAX package does: int8
-leaves in the towers, a calibration tap (`conv_tap`), a trainable net. The
-block-diagonal towers run image-sharded like any conv; the H-packed forms
-raise there (a ROADMAP item).
+leaves in the towers, a calibration tap (`conv_tap`), a trainable net.
+Every form runs image-sharded: the block-diagonal towers like any conv,
+the H-packed towers and head on each rank's slots (`ops/packed2d.py`:
+halo slots, pad rows masked on the rank that holds them, the unpacks to
+each rank's rows, the grouped corr launch on each rank's slots).
 
 `StereoNet.forward` is `StereoNet.layers(left, right, run)`, the network
 one named layer at a time with each layer computed as ``run(name, fn,
@@ -82,8 +84,10 @@ the global extent of their inputs (`sharded_extent`), so every TF-SAME pad
 and every transposed conv's target is the global one. Image mode runs the
 head the lowering in force selects (the fused one, the packed one on its
 slots, the plain one) and int8 leaves (the float input's halo rows
-exchanged before it is quantized); disparity mode runs under
-`plain_lowering()` (`parallel/sharding.py`).
+exchanged before it is quantized), under any tower form; disparity mode
+runs the towers whole under the caller's tower switches, as the JAX
+package's `_encode_pair` does, and the concat volume and the 3D stack
+under `plain_lowering()` (`plain_volume_head`).
 """
 
 from __future__ import annotations
@@ -112,6 +116,7 @@ from redtail_tpu_torch.ops.convolution import (
     conv3d_transpose_ncdhw,
     dfold_weights,
     empty_conv_shard,
+    plain_lowering,
     sharded_conv_input,
     use_fused_towers,
     use_hpack2d,
@@ -481,6 +486,23 @@ def conv_tap():
         yield
     finally:
         _CONV_TAP.reset(token)
+
+
+_PLAIN_HEAD = contextvars.ContextVar("redtail_torch_plain_head",
+                                     default=False)
+
+
+@contextlib.contextmanager
+def plain_volume_head():
+    """The 3D models' cost volume and 3D stack under `plain_lowering()`
+    inside the block, the towers under the caller's switches: disparity
+    mode's forward (`parallel/sharding.py`), as the JAX package's builds
+    the concat volume and runs `_volume_head` after `_encode_pair`."""
+    token = _PLAIN_HEAD.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN_HEAD.reset(token)
 
 
 class _HPackedConv(nn.Module):
@@ -1005,14 +1027,7 @@ class StereoNet(nn.Module):
         if (self.towers_bd is None or not use_fused_towers()
                 or _CONV_TAP.get()):
             return "batch"
-        if not (s2d and use_hpack2d()):
-            return "bd"
-        if current_sharding() is not None:
-            raise NotImplementedError(
-                "the H-packed towers (REDTAIL_TPU_HPACK2D) do not run "
-                "sharded yet (ROADMAP.md item 14: the H-packed forms under "
-                "image sharding); the block-diagonal towers do")
-        return "hp"
+        return "hp" if s2d and use_hpack2d() else "bd"
 
     def _bd_conv1(self, left, right):
         """Both towers' stem as one block-diagonal conv over the
@@ -1036,12 +1051,24 @@ class StereoNet(nn.Module):
         """The H-packed towers on s2d frames: (stem output, towers' output),
         NHWC packed, the stem's channels (parity, tower, f); the output's
         (parity, tower, f), or with ``keep`` (tower, parity, f) for the
-        H-packed head."""
+        H-packed head. Each op derives its global slot counts from
+        ``h_half`` (`packed2d.slots`): the stem reads ``h_half`` s2d rows,
+        a resblock's first conv ``ceil(h_half / 2)`` aligned slots, its
+        second one more, shifted."""
         hp = self.towers_hp
 
         def conv(c, a, **kw):
             return P2.conv2d_hpacked(a, None, c.bias, h=h_half,
                                      kernel=c.kernel, **kw)
+
+        def resblock(a, c1, c2):
+            y = conv(c2, conv(c1, a, in_shifted=False, act=elu),
+                     in_shifted=True)
+            # both aligned, ceil(h_half / 2) slots, so one ownership
+            if y.shape != a.shape:
+                raise ValueError(f"H-packed skip add: {tuple(y.shape)} + "
+                                 f"{tuple(a.shape)}")
+            return elu(y + a)
         stem = run("towers_conv1[hp]", lambda a, b: P2.conv1_s2d_hpacked(
             torch.cat([a, b], dim=-1).to(self.dtype), None, hp.conv1.bias,
             h_half=h_half, act=elu, kernel=hp.conv1.kernel), left, right)
@@ -1049,8 +1076,7 @@ class StereoNet(nn.Module):
         for i in range(1, 9):
             x = run(f"towers_resblock{i}[hp]", lambda a, c1=hp[
                 f"resblock{i}_res_conv1"], c2=hp[f"resblock{i}_res_conv2"]:
-                    elu(conv(c2, conv(c1, a, in_shifted=False, act=elu),
-                             in_shifted=True) + a), x)
+                    resblock(a, c1, c2), x)
         out = hp.encoder2D_out_corr if keep else hp.encoder2D_out
         x = run("towers_out[hp]", lambda a, c=out: P2.conv2d_hpacked_keep(
             a, None, c.bias, h=h_half, kernel=c.kernel,
@@ -1088,7 +1114,10 @@ class StereoNet(nn.Module):
         towers' packed (tower, parity, f) map, each tower's half read where
         it lies; the packed concat with the left stem features; the leading
         stride-1 bottleneck convs packed (`bneck_lead_count`); one unpack;
-        the rest of the bottleneck as `_bneck_head`'s."""
+        the rest of the bottleneck as `_bneck_head`'s. Image-sharded, each
+        rank runs the grouped corr on its own slots, the concat on them
+        (slot-local), the packed convs with their halo slots and the
+        unpack to its own rows, then the rest under `sharded_extent`."""
         spec = self.spec
         h2 = -(-full_hw[0] // 2)
         f = out.shape[-1] // 4
@@ -1302,7 +1331,9 @@ class StereoNet(nn.Module):
             sides = (lambda t: t[:n], lambda t: t[n:])
             left_of = sides[0]
         if not spec.corr:
-            return self._volume_head(feats, sides, full_hw, run)
+            with (plain_lowering() if _PLAIN_HEAD.get()
+                  else contextlib.nullcontext()):
+                return self._volume_head(feats, sides, full_hw, run)
         # the correlation volume and its soft-argmax over D, one kernel,
         # on NHWC features (row-local: a shard's rows need no halo)
         fl, fr = sides
@@ -1354,11 +1385,13 @@ def _identity(x):
 
 def _left_rows(stem: torch.Tensor, h: int) -> torch.Tensor:
     """The left tower's rows of the H-packed stem output (N, hp, W,
-    (parity, tower, f)) unpacked: (N, h, W, f), one copy."""
+    (parity, tower, f)) unpacked: (N, h, W, f), one copy; inside an image
+    `sharded_axis` this rank's own rows (`packed2d.row_slots`)."""
+    stem, lo, n_rows = P2.row_slots(stem, h)
     n, hp, w, c4 = stem.shape
     f = c4 // 4
     return stem.unflatten(-1, (2, 2, f))[..., 0, :].permute(0, 1, 3, 2, 4) \
-        .reshape(n, 2 * hp, w, f)[:, :h]
+        .reshape(n, 2 * hp, w, f).narrow(1, lo, n_rows)
 
 
 def params_from_numpy(spec: StereoSpec, params: Params, *, device=None,

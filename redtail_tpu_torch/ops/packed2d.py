@@ -35,19 +35,31 @@ a bias in a pad row would corrupt every consumer's band algebra), in place.
 Each op takes the JAX function's arguments (NHWC activations, HWIO
 weights) and, as ``kernel=``, optionally its packed kernel already in
 `F.conv2d`'s layout (`prepare`): the model derives those once, at load.
-None of these ops runs inside `ops.halo.sharded_axis`.
+
+**Image sharding.** Inside an image `ops.halo.sharded_axis` each op runs
+on this rank's slots of axis 1 (`ops/packed3d.py`'s rule on axis 2): a
+conv owns its output slots under the ownership rule over the output's
+global slot count and fetches its input's halo slots (`halo_rows` over
+the input's global count: the stem's ``h_half`` s2d rows, ``ceil(h /
+2)`` aligned slots, one more shifted); a pad row is zeroed only on the
+rank that holds its global slot; `unpack_h2d` returns this rank's own
+rows of ``h`` from the slots that hold them (one `fetch`); the grouped
+corr is row-local and reads no halo. A rank that owns nothing still
+joins every exchange and returns `empty_shard`. The global sizes follow
+from ``h`` and the layout, never from the shard's shape.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from redtail_tpu_torch.ops.convolution import _conv_sum
-from redtail_tpu_torch.ops.halo import current_sharding
+from redtail_tpu_torch.ops.halo import (empty_shard, fetch, halo_rows,
+                                       image_sharding, window_size)
 
 
 def _band(table: Callable[[int, int, int], int], n_ws: int) -> np.ndarray:
@@ -101,18 +113,29 @@ def prepare(k: torch.Tensor) -> torch.Tensor:
     return k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
 
 
-def _refuse_sharded(op: str) -> None:
-    if current_sharding() is not None:
-        raise NotImplementedError(
-            f"packed2d.{op}: the H-packed forms do not run image-sharded "
-            "yet (ROADMAP.md item 14: the H-packed forms under image "
-            "sharding); shard the block-diagonal or the 2N-batched towers")
+def slots(h: int, shifted: bool = False) -> int:
+    """The global slot count of an H-packed axis of ``h`` original rows:
+    ``ceil(h / 2)`` aligned, one more shifted."""
+    return -(-h // 2) + int(shifted)
 
 
-def _conv(x: torch.Tensor, kernel: torch.Tensor, stride, pads
-          ) -> torch.Tensor:
+def _conv(x: torch.Tensor, kernel: torch.Tensor, stride, pads, *,
+          rows: int) -> torch.Tensor:
     """The fp32 sum of NHWC ``x`` convolved with the OIHW ``kernel`` at
-    window ``stride`` and per-axis (lo, hi) ``pads``, NHWC."""
+    window ``stride`` and per-axis (lo, hi) ``pads``, NHWC. ``rows``: the
+    global size of axis 1 (slots, or the stem's s2d rows); inside an image
+    `sharded_axis` the conv returns this rank's slots of its output
+    (`halo_rows`)."""
+    sh = image_sharding()
+    if sh is not None:
+        pads = list(pads)
+        x, pads[0], (a, b) = halo_rows(x, sh, 1, global_size=rows,
+                                       k=kernel.shape[2], s=stride[0],
+                                       pads=pads[0])
+        if b == a:
+            return empty_shard(x, (x.shape[0], 0, window_size(
+                x.shape[2], kernel.shape[3], stride[1], pads[1]),
+                kernel.shape[0]), torch.float32)
     xc = x.permute(0, 3, 1, 2)
     if all(lo == hi for lo, hi in pads):
         pad = tuple(lo for lo, _ in pads)
@@ -138,16 +161,22 @@ def _finish(out: torch.Tensor, b: Optional[torch.Tensor], act, dtype,
 def _mask_rows(y: torch.Tensor, h: int, *, shifted: bool,
                blocks: int = 1) -> torch.Tensor:
     """Zero, in place, the parity channels whose original row 2 slot + q
-    (minus 1 if ``shifted``) falls outside [0, h): slot 0 and the last two
-    slots are the only ones that can hold one. The channels are ``blocks``
+    (minus 1 if ``shifted``) falls outside [0, h): global slot 0 and the
+    last two are the only ones that can hold one. Inside an image
+    `sharded_axis` each is zeroed only on the rank that holds it (a local
+    index would zero a real interior slot). The channels are ``blocks``
     blocks of (parity, c)."""
-    n_slots = y.shape[1]
+    sh = image_sharding()
+    n_slots = y.shape[1] if sh is None else slots(h, shifted)
+    first = 0 if sh is None else sh.owned(n_slots)[0]
     view = y.unflatten(-1, (blocks, 2, y.shape[-1] // (2 * blocks)))
     for slot in sorted({0, max(n_slots - 2, 0), n_slots - 1}):
+        if not first <= slot < first + y.shape[1]:
+            continue
         for q in (0, 1):
             row = 2 * slot + q - (1 if shifted else 0)
             if not 0 <= row < h:
-                view[:, slot, :, :, q] = 0
+                view[:, slot - first, :, :, q] = 0
     return y
 
 
@@ -161,10 +190,9 @@ def conv1_s2d_hpacked(x_s2d: torch.Tensor, k3: Optional[torch.Tensor],
     the stem's output rows); ``k3``: the `conv5s2_kernel_to_s2d` kernel
     (3, 3, 4 Craw, Co), block-diagonal for the fused towers. Output slot
     b, parity q' = stem output row 2b + q', one kh=4 stride-(2, 1) conv."""
-    _refuse_sharded("conv1_s2d_hpacked")
     if kernel is None:
         kernel = prepare(stem_kernel(k3.to(x_s2d.dtype)))
-    out = _conv(x_s2d, kernel, (2, 1), [(1, 2), (1, 1)])
+    out = _conv(x_s2d, kernel, (2, 1), [(1, 2), (1, 1)], rows=h_half)
     return _finish(out, b, act, x_s2d.dtype, h_half, shifted=False)
 
 
@@ -174,11 +202,11 @@ def conv2d_hpacked(x: torch.Tensor, w: Optional[torch.Tensor],
                    kernel: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Stride-1 3x3 TF-SAME conv on H-packed input, flipping the pair
     convention (aligned in -> shifted out and back; kh=2 taps)."""
-    _refuse_sharded("conv2d_hpacked")
     if kernel is None:
         kernel = prepare(flip_kernel(w.to(x.dtype)))
     pad_h = (0, 0) if in_shifted else (1, 1)
-    out = _conv(x, kernel, (1, 1), [pad_h, (1, 1)])
+    out = _conv(x, kernel, (1, 1), [pad_h, (1, 1)],
+                rows=slots(h, in_shifted))
     return _finish(out, b, act, x.dtype, h, shifted=not in_shifted)
 
 
@@ -192,19 +220,35 @@ def conv2d_hpacked_keep(x: torch.Tensor, w: Optional[torch.Tensor],
     many blocks of (parity, c) (``b`` then at the output's full width):
     the model's (tower, parity, f) map for the H-packed head, whose tower
     halves the corr kernel reads where they lie."""
-    _refuse_sharded("conv2d_hpacked_keep")
     if kernel is None:
         kernel = prepare(keep_kernel(w.to(x.dtype)))
-    out = _conv(x, kernel, (1, 1), [(1, 1), (1, 1)])
+    out = _conv(x, kernel, (1, 1), [(1, 1), (1, 1)], rows=slots(h))
     return _finish(out, b, act, x.dtype, h, shifted=False, blocks=blocks)
 
 
+def row_slots(xp: torch.Tensor, h: int
+              ) -> Tuple[torch.Tensor, int, int]:
+    """The aligned slots that hold this rank's rows of ``h``: inside an
+    image `sharded_axis` its rows under the ownership rule, from one
+    `fetch` of the slots they lie in; else ``xp`` and every row. Returns
+    (the slots, the unpacked slab's row of its first row, its row
+    count)."""
+    sh = image_sharding()
+    if sh is None:
+        return xp, 0, h
+    xp, (a, b), (s0, _) = fetch(
+        xp, sh, 1, global_size=slots(h), out_size=h,
+        need=lambda a, b: (a // 2, (b - 1) // 2 + 1))
+    return xp, (a - 2 * s0 if b > a else 0), b - a
+
+
 def unpack_h2d(xp: torch.Tensor, h: int) -> torch.Tensor:
-    """Aligned H-packed (N, hp, W, 2C) -> (N, h, W, C)."""
-    _refuse_sharded("unpack_h2d")
+    """Aligned H-packed (N, hp, W, 2C) -> (N, h, W, C); inside an image
+    `sharded_axis` this rank's own rows of ``h`` (`row_slots`)."""
+    xp, lo, n_rows = row_slots(xp, h)
     n, hp, w, c2 = xp.shape
     return xp.reshape(n, hp, w, 2, c2 // 2).permute(0, 1, 3, 2, 4) \
-        .reshape(n, 2 * hp, w, c2 // 2)[:, :h]
+        .reshape(n, 2 * hp, w, c2 // 2).narrow(1, lo, n_rows)
 
 
 def corr_cost_volume_hpacked(left_p: torch.Tensor, right_p: torch.Tensor,
@@ -239,8 +283,15 @@ def corr_softargmax_hpacked(left_p: torch.Tensor, right_p: torch.Tensor,
     kernel's grouped soft-argmax: one launch on the card, the packed
     features read where they lie (channel slices of one map allowed), no
     volume in memory; its plain version on the CPU. -> (N, hp, W, 2)
-    fp32."""
+    fp32. Rows are independent: inside an image `sharded_axis` each rank
+    launches on its own slots, its pad rows counted from its first slot,
+    and a rank with none launches nothing."""
     from redtail_tpu_torch.kernels.corr_cost_volume import corr_softargmax
 
-    _refuse_sharded("corr_softargmax_hpacked")
-    return corr_softargmax(left_p, right_p, max_disp, groups=2, rows=h)
+    if left_p.shape[1] == 0:
+        return empty_shard(left_p, (left_p.shape[0], 0, left_p.shape[2], 2),
+                           torch.float32)
+    sh = image_sharding()
+    first = 0 if sh is None else sh.owned(slots(h))[0]
+    return corr_softargmax(left_p, right_p, max_disp, groups=2,
+                           rows=h - 2 * first)

@@ -9,13 +9,14 @@ results are numpy.
 - `mesh_cases`: `sharding.make_mesh` with given sizes: the mesh's shape
   or the error it raised;
 - `refused_cases`: a net run inside `sharded_axis` (the correlation model
-  under disparity sharding, the H-packed towers): the error it raised;
+  under disparity sharding): the error it raised;
 - `conv_cases`: one sharded conv or transposed conv (`ops/convolution.py`
   inside `sharded_axis`), its output shard and the gradients of a fixed
   linear loss through it;
 - `op_cases`: one op of the 3D heads (the packed ops, dfold, the
-  emission) on this rank's rows or slots inside an image `sharded_axis`:
-  its output shard;
+  emission) or of the H-packed towers and head (`ops/packed2d.py`) on
+  this rank's rows or slots inside an image `sharded_axis`: its output
+  shard;
 - `forward_cases`: `sharding.shard_stereo_forward` on global frames under
   a given lowering;
 - `train_cases`: one `make_train_step(mesh=)` step on a global batch: the
@@ -107,9 +108,9 @@ def environ(env: Dict[str, str]):
 def refused_cases(rank: int, world_size: int, cases: List[Dict],
                   device_type: str) -> List[Dict]:
     """Each case: ``spec``, ``params``, ``left`` / ``right`` (this rank's
-    frames), ``axis``, ``size`` and optionally ``env`` (`environ`); the
-    net is called inside `sharded_axis` over every rank. Returns the
-    error's type and message (an empty type if it ran)."""
+    frames), ``axis`` and ``size``; the net is called inside
+    `sharded_axis` over every rank. Returns the error's type and message
+    (an empty type if it ran)."""
     from redtail_tpu_torch.models.stereo import params_from_numpy
     from redtail_tpu_torch.ops.halo import sharded_axis
 
@@ -120,11 +121,10 @@ def refused_cases(rank: int, world_size: int, cases: List[Dict],
         left, right = (torch.from_numpy(c[k]).to(device)
                        for k in ("left", "right"))
         try:
-            with torch.no_grad(), environ(c.get("env", {})), \
-                    sharded_axis(None, c["axis"], c["size"]):
+            with torch.no_grad(), sharded_axis(None, c["axis"], c["size"]):
                 net(left, right)
             out.append({"error": "", "message": ""})
-        except (ValueError, NotImplementedError) as e:
+        except ValueError as e:
             out.append({"error": type(e).__name__, "message": str(e)})
     return out
 
@@ -162,12 +162,18 @@ def conv_cases(rank: int, world_size: int, cases: List[Dict],
 
 
 def _ops():
+    from redtail_tpu_torch.ops import packed2d as P2
     from redtail_tpu_torch.ops import packed3d as P
     from redtail_tpu_torch.ops.convolution import conv3d_transpose_dfold
     from redtail_tpu_torch.ops.fused_cost_volume_conv import \
         cost_volume_conv3d
 
-    return {"conv3d_packed": P.conv3d_packed,
+    return {"conv1_s2d_hpacked": P2.conv1_s2d_hpacked,
+            "conv2d_hpacked": P2.conv2d_hpacked,
+            "conv2d_hpacked_keep": P2.conv2d_hpacked_keep,
+            "unpack_h2d": P2.unpack_h2d,
+            "corr_softargmax_hpacked": P2.corr_softargmax_hpacked,
+            "conv3d_packed": P.conv3d_packed,
             "conv3d_packed_down": P.conv3d_packed_down,
             "conv3d_packed_down_unpack": P.conv3d_packed_down_unpack,
             "deconv3d_packed": P.deconv3d_packed,
@@ -255,25 +261,30 @@ def forward_cases(rank: int, world_size: int, cases: List[Dict],
     ``mesh`` (data, spatial), ``mode``, ``dtype``, ``lowering`` (see
     `lowering`; default ``"fused"``), ``env`` (`environ`: the tower
     switches; returned ``tower_form``, the towers' form the forward took,
-    `StereoNet._tower_form`); with ``unsharded`` rank 0 runs the
-    same net on the whole frames instead, under the same lowering (and
-    under `plain_lowering()` in disparity mode, the lowering the sharded
-    forward takes there), and the other ranks return None. Returns the
-    disparity (gathered), the launches in this rank of the correlation,
-    concat, emission (``emit``: both layouts; ``packed_emit``: the
-    dh-shifted one) and conv223 kernels, the bytes its halo exchanges
-    received and the bytes of the activations they were called on, peak
-    device memory, and the device time of one forward on the card (CUDA
-    events; 0 on the CPU)."""
+    `StereoNet._tower_form`); a disparity-mode case ignores ``lowering``:
+    its head is the plain one (`plain_volume_head`). With ``unsharded``
+    rank 0 runs the same net on the whole frames instead, under the same
+    switches and ``lowering`` (under `plain_volume_head` where the case's
+    ``mode`` is ``"disparity"``), and the other ranks return None.
+    Returns the disparity (gathered), the launches in this rank of the
+    correlation kernel's soft-argmax (``corr``: all; ``grouped_corr``:
+    the grouped ones of the H-packed head), concat, emission (``emit``:
+    both layouts; ``packed_emit``: the dh-shifted one) and conv223
+    kernels, the bytes its halo exchanges received and the bytes of the
+    activations they were called on, peak device memory, and the device
+    time of one forward on the card (CUDA events; 0 on the CPU)."""
     from redtail_tpu_torch.kernels import conv223
     from redtail_tpu_torch.kernels import corr_cost_volume as corr
     from redtail_tpu_torch.kernels import cost_volume_concat as concat
     from redtail_tpu_torch.kernels import fused_cv_emit as emit
-    from redtail_tpu_torch.models.stereo import params_from_numpy
+    from redtail_tpu_torch.models.stereo import (params_from_numpy,
+                                                 plain_volume_head)
     from redtail_tpu_torch.ops.halo import exchange
     from redtail_tpu_torch.parallel.sharding import shard_stereo_forward
 
     counters = {"corr_launches": (corr.corr_softargmax, "launches"),
+                "grouped_corr_launches": (corr.corr_softargmax,
+                                          "grouped_launches"),
                 "concat_launches": (concat.cost_volume_concat, "launches"),
                 "emit_launches": (emit.fused_cv_emit, "launches"),
                 "packed_emit_launches": (emit.fused_cv_emit,
@@ -288,15 +299,16 @@ def forward_cases(rank: int, world_size: int, cases: List[Dict],
         spec = _spec(c["spec"])
         dtype = DTYPES[c.get("dtype", "float32")]
         mode = c.get("mode", "image")
-        head = "plain" if mode == "disparity" else c.get("lowering", "fused")
+        head = "fused" if mode == "disparity" else c.get("lowering", "fused")
         if c.get("unsharded") and rank:
             out.append(None)
             continue
         net = params_from_numpy(spec, c["params"], device=device,
                                 dtype=dtype)
         if c.get("unsharded"):
-            def fn(_, left, right, net=net):
-                with torch.no_grad():
+            def fn(_, left, right, net=net, disparity=mode == "disparity"):
+                with torch.no_grad(), (plain_volume_head() if disparity
+                                       else contextlib.nullcontext()):
                     return net(left, right)
         else:
             fn = shard_stereo_forward(spec, net,

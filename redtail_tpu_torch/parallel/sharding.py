@@ -30,9 +30,9 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from torch.distributed.tensor import Placement, Replicate, Shard
 
-from redtail_tpu_torch.models.stereo import StereoNet, StereoSpec
+from redtail_tpu_torch.models.stereo import (StereoNet, StereoSpec,
+                                             plain_volume_head)
 from redtail_tpu_torch.ops import halo
-from redtail_tpu_torch.ops.convolution import plain_lowering
 from redtail_tpu_torch.ops.halo import (DISPARITY_AXIS, IMAGE_AXIS,
                                        sharded_axis)
 
@@ -147,8 +147,12 @@ def shard_stereo_forward(spec: StereoSpec, params, mesh: DeviceMesh, *,
 
     - ``mode='image'``: N over data, H over spatial, params replicated;
       each rank computes its own rows of H plus the halos its convs
-      fetch. ResNet18-2D runs its usual head (the correlation kernel's
-      fused soft-argmax is row-local); the 3D models run the head the
+      fetch. The towers take the form the caller's switches select
+      (`StereoNet._tower_form`: the 2N batch, block-diagonal, or H-packed
+      on each rank's slots). ResNet18-2D runs the head those select: the
+      correlation kernel's fused soft-argmax on each rank's rows, or
+      under ``REDTAIL_TPU_HPACK_CORR`` its grouped soft-argmax on each
+      rank's slots (both row-local); the 3D models run the head the
       lowering in force selects, as the unsharded `StereoNet` does: the
       fused cost volume + conv3D_1 (the emission kernel on each rank's
       rows) by default, the packed head on each rank's slots (the
@@ -157,8 +161,12 @@ def shard_stereo_forward(spec: StereoSpec, params, mesh: DeviceMesh, *,
       `packed3d_lowering()` / ``REDTAIL_TPU_PACKED3D=1``, the explicit
       concat volume under `plain_lowering()`. Int8 leaves run sharded.
     - ``mode='disparity'`` (3D models only): the images split over data
-      only; under `plain_lowering()`, whatever the caller's, each spatial
-      rank builds its own disparities of the concat volume
+      only; each spatial rank runs the towers on the whole frames under
+      the caller's tower switches (a 2D map has no D axis: they run
+      unsharded, and the packed ops read `image_sharding()`, which is
+      None here), as the JAX package's `_encode_pair` does; then, under
+      `plain_lowering()` whatever the caller's (`plain_volume_head`), it
+      builds its own disparities of the concat volume
       (`cost_volume_concat(d_offset=...)`) and runs the unpacked 3D stack
       on them with D halos (as the JAX package's disparity mode); the
       soft-argmin's normalization is the one cross-D reduction. The (D,
@@ -193,7 +201,7 @@ def shard_stereo_forward(spec: StereoSpec, params, mesh: DeviceMesh, *,
         with contextlib.ExitStack() as stack:
             stack.enter_context(torch.no_grad())
             if mode == "disparity":
-                stack.enter_context(plain_lowering())
+                stack.enter_context(plain_volume_head())
             if spatial > 1:
                 axis, size = ((IMAGE_AXIS, rows) if mode == "image"
                               else (DISPARITY_AXIS, spec.max_disp))

@@ -11,9 +11,9 @@ fp32 on both sides: ResNet18-2D within that file's 1e-4 (sigmoid units),
 ResNet-18 3D within the 3D slice's 1e-3 px. Each case also reads the
 layer plan, so the form it names is the one that ran, and the plan's
 names map onto the JAX profiler's. Then the fallbacks to the batched
-towers (int8 leaves, a calibration tap, a trainable net), one image-sharded
-block-diagonal forward in gloo ranks against JAX's unsharded forward, and
-the H-packed forms' refusal under sharding.
+towers (int8 leaves, a calibration tap, a trainable net), and image-sharded
+block-diagonal and H-packed forwards in gloo ranks against JAX's unsharded
+forward (`tests/test_torch_sharding_hpacked.py` has the rest).
 """
 
 import dataclasses
@@ -232,31 +232,32 @@ def _spawn(target, cases, ranks=2):
 
 def test_sharded_forms(monkeypatch):
     """One spawn: ResNet18-2D image-sharded over two ranks (rows 17 / 16 of
-    33) under block-diagonal towers against JAX's unsharded forward under
-    the same switch, within the sharding tests' 2e-4; then the H-packed
-    towers inside `sharded_axis`, which raise."""
+    33) under block-diagonal towers, and on s2d frames (17 s2d rows, slots
+    4 / 5 of 9) under the H-packed towers and head, each against JAX's
+    unsharded forward under the same switches, within the sharding tests'
+    2e-4."""
+    from redtail_tpu_torch.ops.space_to_depth import space_to_depth2_np
+
     spec, jspec, params = _case("resnet18_2d")
     rs = np.random.RandomState(5)
     left, right = (rs.rand(1, *HW, 3).astype(np.float32) for _ in range(2))
-    _set_form(monkeypatch, "bd")
-    want = _jax(jspec, params, left, right)
-    monkeypatch.delenv("REDTAIL_TPU_FUSED_TOWERS")
-    case = {"spec": {"name": "resnet18_2d", "input_hw": HW,
-                     "max_disp": MAX_DISP},
-            "params": params, "left": left, "right": right, "mesh": (1, 2),
-            "mode": "image", "env": {"REDTAIL_TPU_FUSED_TOWERS": "1"}}
-    results = _spawn(rank_checks.forward_cases, [case])
-    for rank, res in enumerate(results):
-        assert res[0]["tower_form"] == "bd", rank
-        np.testing.assert_allclose(res[0]["disp"], want, atol=2e-4,
-                                   rtol=0, err_msg=f"rank {rank}")
-    from redtail_tpu_torch.ops.space_to_depth import space_to_depth2_np
-    refused = {"spec": case["spec"], "params": params,
-               "left": space_to_depth2_np(left),
-               "right": space_to_depth2_np(right), "axis": -2,
-               "size": -(-HW[0] // 2),
-               "env": {v: "1" for v in SWITCHES}}
-    for res in _spawn(rank_checks.refused_cases, [refused]):
-        assert res[0]["error"] == "NotImplementedError"
-        assert "H-packed" in res[0]["message"]
-        assert "ROADMAP" in res[0]["message"]
+    cases, wants = [], []
+    for form, s2d in (("bd", False), ("hp+corr", True)):
+        frames = ((space_to_depth2_np(left), space_to_depth2_np(right))
+                  if s2d else (left, right))
+        _set_form(monkeypatch, form)
+        wants.append(_jax(jspec, params, *frames))
+        env = {var: value for var, value in zip(SWITCHES, FORMS[form])}
+        for var in env:
+            monkeypatch.delenv(var)
+        cases.append({"spec": {"name": "resnet18_2d", "input_hw": HW,
+                               "max_disp": MAX_DISP},
+                      "params": params, "left": frames[0],
+                      "right": frames[1], "mesh": (1, 2), "mode": "image",
+                      "env": env})
+    results = _spawn(rank_checks.forward_cases, cases)
+    for i, (form, want) in enumerate(zip(("bd", "hp"), wants)):
+        for rank, res in enumerate(results):
+            assert res[i]["tower_form"] == form, rank
+            np.testing.assert_allclose(res[i]["disp"], want, atol=2e-4,
+                                       rtol=0, err_msg=f"{form} rank {rank}")
