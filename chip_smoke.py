@@ -29,6 +29,8 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
    plain version timed at the main path's shape with CUDA events (device
    time: the host enqueues each call while the stream is held busy, L2
    evicted before each call), with its bound share (bound / kernel time);
+   the concat kernel also at ResNet-18 3D's training call ((4, 80, 256,
+   32), D = 24: the r18 tool's, phase 13b), as 9a times its backward;
    the assembly also without its ELU (what the fp32 expm1f costs); the
    corr kernel in each epilogue, the pair the fused one replaces (the
    volume kernel, then `ops/softargmax.py`) and, as the floor under every
@@ -274,6 +276,35 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
     kernel, 4's layout forms and 12 alone and ends with a `{"partial":
     true, ...}` line.
 
+13. the synthetic-training tools (`apps/train_r18_synth.py`,
+    `apps/train_trailnet_synth.py`), each path driven with every count set
+    to 0 just before and read just after:
+    a. the committed ResNet-18 3D checkpoint
+       (`tests/data/resnet18_synth_trained.npz`) at 160x512, max_disp 24,
+       through the r18 tool's rung function on its held-out set (seed 1):
+       fp32, bf16 (the fused head), bf16+packed (`packed3d_lowering()`) and
+       w8, each within D1 0.05 of the synthetic truth, the bf16 rows' D1
+       within 0.01 of fp32's, bf16+packed within a mean of 0.1 px of the
+       fused bf16, the card's fp32 (TF32 off) within 1e-3 px of the CPU's;
+       the emission once a fused rung, the packed emission and conv223 once
+       in bf16+packed, the concat kernel never;
+    b. each tool short, as a user runs it, the gate flags open: the r18
+       tool at 160x512, batch 4, 30 steps (the concat kernel twice a step,
+       the forward and the remat recompute, its backward once), TrailNet
+       at batch 16 for 20 steps at a peak rate of 2e-4 (no kernel; the
+       default rate diverges when warm-up is 2 steps); exit 0, finite
+       losses, the
+       loss on a fixed batch lower after than before, each artifact loaded
+       by the port's loader and served one frame (`StereoNode` bf16,
+       `TrailNetNode`).
+    `python3 chip_smoke.py --synth-only` runs phases 1-2, 3's concat
+    kernel, 9a's concat backward and 13 alone, and `--synth-full` phases
+    1-2 and both tools once at their defaults (the r18 tool with
+    ``--rungs``), then `sim_app --real-dnn --weights` on the port's
+    TrailNet artifact, with wall time, ms a step, device busy and idle
+    share, peak memory and the final results; both end with a `{"partial":
+    true, ...}` line.
+
 Then one JSON line describing every ported kernel, and last the line
 `{"ok": true, "device": {...}}`.
 """
@@ -322,11 +353,15 @@ CORR_CASES = (("flagship", (1, 161, 513, 32), 48),
               ("D=130", (1, 2, 70, 16), 130))
 # Concat volume features (N, H, W, C), D / fused-CV assembly maps
 # (N, H, W, K), D: NVSmall's shape first, then ResNet-18 3D's, then edges.
-CONCAT_CASES = (("nvsmall", (1, 161, 513, 32), 48),
-                ("resnet18", (1, 161, 513, 32), 68),
-                ("ragged", (2, 7, 37, 8), 6),
+CONCAT_EDGES = (("ragged", (2, 7, 37, 8), 6),
                 ("D>W", (1, 3, 5, 4), 9),
                 ("C=3", (1, 4, 9, 3), 5))
+# ResNet-18 3D's training features at the r18 tool's 160x512 crop, batch 4,
+# max_disp 24 (phase 13b's steps): timed beside the main case
+R18_TRAIN_CASE = ("resnet18 train", (4, 80, 256, 32), 24)
+CONCAT_CASES = (("nvsmall", (1, 161, 513, 32), 48),
+                ("resnet18", (1, 161, 513, 32), 68),
+                R18_TRAIN_CASE) + CONCAT_EDGES
 # launches of each concat case into a NaN-filled output block
 CONCAT_REPEATS = 3
 # the concat kernel's blocks of disparities (d_offset, d_count), phase 11b's
@@ -909,7 +944,8 @@ def phase_corr_parent(np, torch, corr, gen, parent: Path):
 
 def phase_concat(torch, concat, gen):
     """The concat kernel against its plain version, bit for bit, then
-    timed at NVSmall's plain-lowering call. Each case launches
+    timed at NVSmall's plain-lowering call and at ResNet-18 3D's training
+    call (the r18 tool's, phase 13b). Each case launches
     `CONCAT_REPEATS` times into an output block the caching allocator
     hands back after it held NaN (the `torch.empty` output reuses a freed
     block of its size), so an element the kernel leaves unwritten shows
@@ -974,6 +1010,15 @@ def phase_concat(torch, concat, gen):
         lambda: concat.cost_volume_concat(left, right, d),
         lambda: concat.cost_volume_concat_plain(left, right, d),
         2 * left.numel() * 2 + n * d * h * w * 2 * c * 2, 0))
+    name, shape, d = R18_TRAIN_CASE
+    left, right = (_randn(torch, gen, shape, torch.bfloat16)
+                   for _ in range(2))
+    n, h, w, c = shape
+    entry["shapes"] = [{"case": name, **time_kernel(
+        torch, f"concat {name} at {shape} D={d} bf16",
+        lambda: concat.cost_volume_concat(left, right, d),
+        lambda: concat.cost_volume_concat_plain(left, right, d),
+        2 * left.numel() * 2 + n * d * h * w * 2 * c * 2, 0)}]
     return entry
 
 
@@ -2580,9 +2625,10 @@ CORR_BWD_CASES = (("resnet18_2d train",) + TRAIN_FEATS["resnet18_2d"],) \
                         ("C=12 segments", (1, 2, 200, 12), 20),
                         ("D=70 segments", (1, 2, 300, 16), 70))
 CONCAT_BWD_CASES = (("nvtiny train",) + TRAIN_FEATS["nvtiny"],
-                    ("nvsmall train",) + TRAIN_FEATS["nvsmall"]) \
-    + CONCAT_CASES[2:] + (("C=12", (1, 3, 40, 12), 9),
-                          ("C=5", (2, 5, 70, 5), 7))
+                    ("nvsmall train",) + TRAIN_FEATS["nvsmall"],
+                    R18_TRAIN_CASE) \
+    + CONCAT_EDGES + (("C=12", (1, 3, 40, 12), 9),
+                      ("C=5", (2, 5, 70, 5), 7))
 # the backwards against their plain versions: fp32 within this share of the
 # largest magnitude (+1), the summation order only; bf16 within one bf16
 # step on top (both round one fp32 sum once)
@@ -2716,7 +2762,8 @@ def phase_corr_bwd(torch, corr, gen):
 def phase_concat_bwd(torch, concat, gen):
     """9a: the concat backward kernel against its plain version, both
     dtypes, and a second launch on the same inputs bit-equal to the first;
-    then timed at NVTiny's training call (the main path's) and NVSmall's."""
+    then timed at NVTiny's training call (the main path's), NVSmall's and
+    ResNet-18 3D's (the r18 tool's, phase 13b)."""
     max_err = 0.0
     for name, shape, d in CONCAT_BWD_CASES:
         n, h, w, c = shape
@@ -2744,7 +2791,7 @@ def phase_concat_bwd(torch, concat, gen):
                   f"{errs[1]:.2e} (gate {BWD_RTOL} x (max + 1), bf16 + 1 "
                   f"step); two launches bit-equal")
     timed = {}
-    for name, shape, d in CONCAT_BWD_CASES[:2]:
+    for name, shape, d in CONCAT_BWD_CASES[:3]:
         n, h, w, c = shape
         g = _randn(torch, gen, (n, d, h, w, 2 * c), torch.bfloat16)
         nbytes = g.numel() * 2 + 2 * n * h * w * c * 2
@@ -2909,17 +2956,24 @@ def write_trails(np, root, per_class=6):
     return root
 
 
-def run_app(train_app, argv):
-    """`train_app.main(argv)` in this process, its JSON records parsed."""
+def run_tool(main_fn, argv):
+    """A CLI's ``main(argv)`` in this process: (exit code, its JSON
+    records, seconds); the tail of its output echoed."""
     buf = stdio.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        rc = train_app.main(argv)
+        rc = main_fn(argv)
     secs = time.perf_counter() - t0
     print(buf.getvalue().rstrip()[-1500:])
+    return rc, [json.loads(s) for s in buf.getvalue().splitlines()
+                if s.startswith("{")], secs
+
+
+def run_app(train_app, argv):
+    """`train_app.main(argv)` in this process, its JSON records parsed."""
+    rc, recs, secs = run_tool(train_app.main, argv)
     check(rc == 0, f"train_app {argv[0]} exited {rc}")
-    return [json.loads(s) for s in buf.getvalue().splitlines()
-            if s.startswith("{")], secs
+    return recs, secs
 
 
 def time_train_steps(torch, step, label):
@@ -3803,6 +3857,306 @@ def phase_multi_device(np, torch, models, nodes, trailnet, s2d, counters):
     return by_path
 
 
+# ----------------------------------------------------------------- phase 13
+
+SYNTH_ONLY = "--synth-only"  # phases 1-2, 3's concat kernel, 9a's concat
+#                               backward, 13
+SYNTH_FULL = "--synth-full"  # phases 1-2, both tools at their defaults, sim
+R18_CKPT = ROOT / "tests" / "data" / "resnet18_synth_trained.npz"
+R18_HW, R18_MAX_DISP, R18_BATCH = (160, 512), 24, 4  # the r18 tool's
+R18_GT_D1 = 0.05          # 13a: each rung's D1 against the synthetic truth
+R18_BF16_D1_DRIFT = 0.01  # |D1 bf16 - D1 fp32|, both against the truth
+R18_PACKED_MEAN_PX = 0.1  # bf16+packed against the fused bf16 (phase 5d's)
+R18_CPU_ATOL_PX = 1e-3    # card fp32 (TF32 off) against the CPU's fp32
+# 13b: short runs, not judged on convergence (the gate flags open)
+SYNTH_R18_STEPS, SYNTH_TRAIL_STEPS, SYNTH_TRAIL_BATCH = 30, 20, 16
+# the short TrailNet run's peak rate: its schedule warms up over 10% of the
+# steps, 2 of 20, and at the default 2e-3 the loss went to NaN by step 8
+# (CPU rehearsal, batch 16); at 2e-4 it stays finite and falls. The full
+# run keeps the default, reached over 40 warm-up steps.
+SYNTH_TRAIL_LR = 2e-4
+
+
+def r18_spec(models, hw=R18_HW):
+    return dataclasses.replace(models.STEREO_SPECS["resnet18"],
+                               input_hw=tuple(hw), max_disp=R18_MAX_DISP)
+
+
+def r18_data(kitti, root, hw, n, seed):
+    """The r18 tool's synthetic stereo: seed 0 trains, seed 1 is held
+    out (its first pairs do not depend on ``n``)."""
+    return kitti.KittiStereoDataset(kitti.make_synthetic_kitti(
+        root, n=n, hw=tuple(hw), disp=(4, 2 * R18_MAX_DISP - 8), seed=seed,
+        octaves=3))
+
+
+def phase_synth_rungs(np, torch, models, kitti, counters, card="cuda",
+                      hw=R18_HW):
+    """13a: the committed ResNet-18 3D checkpoint through the r18 tool's
+    rung function on its held-out set, the counts zeroed just before and
+    read just after. Returns {kernel counter: {path: launches}}."""
+    from redtail_tpu_torch.apps import train_r18_synth as r18
+
+    spec = r18_spec(models, hw)
+    ds = r18_data(kitti, SMOKE_DIR / "synth" / "eval", hw, 2, seed=1)
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdio.StringIO()) as buf:
+        rows = r18.print_rung_table(spec, R18_CKPT, ds, device=card)
+    secs = time.perf_counter() - t0
+    counts = read_counts(counters)
+    print(buf.getvalue().rstrip())
+    rows = {r["rung"]: r for r in rows}
+    fp32 = rows["fp32"]
+    for name, r in rows.items():
+        print(f"13a resnet18 {hw[0]}x{hw[1]} rung {name:11s}: D1 vs fp32 "
+              f"{r['d1_vs_fp32']:.5f}, EPE vs fp32 {r['epe_vs_fp32']:.4f} px;"
+              f" D1 vs truth {r['d1_vs_gt']:.5f}, EPE vs truth "
+              f"{r['epe_vs_gt']:.4f} px; launches {r['launches']}")
+        check(r["d1_vs_gt"] <= R18_GT_D1, f"13a {name}: D1 vs truth "
+              f"{r['d1_vs_gt']} past {R18_GT_D1}")
+        if name.startswith("bf16"):
+            drift = abs(r["d1_vs_gt"] - fp32["d1_vs_gt"])
+            check(drift < R18_BF16_D1_DRIFT, f"13a {name}: D1 {r['d1_vs_gt']}"
+                  f" against fp32's {fp32['d1_vs_gt']}")
+    packed = float(np.abs(rows["bf16+packed"]["pred"]
+                          - rows["bf16"]["pred"]).mean())
+    check(packed < R18_PACKED_MEAN_PX, f"13a bf16+packed off the fused bf16 "
+          f"by mean {packed} px")
+    left, right, _, _ = ds.sample(0)
+    cpu = models.params_from_numpy(spec, models.params_from_npz(R18_CKPT),
+                                   device="cpu")
+    with torch.inference_mode():
+        want = cpu(torch.from_numpy(left[None]),
+                   torch.from_numpy(right[None])).numpy()[0]
+    err = float(np.abs(fp32["pred"] - want).max())
+    check(err <= R18_CPU_ATOL_PX, f"13a fp32: {card} off the CPU by {err} px")
+    print(f"13a rungs in {secs:.1f} s: bf16+packed against the fused bf16 "
+          f"mean {packed:.4f} px (gate {R18_PACKED_MEAN_PX}); {card} fp32 "
+          f"against the CPU's max {err:.2e} px (gate {R18_CPU_ATOL_PX}); "
+          f"counts {counts} ({nvidia_smi('name,power.limit')})")
+    if card == "cuda":
+        check(counts["fused_cv_emit.packed"] == 1 and counts["conv223"] == 1
+              and counts["fused_cv_emit"] == 4
+              and counts["cost_volume_concat"] == 0,
+              f"13a: launches {counts}: want the emission once a fused "
+              f"rung (3), the packed emission and conv223 once (the packed "
+              f"rung), the concat kernel never")
+    return {"fused_cv_emit": {"13a r18 rungs": counts["fused_cv_emit"]},
+            "conv223": {"13a r18 rungs": counts["conv223"]}}
+
+
+def phase_synth_tools(np, torch, models, nodes, kitti, ptrain, tstereo,
+                      counters, card="cuda", hw=R18_HW, batch=R18_BATCH,
+                      steps=SYNTH_R18_STEPS, trail_steps=SYNTH_TRAIL_STEPS,
+                      trail_batch=SYNTH_TRAIL_BATCH):
+    """13b: each tool short, as a user runs it, the counts zeroed just
+    before and read just after: exit 0, a finite loss that falls on a
+    fixed batch, the r18 tool's concat launches a step, each artifact
+    served one frame. Returns {kernel counter: {path: launches}}."""
+    from redtail_tpu_torch.apps import train_r18_synth as r18
+    from redtail_tpu_torch.apps import train_trailnet_synth as tt
+    from redtail_tpu_torch.apps.sim_app import Trail
+    from redtail_tpu_torch.training.trailnet import trailnet_loss
+
+    root = SMOKE_DIR / "synth"
+    dev = [] if card == "cuda" else ["--cpu"]
+    out = root / "resnet18_short.npz"
+    zero_counts(counters)
+    rc, recs, secs = run_tool(r18.main, [
+        "--steps", str(steps), "--crop", f"{hw[0]}x{hw[1]}", "--batch",
+        str(batch), "--d1-gate", "1.0", "--out", str(out), *dev])
+    counts = read_counts(counters)
+    losses = [r["loss"] for r in recs if "loss" in r]
+    check(rc == 0 and losses and np.isfinite(losses).all(),
+          f"13b r18 tool: exit {rc}, losses {losses}")
+    fwd, bwd = counts["cost_volume_concat"], counts["cost_volume_concat_bwd"]
+    if card == "cuda":
+        check(fwd == 2 * steps and bwd == steps,
+              f"13b r18 tool: {fwd} concat and {bwd} concat backward "
+              f"launches in {steps} steps (want {2 * steps}, {steps})")
+    spec = r18_spec(models, hw)
+    cfg = tstereo.StereoTrainConfig(model="resnet18", crop_hw=tuple(hw),
+                                    max_disp=R18_MAX_DISP, batch_size=batch,
+                                    dtype="bfloat16")
+    init_fn, _ = ptrain.make_train_step(
+        spec, tstereo._make_optimizer(cfg), compute_dtype=torch.bfloat16,
+        device=card)
+    fixed = next(r18_data(kitti, root / "train", hw, batch, seed=0).batches(
+        batch, hw, shuffle=False))
+    before_after = []
+    for tree in (models.init_stereo_params(spec, seed=cfg.seed),
+                 models.params_from_npz(out)):
+        with torch.no_grad():
+            loss, _ = ptrain.stereo_loss(spec, init_fn(tree).params, *fixed,
+                                         remat=False)
+        before_after.append(float(loss))
+    check(np.isfinite(before_after).all()
+          and before_after[1] < before_after[0],
+          f"13b r18 tool: loss on a fixed batch {before_after}")
+    node = nodes.StereoNode(spec, models.params_from_npz(out),
+                            dtype=torch.bfloat16, device=card)
+    disp = node((fixed[0][0] * 255).astype(np.uint8),
+                (fixed[1][0] * 255).astype(np.uint8))
+    check(disp.shape == tuple(hw) and np.isfinite(disp).all(),
+          f"13b r18 artifact served {disp.shape}")
+    print(f"13b train_r18_synth {hw[0]}x{hw[1]} b{batch} bf16 {steps} steps "
+          f"in {secs:.1f} s (data, evals and the save included): logged "
+          f"losses {losses}; loss on a fixed batch, init "
+          f"{before_after[0]:.5f} -> trained {before_after[1]:.5f}; launches"
+          f" concat {fwd} (forward and remat recompute), concat backward "
+          f"{bwd}, emission {counts['fused_cv_emit']} (the evals); artifact "
+          f"{out.stat().st_size} bytes served by StereoNode bf16, disparity "
+          f"in [{disp.min():.2f}, {disp.max():.2f}] px "
+          f"({nvidia_smi('name,power.limit')})")
+    paths = {"cost_volume_concat": {"13b r18 tool": fwd},
+             "cost_volume_concat_bwd": {"13b r18 tool": bwd},
+             "fused_cv_emit": {"13b r18 tool": counts["fused_cv_emit"]}}
+
+    # TrailNet: no kernel of the port on its path
+    out = root / "trailnet_short.npz"
+    zero_counts(counters)
+    rc, recs, secs = run_tool(tt.main, [
+        "--steps", str(trail_steps), "--batch", str(trail_batch),
+        "--lr", str(SYNTH_TRAIL_LR), "--acc-gate", "0", "--out", str(out),
+        *dev])
+    counts = read_counts(counters)
+    check(rc == 0 and not any(counts.values()),
+          f"13b trailnet tool: exit {rc}, kernel counts {counts}")
+    imgs, views, sides = tt.render_batch(Trail(), np.random.RandomState(99),
+                                         trail_batch)
+    batch = [torch.from_numpy(a).to(card) for a in (imgs, views, sides)]
+    before_after = []
+    for tree in (models.init_trailnet_params(0),
+                 models.trailnet.params_from_w8_npz(out)):
+        net = models.trailnet.params_from_numpy(tree, device=card)
+        with torch.no_grad():
+            loss, _ = trailnet_loss(net, batch[0], batch[1].long(),
+                                    batch[2].long())
+        before_after.append(float(loss))
+    check(np.isfinite(before_after).all()
+          and before_after[1] < before_after[0],
+          f"13b trailnet tool: loss on a fixed batch {before_after}")
+    probs = nodes.TrailNetNode(models.trailnet.params_from_numpy(
+        models.trailnet.params_from_w8_npz(out), device=card), device=card)(
+        imgs[0].astype(np.uint8))
+    check(probs.shape == (6,) and np.allclose(
+        [probs[:3].sum(), probs[3:].sum()], 1.0, atol=1e-3),
+        f"13b trailnet artifact served {probs}")
+    print(f"13b train_trailnet_synth 180x320 b{trail_batch} {trail_steps} "
+          f"steps in {secs:.1f} s (rendering and the held-out eval "
+          f"included): {recs}; loss on a fixed batch, init "
+          f"{before_after[0]:.5f} -> trained {before_after[1]:.5f}; kernel "
+          f"counts {counts}; the w8 artifact served by TrailNetNode {probs}")
+    return paths
+
+
+def phase_synth(np, torch, models, nodes, kitti, ptrain, tstereo, counters):
+    """13: the committed checkpoint's rungs, then each tool short."""
+    t0 = time.perf_counter()
+    paths = phase_synth_rungs(np, torch, models, kitti, counters)
+    for name, p in phase_synth_tools(np, torch, models, nodes, kitti, ptrain,
+                                     tstereo, counters).items():
+        paths.setdefault(name, {}).update(p)
+    print(f"13: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def loss_steps_ms(recs):
+    """Median ms a step from a training log's ``sec`` every 10 steps."""
+    secs = [(r["step"], r["sec"]) for r in recs if "sec" in r]
+    per = [1e3 * (b[1] - a[1]) / (b[0] - a[0])
+           for a, b in zip(secs, secs[1:]) if b[0] > a[0]]
+    return statistics.median(per) if per else None
+
+
+def phase_synth_full(np, torch, models, nodes, kitti, ptrain, tstereo,
+                     ttrail, counters):
+    """Both tools once at their defaults on the card (the r18 tool with
+    ``--rungs``), then `sim_app --real-dnn` on the port's TrailNet
+    artifact: wall time, ms a step, device busy and idle share from a
+    `torch.profiler` window over the same step, peak memory, the final
+    results. A missed gate is reported, not raised. Returns the
+    figures."""
+    from redtail_tpu_torch.apps import sim_app
+    from redtail_tpu_torch.apps import train_r18_synth as r18
+    from redtail_tpu_torch.apps import train_trailnet_synth as tt
+    from redtail_tpu_torch.apps.sim_app import Trail
+
+    root = SMOKE_DIR / "synth" / "full"
+    figures = {}
+    out = root / "resnet18_synth_trained.npz"
+    zero_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    rc, recs, secs = run_tool(r18.main, ["--rungs", "--out", str(out)])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = read_counts(counters)
+    print("13f r18 loss trajectory: " + json.dumps(
+        [[r["step"], r["loss"], r["epe"]] for r in recs if "loss" in r]))
+    fig = {"exit": rc, "wall_s": secs, "log_step_ms": loss_steps_ms(recs),
+           "peak_gib": peak, "counts": counts,
+           "final_eval": next((r["final_eval"] for r in recs
+                               if "final_eval" in r), None),
+           "rungs": [r for r in recs if "rung" in r]}
+    spec = r18_spec(models)
+    cfg = tstereo.StereoTrainConfig(model="resnet18", crop_hw=R18_HW,
+                                    max_disp=R18_MAX_DISP,
+                                    batch_size=R18_BATCH, steps=1500,
+                                    lr=3e-4, warmup_steps=100,
+                                    dtype="bfloat16")
+    init_fn, step_fn = ptrain.make_train_step(
+        spec, tstereo._make_optimizer(cfg), compute_dtype=torch.bfloat16,
+        device="cuda")
+    state = init_fn(models.init_stereo_params(spec, seed=cfg.seed))
+    fixed = next(r18_data(kitti, root / "train", R18_HW, R18_BATCH,
+                          seed=0).batches(R18_BATCH, R18_HW, shuffle=False))
+    fig["step"] = time_train_steps(
+        torch, lambda: step_fn(state, *fixed),
+        f"resnet18 train step {R18_HW[0]}x{R18_HW[1]} b{R18_BATCH} bf16")
+    figures["train_r18_synth"] = fig
+    print(f"13f train_r18_synth at its defaults: {json.dumps(fig)} "
+          f"({nvidia_smi('name,power.limit')})")
+    del state
+
+    out = root / "trailnet_synth_trained.npz"
+    zero_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    rc, recs, secs = run_tool(tt.main, ["--out", str(out)])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print("13f trailnet loss trajectory: " + json.dumps(
+        [[r["step"], r["loss"]] for r in recs if "loss" in r]))
+    fig = {"exit": rc, "wall_s": secs, "peak_gib": peak,
+           "counts": read_counts(counters),
+           "accuracy": next((r for r in recs if "eval_view_acc" in r),
+                            None)}
+    rng = np.random.RandomState(0)
+    fig["render_ms"] = host_ms(lambda: tt.render_batch(Trail(), rng, 16),
+                               reps=5)
+    imgs, views, sides = tt.render_batch(Trail(), rng, 16)
+    init_fn, step_fn = ttrail.make_trailnet_train_step(augment=False,
+                                                       device="cuda")
+    state = init_fn(models.init_trailnet_params(0))
+    gen = torch.Generator().manual_seed(1)
+    fig["step"] = time_train_steps(
+        torch, lambda: step_fn(state, gen, imgs, views, sides),
+        "trailnet synth train step 180x320 b16 fp32")
+    print(f"13f train_trailnet_synth at its defaults: {json.dumps(fig)} "
+          f"({nvidia_smi('name,power.limit')})")
+    figures["train_trailnet_synth"] = fig
+
+    if rc == 0:
+        buf = stdio.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            src = sim_app.main(["--real-dnn", "--weights", str(out)])
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        figures["sim"] = {"exit": src, "wall_s": time.perf_counter() - t0,
+                          **line}
+        print(f"13f sim_app --real-dnn --weights {out.name}: "
+              f"{json.dumps(figures['sim'])}")
+    return figures
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3890,6 +4244,25 @@ def main() -> int:
         print(json.dumps({"partial": True, "phases": "1-2, 3 grouped corr, "
                           "4 forms, 12"}))
         return 0
+    all_counters = counters + (corr.corr_cost_volume_bwd,
+                               corr.corr_softargmax_bwd,
+                               concat.cost_volume_concat_bwd)
+    if sys.argv[1:] == [SYNTH_ONLY]:
+        phase_concat(torch, concat, gen)
+        phase_concat_bwd(torch, concat, gen)
+        paths = phase_synth(np, torch, models, nodes, kitti, ptrain, tstereo,
+                            all_counters)
+        print(json.dumps({"partial": True, "phases": "1-2, 3 concat, 9a "
+                          "concat backward, 13", "launches_by_path": paths}))
+        return 0
+    if sys.argv[1:] == [SYNTH_FULL]:
+        figures = phase_synth_full(np, torch, models, nodes, kitti, ptrain,
+                                   tstereo, ttrail, all_counters)
+        print(json.dumps({"partial": True, "phases": "1-2, both synthetic "
+                          "training tools at their defaults, sim_app",
+                          "exits": {k: v["exit"] for k, v in
+                                    figures.items()}}))
+        return 0
     if sys.argv[1:] == [PARALLEL_ONLY]:
         phase_corr_grouped(torch, corr, gen)
         phase_concat(torch, concat, gen)
@@ -3965,9 +4338,6 @@ def main() -> int:
     # training: the backward kernels, a step card vs CPU, the main path
     entries["corr_bwd"] = phase_corr_bwd(torch, corr, gen)
     entries["concat_bwd"] = phase_concat_bwd(torch, concat, gen)
-    all_counters = counters + (corr.corr_cost_volume_bwd,
-                               corr.corr_softargmax_bwd,
-                               concat.cost_volume_concat_bwd)
     phase_train_slice(np, torch, models, ptrain, all_counters)
     train_paths, train_figures = phase_train_main(
         np, torch, models, ptrain, tstereo, ttrail, train_app, kitti, nodes,
@@ -4002,6 +4372,14 @@ def main() -> int:
     paths, _ = phase_forms(np, torch, models, nodes, counters,
                            packed3d_lowering, gen)
     by_path.setdefault(GROUPED_ENTRY, {}).update(paths)
+
+    # the synthetic-training tools: the committed ResNet-18 3D checkpoint's
+    # rungs (the emission, the packed emission and conv223), each tool
+    # short (the concat kernel and its backward every step)
+    for counter, paths in phase_synth(np, torch, models, nodes, kitti, ptrain,
+                                      tstereo, all_counters).items():
+        entry = {"cost_volume_concat_bwd": "concat_bwd"}.get(counter, counter)
+        by_path.setdefault(entry, {}).update(paths)
 
     for name, paths in by_path.items():
         check(all(paths.values()), f"{name} was not launched on {paths}")

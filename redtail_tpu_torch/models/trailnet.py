@@ -140,8 +140,10 @@ class TrailNet(nn.Module):
                                  f"wants {shape}")
             w = np.transpose(w, (3, 2, 0, 1) if w.ndim == 4 else (1, 0))
             for store, a in ((self.weight, w), (self.bias, params[name]["b"])):
-                store[name] = nn.Parameter(torch.as_tensor(
-                    np.asarray(a, np.float32)).to(device, dtype))
+                # a copy: on the CPU the parameters would otherwise alias
+                # the caller's arrays, which training updates in place
+                store[name] = nn.Parameter(torch.from_numpy(
+                    np.array(a, np.float32)).to(device, dtype))
 
     @property
     def device(self) -> torch.device:

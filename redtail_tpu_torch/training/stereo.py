@@ -134,6 +134,12 @@ def save_train_state(state: TrainState, path) -> Path:
     return path
 
 
+def train_state_path(cfg: StereoTrainConfig) -> Path:
+    """The train-state npz that `train_stereo` writes in ``cfg.ckpt_dir``
+    and resumes from."""
+    return Path(cfg.ckpt_dir) / f"{cfg.model}_train.npz"
+
+
 def load_train_state(path, template: TrainState) -> TrainState:
     """Restore a state saved by `save_train_state` into ``template`` (a
     freshly initialized state for the same spec and optimizer): its
@@ -184,27 +190,28 @@ def load_train_state(path, template: TrainState) -> TrainState:
 # ------------------------------------------------------------------ eval
 
 
-def _serving_net(spec, params, device) -> StereoNet:
+def _serving_net(spec, params, device, dtype) -> StereoNet:
     tree = params_to_numpy(params) if isinstance(params, StereoNet) \
         else params
-    return params_from_numpy(spec, tree, device=device, dtype=torch.float32)
+    return params_from_numpy(spec, tree, device=device, dtype=dtype)
 
 
 def evaluate_stereo(spec, params, dataset, *, max_images: int = 0,
                     batch_hw: Optional[Tuple[int, int]] = None,
-                    device=None) -> dict:
+                    device=None, dtype: torch.dtype = torch.float32) -> dict:
     """D1 / EPE over a dataset's center crops at the spec's input size.
 
-    Evaluation runs the serving forward in fp32 (the masters' dtype, as the
-    JAX package evaluates in its params' dtype) on a net built from
-    ``params`` (a `StereoNet` or a numpy tree); crops keep one shape. The
-    correlation model's output is scaled to pixels by the width, as in
-    training."""
+    Evaluation runs the serving forward on a net built from ``params`` (a
+    `StereoNet` or a numpy tree) in ``dtype``, the frames cast to it: fp32
+    by default (the masters' dtype, as the JAX package evaluates in its
+    params' dtype; bf16 is its evaluation of a bf16 tree); crops keep one
+    shape. The correlation model's output is scaled to pixels by the
+    width, as in training."""
     hw = batch_hw or spec.input_hw
     eval_spec = dataclasses.replace(spec, input_hw=tuple(hw))
     dev = resolve_device(device if device is not None else (
         params.device if isinstance(params, StereoNet) else None))
-    net = _serving_net(eval_spec, params, dev)
+    net = _serving_net(eval_spec, params, dev, dtype)
     scale = eval_spec.input_hw[1] if eval_spec.corr else 1.0
     n = len(dataset) if max_images == 0 else min(max_images, len(dataset))
     rng = np.random.RandomState(0)
@@ -216,8 +223,8 @@ def evaluate_stereo(spec, params, dataset, *, max_images: int = 0,
         if not (valid > 0).any():
             continue  # no GT in this crop (sparse KITTI / GT-less pair)
         with torch.inference_mode():
-            pred = net(torch.from_numpy(left[None]).to(dev),
-                       torch.from_numpy(right[None]).to(dev)) * scale
+            pred = net(torch.from_numpy(left[None]).to(dev, dtype),
+                       torch.from_numpy(right[None]).to(dev, dtype)) * scale
         pred = pred.float().cpu().numpy()[0]
         err = disparity_errors(pred, disp, valid=valid > 0)
         d1s.append(err["d1"] * err["n_valid"])
@@ -266,8 +273,7 @@ def train_stereo(cfg: StereoTrainConfig, dataset, eval_dataset=None,
         device=device)
     state = init_fn(init_stereo_params(spec, seed=cfg.seed))
 
-    ckpt_path = (Path(cfg.ckpt_dir) / f"{cfg.model}_train.npz"
-                 if cfg.ckpt_dir else None)
+    ckpt_path = train_state_path(cfg) if cfg.ckpt_dir else None
     if cfg.resume and ckpt_path and ckpt_path.exists():
         state = load_train_state(ckpt_path, state)
 

@@ -210,7 +210,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from redtail_tpu_torch.models import (CaffeNet, emit_trailnet_prototxt,
                                           init_trailnet_params)
     from redtail_tpu_torch.models import trailnet
-    from redtail_tpu_torch.apps import pipeline_app, sim_app
+    from redtail_tpu_torch.apps import (pipeline_app, sim_app,
+                                        train_r18_synth, train_trailnet_synth)
     from redtail_tpu_torch.ops.preprocess import fused_ingest
     from redtail_tpu_torch.quant import calibrate_stereo
     from redtail_tpu_torch.runtime import TrailNetNode, YoloNode
@@ -234,6 +235,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
                  lambda: StereoNode(spec, params, quantize="w8"),
                  lambda: calibrate_stereo(spec, params, []),
                  lambda: pipeline_app.main(["--duration", "0.1"]),
+                 lambda: train_r18_synth.main([]),
+                 lambda: train_trailnet_synth.main([]),
                  lambda: sim_app.make_real_trailnet(),
                  lambda: fused_ingest(np.zeros((4, 4, 3), np.uint8),
                                       (2, 2))):
@@ -267,7 +270,8 @@ def test_port_scan_covers_the_weight_and_quant_modules():
                  "runtime/engine_builder.py", "parallel/launch.py",
                  "ops/halo.py", "parallel/sharding.py",
                  "parallel/rank_checks.py", "ops/packed2d.py",
-                 "apps/convert_model.py", "apps/eval_disparity.py"):
+                 "apps/convert_model.py", "apps/eval_disparity.py",
+                 "apps/train_r18_synth.py", "apps/train_trailnet_synth.py"):
         assert f"redtail_tpu_torch/{name}" in scanned
 
 
