@@ -73,7 +73,10 @@ each rank's rows, the grouped corr launch on each rank's slots).
 `StereoNet.forward` is `StereoNet.layers(left, right, run)`, the network
 one named layer at a time with each layer computed as ``run(name, fn,
 *args)``: the forward passes a plain call, the per-layer profiler
-(`runtime/layer_profiler.py`) one that records the layer.
+(`runtime/layer_profiler.py`) one that records the layer. While a
+`torch.profiler` collects, the forward passes one that runs each layer
+inside the span of its stage (`layer_stage`): ``stereo/towers``,
+``stereo/volume``, ``stereo/enc3d``, ``stereo/dec3d``, ``stereo/head``.
 
 Inside `ops.halo.sharded_axis` the forward runs on one rank's shard
 (`parallel/sharding.py`): with H sharded (image mode) each layer works on
@@ -142,6 +145,7 @@ from redtail_tpu_torch.ops.softargmax import softargmin
 from redtail_tpu_torch.quant.ptq import (conv2d_int8_acc, dequantize_acc,
                                          quantize_act)
 from redtail_tpu_torch.ops.space_to_depth import conv5s2_kernel_to_s2d, s2d_hw
+from redtail_tpu_torch.runtime.profiler import span, tracing
 from redtail_tpu_torch.utils.checkpoint import load_npz_flat
 
 Params = Dict[str, Dict]
@@ -1266,7 +1270,10 @@ class StereoNet(nn.Module):
     def forward(self, left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
         """``left``/``right``: (N, H, W, 3) RGB in [0, 1], or s2d-packed
         (N, ceil(H/2), ceil(W/2), 12) with (H, W) = ``spec.input_hw``."""
-        return self.layers(left, right, _call)
+        if not tracing():
+            return self.layers(left, right, _call)
+        with _StageSpans(self.spec) as run:
+            return self.layers(left, right, run)
 
     def layers(self, left: torch.Tensor, right: torch.Tensor,
                run: Callable) -> torch.Tensor:
@@ -1377,6 +1384,56 @@ def _disparity_block(max_disp: int) -> Tuple[int, int]:
 
 def _call(_name: str, fn: Callable, *args):
     return fn(*args)
+
+
+def layer_stage(spec: StereoSpec, name: str) -> str:
+    """The span of the forward's stage that the layer ``name`` of
+    `StereoNet.layers` belongs to: ``stereo/towers`` (the 2D towers, every
+    form, and their unpacks), ``stereo/volume`` (the cost volume and what
+    is fused with it: the emission's conv3D_1, the corr soft-argmax),
+    ``stereo/enc3d`` and ``stereo/dec3d`` (the 3D stack's layers, packed
+    or not, the packed head's unpack before the last deconv in dec3d),
+    ``stereo/head`` (the soft-argmin and what is fused with it, or the
+    correlation model's bottleneck head)."""
+    if name.startswith(("towers_", "conv1_left_unpack")):
+        return "stereo/towers"
+    if "cost_volume" in name:
+        return "stereo/volume"
+    if "softargmin" in name:
+        return "stereo/head"
+    base = name.removesuffix("[pk]")
+    if any(base == layer.name for layer in spec.enc3d):
+        return "stereo/enc3d"
+    if base == "unpack" or any(base == n for n, _, _ in spec.dec3d):
+        return "stereo/dec3d"
+    return "stereo/head"
+
+
+class _StageSpans:
+    """A ``run`` for `StereoNet.layers` that runs each layer inside the
+    span of its stage (`layer_stage`), one span a stage: entered at the
+    stage's first layer, left at the next stage's first or at the
+    forward's end (an exception's too, as the remat recompute's early stop
+    raises)."""
+
+    def __init__(self, spec: StereoSpec):
+        self._spec = spec
+        self._stack = contextlib.ExitStack()
+        self._stage = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return self._stack.__exit__(*exc)
+
+    def __call__(self, name: str, fn: Callable, *args):
+        stage = layer_stage(self._spec, name)
+        if stage != self._stage:
+            self._stack.close()
+            self._stack.enter_context(span(stage))
+            self._stage = stage
+        return fn(*args)
 
 
 def _identity(x):

@@ -6,7 +6,10 @@ graph (`models/stereo.py:_Weights`), the forward under `plain_lowering()`
 3D models, the correlation kernel's fused soft-argmax for ResNet18-2D, each
 with its backward kernel), the correlation model's [0, 1] output scaled to
 pixels by the input width, the smooth-L1 loss over the valid pixels, the
-backward, one optimizer update.
+backward, one optimizer update. The three phases are trace spans
+(`runtime/profiler.py:span`): ``train/forward`` (the forward and the loss),
+``train/backward`` (the gradients zeroed, the backward, the remat
+recompute in it) and ``train/optimizer`` (the update).
 
 ``remat`` mirrors `jax.checkpoint(policy=nothing_saveable)`: the forward
 runs under `torch.utils.checkpoint` (non-reentrant) and is recomputed in
@@ -51,6 +54,7 @@ from redtail_tpu_torch.ops.convolution import plain_lowering
 from redtail_tpu_torch.ops.halo import IMAGE_AXIS, sharded_axis
 from redtail_tpu_torch.parallel.sharding import (SPATIAL_AXIS, batch_sharding,
                                                  check_batch, local_shard)
+from redtail_tpu_torch.runtime.profiler import span
 
 Schedule = Callable[[int], float]
 # per parameter, the optimizer's state entries in the order they are saved
@@ -114,18 +118,25 @@ class TrainState:
 def apply_update(state, loss: torch.Tensor) -> None:
     """Backward of ``loss`` and one optimizer update of ``state`` (the
     gradients zeroed first), the schedule advanced."""
-    state.opt_state.zero_grad(set_to_none=True)
-    loss.backward()
+    backward(state, loss)
     optimizer_step(state)
+
+
+def backward(state, loss: torch.Tensor) -> None:
+    """The gradients of ``loss`` into ``state``'s params, zeroed first."""
+    with span("train/backward"):
+        state.opt_state.zero_grad(set_to_none=True)
+        loss.backward()
 
 
 def optimizer_step(state) -> None:
     """One optimizer update of ``state`` from the gradients its params
     hold, the schedule advanced."""
-    state.opt_state.step()
-    if state.schedule is not None:
-        state.schedule.step()
-    state.step += 1
+    with span("train/optimizer"):
+        state.opt_state.step()
+        if state.schedule is not None:
+            state.schedule.step()
+        state.step += 1
 
 
 def _smooth_l1(pred, target, delta: float) -> torch.Tensor:
@@ -191,10 +202,11 @@ def stereo_loss(spec: StereoSpec, net: StereoNet, left, right, target,
     """(loss, prediction) of one batch on ``net``'s device: the images cast
     to its compute dtype, the forward recomputed in the backward with
     ``remat``."""
-    target = _as_tensor(target, net.device, torch.float32)
-    valid = _as_tensor(valid, net.device, torch.float32)
-    pred = _prediction(spec, net, left, right, remat=remat)
-    return smooth_l1_disparity_loss(pred, target, valid), pred
+    with span("train/forward"):
+        target = _as_tensor(target, net.device, torch.float32)
+        valid = _as_tensor(valid, net.device, torch.float32)
+        pred = _prediction(spec, net, left, right, remat=remat)
+        return smooth_l1_disparity_loss(pred, target, valid), pred
 
 
 def all_reduce_grads(params, group=None) -> None:
@@ -274,16 +286,17 @@ def _mesh_step(spec: StereoSpec, mesh, remat: bool):
         check_batch(mesh, n)
         left, right, target, valid = (local_shard(mesh, a, img)
                                       for a in (left, right, target, valid))
-        target = _as_tensor(target, net.device, torch.float32)
-        valid = _as_tensor(valid, net.device, torch.float32)
-        pred = _prediction(spec, net, left, right, remat=remat,
-                           shard=None if group is None else (group, rows))
-        count = valid.sum().reshape(1)
-        dist.all_reduce(count)
-        count = torch.clamp(count, min=1.0)
-        loss = (_smooth_l1(pred, target, 1.0) * valid).sum() / count[0]
-        state.opt_state.zero_grad(set_to_none=True)
-        loss.backward()
+        with span("train/forward"):
+            target = _as_tensor(target, net.device, torch.float32)
+            valid = _as_tensor(valid, net.device, torch.float32)
+            pred = _prediction(spec, net, left, right, remat=remat,
+                               shard=None if group is None
+                               else (group, rows))
+            count = valid.sum().reshape(1)
+            dist.all_reduce(count)
+            count = torch.clamp(count, min=1.0)
+            loss = (_smooth_l1(pred, target, 1.0) * valid).sum() / count[0]
+        backward(state, loss)
         all_reduce_grads(net.parameters())
         optimizer_step(state)
         with torch.no_grad():

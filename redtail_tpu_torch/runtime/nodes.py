@@ -415,18 +415,24 @@ class StereoNode(_OverlapMixin):
         return native.pack_s2d(x_u8, swap_rb=True)
 
     def _run(self, inputs) -> torch.Tensor:
-        left, right = self._upload([[i[0] for i in inputs],
-                                    [i[1] for i in inputs]])
-        disp = self.net(*((x.float() / 255.0).to(self._dtype)
-                          for x in (left, right)))
-        if self.spec.corr:  # sigmoid-normalized: x width -> pixels
-            disp = disp * self._hw[1]
-        if self._wire == "u16":
-            # round half to even and clip as jnp does, in int32; int16
-            # carries the 16 bits (uint16 has few ops on the card)
-            q = torch.round(disp.float() * 64.0).clamp_(0, 65535).int()
-            return torch.where(q > 32767, q - 65536, q).to(torch.int16)
-        return disp.float()
+        """The dispatch of a batch, in two stages: ``upload`` (the pinned
+        ring's wait, the copy into it, the H2D enqueue) and ``enqueue``
+        (the normalization, the forward and the wire conversion)."""
+        name = f"stereo/{self.spec.name}"
+        with self.profiler.stage(f"{name}/upload"):
+            left, right = self._upload([[i[0] for i in inputs],
+                                        [i[1] for i in inputs]])
+        with self.profiler.stage(f"{name}/enqueue"):
+            disp = self.net(*((x.float() / 255.0).to(self._dtype)
+                              for x in (left, right)))
+            if self.spec.corr:  # sigmoid-normalized: x width -> pixels
+                disp = disp * self._hw[1]
+            if self._wire == "u16":
+                # round half to even and clip as jnp does, in int32; int16
+                # carries the 16 bits (uint16 has few ops on the card)
+                q = torch.round(disp.float() * 64.0).clamp_(0, 65535).int()
+                return torch.where(q > 32767, q - 65536, q).to(torch.int16)
+            return disp.float()
 
     def _from_wire(self, disp: np.ndarray) -> np.ndarray:
         if self._wire == "u16":

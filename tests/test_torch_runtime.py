@@ -343,6 +343,7 @@ def test_overlapped_stereo_node_matches_jax_node(params, sync_out,
     assert not node._inflight
     assert set(node.profiler.stats()) == {
         "stereo/resnet18_2d/pack", "stereo/resnet18_2d/dispatch",
+        "stereo/resnet18_2d/upload", "stereo/resnet18_2d/enqueue",
         "stereo/resnet18_2d/fetch"}
 
 

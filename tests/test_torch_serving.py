@@ -60,8 +60,9 @@ def test_stereo_node_matches_jax_node(monkeypatch):
     # port the s2d 3x3 stem (reassociated fp32 sums), and the output is
     # sigmoid x width: 1e-3 in sigmoid units, in pixels.
     np.testing.assert_allclose(got, want, atol=1e-3 * HW[1])
-    assert set(node.profiler.stats()) == {"stereo/resnet18_2d",
-                                          "stereo/resnet18_2d/pack"}
+    assert set(node.profiler.stats()) == {
+        "stereo/resnet18_2d", "stereo/resnet18_2d/pack",
+        "stereo/resnet18_2d/upload", "stereo/resnet18_2d/enqueue"}
 
 
 def test_stereo_node_3d_model_serves_pixels(monkeypatch):
