@@ -37,6 +37,13 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
    time, one empty kernel timed the same way;
    conv223 (weights in the K-major form the packed head holds) also beside
    cuDNN's `F.conv3d` of the same dense conv (its library yardstick);
+   conv3d_k3, the 3D encoder's conv + ELU, at the served models' stride-1
+   calls and its edges (every element within one bf16 step of the plain
+   version's conv carried through the ELU, two launches bit-equal), timed
+   at NVSmall's conv3D_2, _4, _7 and ResNet-18 3D's conv3D_1b, _2a beside
+   its plain version, the route it replaces (fp32 carriers, cuDNN TF32,
+   bias, rounding, ELU) and cuDNN's bf16 `F.conv3d` with the bias, with
+   each route's device operations a call;
    the corr kernel's grouped soft-argmax (groups = 2, the H-packed head's
    launch) against its plain version at ResNet18-2D's packed features at
    321x1025 ((1, 81, 513, 64), D = 48, 161 rows: a pad row; read as
@@ -415,6 +422,26 @@ CONV223_CASES = (("nvsmall", (1, 25, 82, 513, 128), 128),
                  ("shard 40", (1, 25, 41, 513, 128), 128),
                  ("shard 41", (1, 25, 42, 513, 128), 128),
                  ("shard Hp=2", (1, 25, 2, 513, 128), 128))
+# conv3d_k3 (name, x (N, D, H, W, C), K): the served models' stride-1
+# encoder calls, NVSmall's conv3D_2, conv3D_4, conv3D_7 and ResNet-18 3D's
+# conv3D_1b, conv3D_2a (the first five, timed), then conv3D_5a and edges
+# (N = 4, D = 1, W = 33, 63, 64, 65, H = 1 and not a multiple of 4, every C
+# and K in 16..128).
+K3_CASES = (("nvsmall conv3D_2", (1, 48, 161, 513, 32), 32),
+            ("nvsmall conv3D_4", (1, 24, 81, 257, 64), 64),
+            ("nvsmall conv3D_7", (1, 12, 41, 129, 128), 128),
+            ("resnet18 conv3D_1b", (1, 68, 161, 513, 32), 32),
+            ("resnet18 conv3D_2a", (1, 34, 81, 257, 64), 64),
+            ("resnet18 conv3D_5a", (1, 5, 11, 33, 128), 128),
+            ("N=4 C=K=16", (4, 2, 7, 65, 16), 16),
+            ("D=1 W=63", (1, 1, 6, 63, 32), 64),
+            ("W=64 K=32", (4, 2, 5, 64, 64), 32),
+            ("C=128 K=16", (1, 2, 9, 65, 128), 16),
+            ("C=16 K=128", (1, 24, 10, 33, 16), 128),
+            ("H=1", (1, 1, 1, 33, 32), 32))
+K3_TIMED = 5
+K3_LAYERS = 5  # NVSmall's stride-1 encoder layers, each one launch a frame
+R18_K3_LAYERS = 9  # ResNet-18 3D's
 # The corr kernel's grouped soft-argmax (name, (N, Hp, W, G * C) packed
 # features, D, original rows, read as channel slices): ResNet18-2D's
 # H-packed towers at 321x1025 first (161 rows in 81 slots, the last slot's
@@ -1178,6 +1205,130 @@ def phase_conv223(torch, c223, gen):
     return entry
 
 
+def _k3_inputs(torch, gen, xshape, k_out, k3):
+    """x (bf16 NDHWC), the layer's fp32 carrier of bf16 weights (K, C, 3,
+    3, 3), its kernel form and an fp32 bias: He-scaled, so outputs are
+    O(1) and about half pass through the ELU's negative branch."""
+    c = xshape[-1]
+    x = _randn(torch, gen, xshape, torch.bfloat16)
+    w = (torch.randn((k_out, c, 3, 3, 3), generator=gen, device="cuda")
+         * (27 * c) ** -0.5).bfloat16().float()
+    return x, w, k3.kernel_weights(w), 0.3 * _randn(torch, gen, (k_out,),
+                                                   torch.float32)
+
+
+def k3_step_ok(torch, k3, got, x, kt, bias) -> bool:
+    """Every element of the conv + ELU kernel's output within one bf16 step
+    of the plain version's rounded conv, carried through the ELU: one step
+    of the output, and where the conv is negative exp(y) times one step of
+    y (an fp32 sum that straddles a rounding boundary rounds one step off,
+    and the ELU carries that step on), plus the fp32 order's allowance."""
+    from redtail_tpu_torch.ops.convolution import conv3d_ncdhw
+    y = conv3d_ncdhw(x.permute(0, 4, 1, 2, 3),
+                     k3.contract_weights(kt).float(),
+                     bias).permute(0, 2, 3, 4, 1).float()
+    want = torch.nn.functional.elu(y).bfloat16().float()
+
+    def step(v):
+        return torch.exp2(torch.floor(torch.log2(
+            v.abs().clamp_min(2.0 ** -126))) - 7)
+
+    g = got.float()
+    tol = step(torch.maximum(g.abs(), want.abs())) + FP32_ATOL + torch.where(
+        y > 0, torch.zeros_like(y), torch.exp(y) * step(y))
+    return bool(((g - want).abs() <= tol).all())
+
+
+def device_ops(torch, fn) -> int:
+    """Device operations (kernels, copies, memsets) one call of ``fn``
+    launches, from a profiler trace."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def phase_conv3d_k3(torch, k3, conv, gen):
+    """The 3D encoder's conv + ELU kernel against its plain version at
+    every case; then timed at the served models' stride-1 calls beside its
+    plain version, the route it replaces (``elu(conv3d_ncdhw(...))`` on
+    the layer's fp32 carriers, as the encoder ran it) and cuDNN's bf16
+    `F.conv3d` with the bias (the library yardstick), with the device
+    operations one call of each route launches."""
+    for name, xshape, k_out in K3_CASES:
+        x, _, kt, bias = _k3_inputs(torch, gen, xshape, k_out, k3)
+        got = k3.conv3d_k3(x, kt, bias)
+        torch.cuda.synchronize()
+        want = k3.conv3d_k3_plain(x, kt, bias)
+        check(got.shape == want.shape == (*xshape[:4], k_out)
+              and got.dtype == torch.bfloat16,
+              f"conv3d_k3 {name}: {got.shape} {got.dtype}")
+        err = (got.float() - want.float()).abs().max().item()
+        differ = (got != want).float().mean().item()
+        check(k3_step_ok(torch, k3, got, x, kt, bias),
+              f"conv3d_k3 {name}: more than one bf16 step of the conv, "
+              f"carried through the ELU, + {FP32_ATOL} off (max abs err "
+              f"{err})")
+        check(differ < 0.05, f"conv3d_k3 {name}: {differ:.3f} of the "
+              f"outputs differ from the plain version")
+        check(torch.equal(k3.conv3d_k3(x, kt, bias), got),
+              f"conv3d_k3 {name}: two launches differ")
+        neg = (want < 0).float().mean().item()
+        print(f"conv3d_k3 {name:20s} {str(xshape):24s} K={k_out:<3d} "
+              f"max_abs_err={err:.3e} (tol 1 bf16 step of the conv through "
+              f"the ELU + {FP32_ATOL}), {differ:.4f} of outputs differ, "
+              f"{neg:.2f} negative (ELU), repeats bit for bit")
+        del got, want, x, kt
+
+    entry = {"name": "conv3d_k3", "route": "cuda",
+             "source": "redtail_tpu_torch/csrc/conv3d_k3.cu",
+             "replaces": "none (JAX leaves the 3D convs to XLA)",
+             "launches": None, "calls": {}}
+    for name, xshape, k_out in K3_CASES[:K3_TIMED]:
+        x, w, kt, bias = _k3_inputs(torch, gen, xshape, k_out, k3)
+        n, d, h, wd, c = xshape
+        out = n * d * h * wd * k_out
+        xv = x.permute(0, 4, 1, 2, 3)           # the layer's NCDHW view
+        wl = w.bfloat16().contiguous(memory_format=torch.channels_last_3d)
+        bl = bias.bfloat16()
+        routes = {
+            "kernel": lambda: k3.conv3d_k3(x, kt, bias),
+            "replaced": lambda: torch.nn.functional.elu(
+                conv.conv3d_ncdhw(xv, w, bias)),
+            "library": lambda: torch.nn.functional.conv3d(xv, wl, bl,
+                                                          padding=1)}
+        # device operations a call (the kernel's own launches counted by
+        # its wrapper: a profiler after the first missed the ctypes launch)
+        ops = {route: device_ops(torch, routes[route])
+               for route in ("replaced", "library")}
+        before = k3.conv3d_k3.launches
+        routes["kernel"]()
+        ops["kernel"] = k3.conv3d_k3.launches - before
+        timed = time_kernel(
+            torch, f"conv3d_k3 {name} at {xshape} K={k_out} bf16",
+            routes["kernel"], lambda: k3.conv3d_k3_plain(x, kt, bias),
+            2 * (x.numel() + kt.numel() + out) + 4 * k_out,
+            2 * out * 27 * c, library=routes["library"],
+            peak_flops=PEAK_BF16_FLOPS)
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        timed["replaced_ms"] = cuda_ms(torch, routes["replaced"], flush,
+                                       hold=PLAIN_HOLD_CYCLES,
+                                       label=f"conv3d_k3 {name} replaced")
+        timed["device_ops"] = ops
+        print(f"conv3d_k3 {name}: the route it replaces (fp32 carriers, "
+              f"cuDNN TF32, bias, rounding, ELU) {timed['replaced_ms']:.4f} "
+              f"ms; device operations a call: {ops}")
+        entry["calls"][name] = {key: timed[key] for key in (
+            "ms", "plain_ms", "replaced_ms", "library_ms", "bound_ms",
+            "bound_by", "bound_share", "device_ops")}
+        del x, w, kt, xv, wl, flush
+    return entry
+
+
 def phase_slice(np, torch, models, s2d, lowerings):
     """The models on the card against the same models on the CPU, under
     each lowering (``lowerings``: name -> context manager). Under the
@@ -1506,6 +1657,9 @@ def phase_serve_3d(np, torch, models, nodes, counters, plain_lowering,
           f"{SERVE_FRAMES} frames")
     check(counts["cost_volume_concat"] == 0,
           "the fused path launched the concat kernel")
+    check(counts["conv3d_k3"] == K3_LAYERS * SERVE_FRAMES,
+          f"the encoder's conv + ELU kernel launched {counts['conv3d_k3']} "
+          f"times for {SERVE_FRAMES} frames")
     trace_frames(torch, node, frames[:3], med)
     layer_breakdown(torch, node, frames[0], "nvsmall fused")
 
@@ -1518,6 +1672,9 @@ def phase_serve_3d(np, torch, models, nodes, counters, plain_lowering,
           f"{plain_counts['cost_volume_concat']} times for one frame")
     check(plain_counts["fused_cv_emit"] == 0,
           "the plain lowering launched the emit kernel")
+    check(plain_counts["conv3d_k3"] == K3_LAYERS,
+          f"the plain lowering launched the encoder's kernel "
+          f"{plain_counts['conv3d_k3']} times for one frame")
     diff = np.abs(plain_out[0] - fused_out[0])
     print(f"nvsmall plain vs fused lowering, same frame, bf16: mean abs diff "
           f"{diff.mean():.4e} px (gate {LOWERINGS_MEAN}), max "
@@ -1537,6 +1694,8 @@ def phase_serve_3d(np, torch, models, nodes, counters, plain_lowering,
                   f"{packed_counts[kernel]} times for {SERVE_FRAMES} frames")
         check(packed_counts["cost_volume_concat"] == 0,
               "the packed head launched the concat kernel")
+        check(packed_counts["conv3d_k3"] == 0,
+              "the packed head launched the encoder's conv + ELU kernel")
         trace_frames(torch, node, frames[:3], packed_med)
         layer_breakdown(torch, node, frames[0], "nvsmall packed")
     diff = np.abs(np.stack(packed_out) - np.stack(fused_out))
@@ -1552,7 +1711,9 @@ def phase_serve_3d(np, torch, models, nodes, counters, plain_lowering,
                                   packed_counts["fused_cv_emit.packed"]},
             "cost_volume_concat": {"5c nvsmall plain":
                                    plain_counts["cost_volume_concat"]},
-            "conv223": {"5d nvsmall packed": packed_counts["conv223"]}}
+            "conv223": {"5d nvsmall packed": packed_counts["conv223"]},
+            "conv3d_k3": {"5b nvsmall fused": counts["conv3d_k3"],
+                          "5c nvsmall plain": plain_counts["conv3d_k3"]}}
 
 
 def layer_breakdown(torch, node, frame, label):
@@ -2222,8 +2383,11 @@ def rung_setup(np, models):
 
 
 RUNG_KERNELS = {"resnet18_2d": ("corr_softargmax",),
-                "nvsmall fused": ("fused_cv_emit",),
+                "nvsmall fused": ("fused_cv_emit", "conv3d_k3"),
                 "nvsmall packed": ("conv223", "fused_cv_emit.packed")}
+# a kernel's launches a frame where not one (the int8 rung quantizes the 2D
+# stacks alone, so every fused rung keeps the encoder's bf16 convs)
+RUNG_A_FRAME = {"conv3d_k3": K3_LAYERS}
 
 
 def rung_gate(np, label, rung, got, ref, top, m):
@@ -2289,9 +2453,10 @@ def rungs_child(np, torch, models, nodes, counters, packed3d_lowering,
                 outs, counts, med = serve(np, torch, node, frames, counters,
                                           top, f"8b {name}")
                 for k in RUNG_KERNELS[label]:
-                    check(counts[k] == len(frames), f"8b {name}: {k} "
-                          f"launched {counts[k]} times for {len(frames)} "
-                          f"frames")
+                    want = RUNG_A_FRAME.get(k, 1) * len(frames)
+                    check(counts[k] == want, f"8b {name}: {k} launched "
+                          f"{counts[k]} times for {len(frames)} frames, "
+                          f"not {want}")
                 m = disparity_errors(np.stack(outs), ref,
                                      np.ones_like(ref, bool))
                 print(f"8b {name}: against the fp32 node on the same "
@@ -2306,7 +2471,7 @@ def rungs_child(np, torch, models, nodes, counters, packed3d_lowering,
                     "launches": {k: counts[k] for k in (
                         "corr_softargmax", "corr_cost_volume",
                         "fused_cv_emit", "fused_cv_emit.packed", "conv223",
-                        "cost_volume_concat")}}
+                        "conv3d_k3", "cost_volume_concat")}}
                 served.append((name, node, lowering, med))
     print_clocks("the rung phase's serving")
     for name, node, lowering, med in served:  # traced last: see 7b
@@ -3165,7 +3330,7 @@ ENGINES = (
     ("resnet18_2d", "resnet18_2d", FULL_HW, "bf16", "default", None,
      "conditioned", ("corr_softargmax",)),
     ("nvsmall fused", "nvsmall", FULL_HW, "bf16", "default", None, "real",
-     ("fused_cv_emit",)),
+     ("fused_cv_emit", "conv3d_k3")),
     ("nvsmall packed", "nvsmall", FULL_HW, "bf16", "packed", None, "real",
      ("fused_cv_emit.packed", "conv223")),
     ("nvtiny plain", "nvtiny", SLICE_3D_HW, "fp32", "plain", None,
@@ -3184,7 +3349,8 @@ COUNTER_ENTRY = {"corr_softargmax": "corr_cost_volume",
                  "cost_volume_concat": "cost_volume_concat",
                  "fused_cv_emit": "fused_cv_emit",
                  "fused_cv_emit.packed": "fused_cv_emit",
-                 "conv223": "conv223"}
+                 "conv223": "conv223",
+                 "conv3d_k3": "conv3d_k3"}
 
 
 def write_pair(np, hw, tag, seed):
@@ -3307,6 +3473,7 @@ def engine_child(payload):
 
     from redtail_tpu_torch.apps import stereo_app
     from redtail_tpu_torch.kernels import conv223 as c223
+    from redtail_tpu_torch.kernels import conv3d_k3 as k3
     from redtail_tpu_torch.kernels import corr_cost_volume as corr
     from redtail_tpu_torch.kernels import cost_volume_concat as concat
     from redtail_tpu_torch.kernels import fused_cv_emit as emit
@@ -3314,7 +3481,8 @@ def engine_child(payload):
     from redtail_tpu_torch.runtime.layer_profiler import device_time_fn
 
     counters = (corr.corr_cost_volume, corr.corr_softargmax,
-                concat.cost_volume_concat, emit.fused_cv_emit, c223.conv223)
+                concat.cost_volume_concat, emit.fused_cv_emit, c223.conv223,
+                k3.conv3d_k3)
     device = torch.device(payload["device"])
     args = stereo_app.build_argparser().parse_args(
         [payload["model"], "--engine", payload["engine"], "--left",
@@ -3938,12 +4106,15 @@ def phase_synth_rungs(np, torch, models, kitti, counters, card="cuda",
     if card == "cuda":
         check(counts["fused_cv_emit.packed"] == 1 and counts["conv223"] == 1
               and counts["fused_cv_emit"] == 4
+              and counts["conv3d_k3"] == R18_K3_LAYERS
               and counts["cost_volume_concat"] == 0,
               f"13a: launches {counts}: want the emission once a fused "
               f"rung (3), the packed emission and conv223 once (the packed "
-              f"rung), the concat kernel never")
+              f"rung), the encoder's conv + ELU once a stride-1 layer of the "
+              f"bf16 rung, the concat kernel never")
     return {"fused_cv_emit": {"13a r18 rungs": counts["fused_cv_emit"]},
-            "conv223": {"13a r18 rungs": counts["conv223"]}}
+            "conv223": {"13a r18 rungs": counts["conv223"]},
+            "conv3d_k3": {"13a r18 rungs": counts["conv3d_k3"]}}
 
 
 def phase_synth_tools(np, torch, models, nodes, kitti, ptrain, tstereo,
@@ -4182,6 +4353,7 @@ def main() -> int:
         from redtail_tpu_torch.kernels import corr_cost_volume as corr
         from redtail_tpu_torch.kernels import cost_volume_concat as concat
         from redtail_tpu_torch.kernels import conv223 as c223
+        from redtail_tpu_torch.kernels import conv3d_k3 as k3
         from redtail_tpu_torch.kernels import fused_cv_emit as emit
         from redtail_tpu_torch.models import trailnet
         from redtail_tpu_torch.ops import convolution as conv
@@ -4201,7 +4373,8 @@ def main() -> int:
         raise SmokeFailure(f"redtail_tpu_torch is not beside chip_smoke.py "
                            f"({e})") from e
     counters = (corr.corr_cost_volume, corr.corr_softargmax,
-                concat.cost_volume_concat, emit.fused_cv_emit, c223.conv223)
+                concat.cost_volume_concat, emit.fused_cv_emit, c223.conv223,
+                k3.conv3d_k3)
     if sys.argv[1:] == [OVERLAP_CHILD]:
         overlap_child(np, torch, models, nodes, counters)
         return 0
@@ -4278,7 +4451,8 @@ def main() -> int:
                GROUPED_ENTRY: phase_corr_grouped(torch, corr, gen),
                "cost_volume_concat": phase_concat(torch, concat, gen),
                "fused_cv_emit": phase_emit(torch, emit, gen),
-               "conv223": phase_conv223(torch, c223, gen)}
+               "conv223": phase_conv223(torch, c223, gen),
+               "conv3d_k3": phase_conv3d_k3(torch, k3, conv, gen)}
     phase_slice(np, torch, models, space_to_depth2_np,
                 {"fused": contextlib.nullcontext, "plain": plain_lowering,
                  "packed": packed3d_lowering})
@@ -4326,7 +4500,8 @@ def main() -> int:
         for kernel, entry in (("corr_softargmax", "corr_cost_volume"),
                               ("fused_cv_emit", "fused_cv_emit"),
                               ("fused_cv_emit.packed", "fused_cv_emit"),
-                              ("conv223", "conv223")):
+                              ("conv223", "conv223"),
+                              ("conv3d_k3", "conv3d_k3")):
             if kernel in RUNG_KERNELS[model]:
                 by_path[entry][f"8b {name}"] = f["launches"][kernel]
     phase_quant_card_vs_cpu(np, torch, models, ptq, stereo_int8, conv, c223,

@@ -4,16 +4,18 @@ wrappers' shared guard against autograd.
 Each `csrc/<name>.cu` exposes a plain C interface and compiles with `nvcc`
 for `sm_90a` into its own shared library under `redtail_tpu_torch/build/`
 (listed in `.gitignore`), which the kernel's wrapper loads with `ctypes`.
-The library's file name carries a hash of its source, so an edited source
-is rebuilt and a stale library is never loaded. `build()` starts one `nvcc`
-per missing library, all at once, and waits for them together.
+The library's file name carries a hash of its source and of the headers it
+includes from `csrc/` (conv223 and conv3d_k3 share `conv_wgmma.cuh`), so an
+edited source is rebuilt and a stale library is never loaded. `build()`
+starts one `nvcc` per missing library, all at once, and waits for them
+together.
 
 The forward kernels are also `torch.library` custom ops (`_ops.py`), so
 `torch.export` can trace a model through them. The correlation and concat
 volumes have backward kernels of their own (`csrc/*_bwd.cu`), bound into
-`torch.autograd.Function`s by their wrappers. The emission and conv223
-kernels have none yet: `refuse_autograd` makes their wrappers raise, before
-they launch, where autograd would otherwise lose the gradients of
+`torch.autograd.Function`s by their wrappers. The emission, conv223 and
+conv3d_k3 kernels have none: `refuse_autograd` makes their wrappers raise,
+before they launch, where autograd would otherwise lose the gradients of
 everything upstream.
 """
 
@@ -23,6 +25,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -34,7 +37,8 @@ PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
 KERNELS = ("corr_cost_volume", "cost_volume_concat", "fused_cv_emit",
-           "conv223", "corr_cost_volume_bwd", "cost_volume_concat_bwd")
+           "conv223", "conv3d_k3", "corr_cost_volume_bwd",
+           "cost_volume_concat_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,9 +54,17 @@ def _nvcc() -> str:
         "toolkit (put nvcc on PATH or set CUDA_HOME)")
 
 
+_INCLUDE = re.compile(rb'^#include "([^"]+)"', re.M)
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD / f"lib{name}-{digest[:12]}.so"
+    """The library's path, named by a hash of its source and of the
+    ``#include "..."`` headers it reads from `csrc/`."""
+    source = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(source)
+    for header in _INCLUDE.findall(source):
+        digest.update((CSRC / header.decode()).read_bytes())
+    return BUILD / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:

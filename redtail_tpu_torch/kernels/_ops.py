@@ -1,4 +1,4 @@
-"""The four forward kernels as `torch.library` custom ops, so `torch.export`
+"""The five forward kernels as `torch.library` custom ops, so `torch.export`
 can trace a model through them and an AOTInductor engine can call them.
 
 | op | wrapper | kernel |
@@ -7,6 +7,7 @@ can trace a model through them and an AOTInductor engine can call them.
 | `redtail_torch::cost_volume_concat(left, right, max_disp, d_offset, d_count)` | `cost_volume_concat.cost_volume_concat` | `csrc/cost_volume_concat.cu` |
 | `redtail_torch::fused_cv_emit(la, rb, bias, max_disp, elu, layout)` | `fused_cv_emit.fused_cv_emit` | `csrc/fused_cv_emit.cu` (``layout``: `full`, `dh_shifted`) |
 | `redtail_torch::conv223(xp, k, bias, k_layout)` | `conv223.conv223` | `csrc/conv223.cu` |
+| `redtail_torch::conv3d_k3(x, kt, bias)` | `conv3d_k3.conv3d_k3` | `csrc/conv3d_k3.cu` |
 
 Each op has three implementations:
 
@@ -29,7 +30,8 @@ version itself; the ops carry no gradient.
 Each op also has a flop formula for `torch.utils.flop_counter`, the
 operation counts `chip_smoke.py` bounds each kernel with: the corr volume
 2 C per valid (x, d) pair (any epilogue), the concat volume none (a copy),
-the emission 4 per output of the full layout, conv223 2 x 12 C per output.
+the emission 4 per output of the full layout, conv223 2 x 12 C per output,
+conv3d_k3 2 x 27 C per output (its ELU not counted).
 
 This module imports only the kernel wrappers: a process that loads an
 engine imports it (the package's `kernels/__init__.py` does) and nothing
@@ -44,6 +46,7 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from redtail_tpu_torch.kernels import conv223 as _c223
+from redtail_tpu_torch.kernels import conv3d_k3 as _k3
 from redtail_tpu_torch.kernels import corr_cost_volume as _corr
 from redtail_tpu_torch.kernels import cost_volume_concat as _concat
 from redtail_tpu_torch.kernels import fused_cv_emit as _emit
@@ -114,6 +117,18 @@ def _(xp, k, bias, k_layout):
     return xp.new_empty((n, dp - 1, hp - 1, w, kk))
 
 
+@torch.library.custom_op(f"{NAMESPACE}::conv3d_k3", mutates_args=(),
+                         device_types=DEVICES)
+def conv3d_k3(x: torch.Tensor, kt: torch.Tensor,
+              bias: torch.Tensor) -> torch.Tensor:
+    return _k3._forward(x, kt, bias)
+
+
+@conv3d_k3.register_fake
+def _(x, kt, bias):
+    return x.new_empty((*x.shape[:4], kt.shape[3]))
+
+
 # ------------------------------------------------------------ flop formulas
 # Tensor arguments arrive as their shapes (`register_flop_formula`).
 
@@ -139,6 +154,12 @@ def conv223_flops(xp_shape, k_shape, k_layout: str) -> int:
     return 2 * 12 * c * n * (dp - 1) * (hp - 1) * w * kk
 
 
+def conv3d_k3_flops(x_shape, kt_shape) -> int:
+    """2 x 27 C a output: the 3 x 3 x 3 taps' products and sums."""
+    n, d, h, w, c = x_shape
+    return 2 * 27 * c * n * d * h * w * kt_shape[3]
+
+
 @register_flop_formula(torch.ops.redtail_torch.corr_cost_volume)
 def _(left_shape, right_shape, max_disp, mode, *args, out_shape=None,
       **kwargs):
@@ -160,3 +181,8 @@ def _(la_shape, rb_shape, bias_shape, max_disp, *args, out_shape=None,
 def _(xp_shape, k_shape, bias_shape, k_layout, *args, out_shape=None,
       **kwargs):
     return conv223_flops(xp_shape, k_shape, k_layout)
+
+
+@register_flop_formula(torch.ops.redtail_torch.conv3d_k3)
+def _(x_shape, kt_shape, bias_shape, *args, out_shape=None, **kwargs):
+    return conv3d_k3_flops(x_shape, kt_shape)

@@ -56,21 +56,25 @@ CHUNK = 64
 
 @dataclasses.dataclass(frozen=True)
 class TilePlan:
-    """The bf16 kernel's tiles for one call. Main tiles are TH x TW; the
+    """The bf16 kernel's tiles for one call. Main tiles are rows x TW; the
     ``rem = W % TW`` columns past the last full TW form edge tiles of
     ``edge_rows`` rows each. Tiles are ordered (N tile, n, d, main tiles by
-    row then column, edge tiles)."""
+    row then column, edge tiles). conv223 takes ``taps`` = 2 and 64-channel
+    chunks; `conv3d_k3.tile_plan` plans the shared pipeline's 3-tap form."""
 
-    bn: int           # output channels of an N tile: 64 or 128
+    bn: int           # output channels of an N tile: 32, 64 or 128
     n_tiles: int      # ceil(K / bn)
-    chunks: int       # 64-channel reduction chunks: ceil(C / 64)
+    chunks: int       # reduction chunks: ceil(C / chunk)
     hout: int
-    row_tiles: int    # ceil(Hout / TH)
+    row_tiles: int    # ceil(Hout / rows)
     col_tiles: int    # W // TW
     rem: int          # W % TW
     edge_rows: int    # rows of an edge tile (1 without edge tiles)
     edge_tiles: int   # edge tiles of a plane
-    planes: int       # N * (Dp - 1)
+    planes: int       # N * Dout
+    taps: int = 2     # taps along D and along H
+    chunk: int = CHUNK  # channels of a reduction chunk: 32 or 64
+    rows: int = TH    # rows of a main tile: 4 or 8
 
     @property
     def per_plane(self) -> int:
@@ -83,37 +87,45 @@ class TilePlan:
     @property
     def steps(self) -> int:
         """K-steps of a tile: (chunk, td, th)."""
-        return 4 * self.chunks
+        return self.taps * self.taps * self.chunks
 
     def tile(self, r: int):
         """Tile ``r`` of a plane -> (h0, x0, rows, cols); as the kernel's
         `decode`."""
         main = self.row_tiles * self.col_tiles
         if r < main:
-            return (r // self.col_tiles) * TH, (r % self.col_tiles) * TW, \
-                TH, TW
+            return (r // self.col_tiles) * self.rows, \
+                (r % self.col_tiles) * TW, self.rows, TW
         return (r - main) * self.edge_rows, self.col_tiles * TW, \
             self.edge_rows, self.rem
 
 
-def tile_plan(n: int, dp: int, hp: int, w: int, c: int, k: int) -> TilePlan:
-    """The tiling of the bf16 kernel for xp (n, dp, hp, w, c) and K = k.
+def plan(planes: int, hout: int, w: int, c: int, k: int, *, bn: int,
+         taps: int = 2, chunk: int = CHUNK, rows: int = TH) -> TilePlan:
+    """The shared pipeline's tiling (`csrc/conv_wgmma.cuh`) of ``planes``
+    output planes of ``hout`` x ``w`` pixels, C = c, K = k; a main tile is
+    ``rows`` x TW pixels (rows / 2 m64 blocks a consumer warpgroup).
 
     An edge tile stages ``edge_rows * (rem + 2)`` pixels (at most the
-    ``SLAB_PIXELS`` a main tile stages) and computes ``edge_rows * rem``
-    outputs (at most ``TILE_PIXELS``), so at W % 64 = 1 (W = 513, 257) a
-    plane's last column is one tile of its own rather than a row of
+    ``rows * (TW + 2)`` a main tile stages) and computes ``edge_rows *
+    rem`` outputs (at most ``rows * TW``), so at W % 64 = 1 (W = 513, 257)
+    a plane's last column is one tile of its own rather than a row of
     64-column tiles holding one column each."""
-    hout = hp - 1
-    bn = 64 if k <= 64 else 128
     rem = w % TW
-    edge_rows = (min(SLAB_PIXELS // (rem + 2), TILE_PIXELS // rem, hout)
+    edge_rows = (min(rows * (TW + 2) // (rem + 2), rows * TW // rem, hout)
                  if rem else 1)
-    return TilePlan(bn=bn, n_tiles=-(-k // bn), chunks=-(-c // CHUNK),
-                    hout=hout, row_tiles=-(-hout // TH), col_tiles=w // TW,
+    return TilePlan(bn=bn, n_tiles=-(-k // bn), chunks=-(-c // chunk),
+                    hout=hout, row_tiles=-(-hout // rows), col_tiles=w // TW,
                     rem=rem, edge_rows=edge_rows,
                     edge_tiles=-(-hout // edge_rows) if rem else 0,
-                    planes=n * (dp - 1))
+                    planes=planes, taps=taps, chunk=chunk, rows=rows)
+
+
+def tile_plan(n: int, dp: int, hp: int, w: int, c: int, k: int) -> TilePlan:
+    """The tiling of the bf16 kernel for xp (n, dp, hp, w, c) and K = k:
+    `plan` of its N * (Dp - 1) planes of Hp - 1 rows, BN = 64 where K <= 64,
+    else 128."""
+    return plan(n * (dp - 1), hp - 1, w, c, k, bn=64 if k <= 64 else 128)
 
 
 def kernel_weights(k: torch.Tensor) -> torch.Tensor:

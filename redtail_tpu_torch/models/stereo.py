@@ -108,12 +108,14 @@ from torch import nn
 
 from redtail_tpu_torch import resolve_device
 from redtail_tpu_torch.io.tf_checkpoint import load_checkpoint
+from redtail_tpu_torch.kernels import conv3d_k3 as K3
 from redtail_tpu_torch.ops.activations import elu, sigmoid
 from redtail_tpu_torch.ops import packed2d as P2
 from redtail_tpu_torch.ops import packed3d as P
 from redtail_tpu_torch.ops.convolution import (
     conv2d_nchw,
     conv2d_transpose_nchw,
+    conv3d_elu_ncdhw,
     conv3d_ncdhw,
     conv3d_transpose_dfold,
     conv3d_transpose_ncdhw,
@@ -544,16 +546,28 @@ class _Weights(nn.Module):
 
 class _Conv(_Weights):
     """TF-SAME conv layer, 2D or 3D: the HWIO / DHWIO kernel held as
-    OIHW / OIDHW."""
+    OIHW / OIDHW. A stride-1 layer of a frozen bf16 net's 3D encoder
+    (``k3``) also holds it in the K-major bf16 form of the hand-written
+    conv + ELU kernel (`kernels/conv3d_k3.py:kernel_weights`), made once at
+    load, which `conv_elu` passes on."""
 
     def __init__(self, w, b, stride: int, device, dtype,
-                 trainable: bool = False):
+                 trainable: bool = False, k3: bool = False):
         super().__init__(_torch_layout(w), b, device, dtype, trainable)
         self.stride = stride
+        self.register_buffer(
+            "kernel_kc", K3.kernel_weights(self.weight) if k3 else None,
+            persistent=False)
 
     def forward(self, x):
         conv = conv3d_ncdhw if self.weight.dim() == 5 else conv2d_nchw
         return conv(x, self.weight, self.bias, self.stride)
+
+    def conv_elu(self, x):
+        """``elu(self(x))`` of a 3D layer, through the kernel where
+        `ops.convolution.conv3d_k3_routes` holds."""
+        return conv3d_elu_ncdhw(x, self.weight, self.bias, self.stride,
+                                self.kernel_kc)
 
 
 class _Int8Conv(nn.Module):
@@ -870,6 +884,11 @@ class StereoNet(nn.Module):
         strides.update({f"encoder3D/{layer.name}": layer.stride
                         for layer in spec.enc3d})
         fused = {f"encoder3D/{spec.enc3d[0].name}"} if spec.enc3d else set()
+        # the encoder loop's stride-1 layers of a frozen bf16 net: their
+        # form for the conv + ELU kernel, made at load
+        k3 = set() if trainable or dtype != torch.bfloat16 else {
+            f"encoder3D/{layer.name}" for layer in spec.enc3d[1:]
+            if layer.stride == 1}
         for path, kshape, _ in _spec_layer_shapes(spec):
             leaf = params
             for p in path.split("/"):
@@ -900,7 +919,7 @@ class StereoNet(nn.Module):
                 layer = _FusedConv3D1(w, b, device, dtype)
             else:
                 layer = _Conv(w, b, strides.get(path, 1), device, dtype,
-                              trainable)
+                              trainable, k3=path in k3)
             self._add(path, layer)
         self._steps = ()
         if spec.enc3d and spec.enc3d[0].stride == 1 and not trainable:
@@ -1195,8 +1214,8 @@ class StereoNet(nn.Module):
         acts = {first.name: (x, extent)}
         for layer in spec.enc3d[1:]:
             with sharded_extent(extent):
-                x = run(layer.name, lambda a, c=enc[layer.name]: elu(c(a)),
-                        x)
+                x = run(layer.name,
+                        lambda a, c=enc[layer.name]: c.conv_elu(a), x)
             extent = _global_spatial(x, _strided(extent, layer.stride))
             acts[layer.name] = (x, extent)
         for name, _out_ch, skip in spec.dec3d:

@@ -78,6 +78,9 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from redtail_tpu_torch.kernels import conv3d_k3 as _k3
+from redtail_tpu_torch.kernels._build import needs_grad
+from redtail_tpu_torch.ops.activations import elu
 from redtail_tpu_torch.ops.halo import (ShardedAxis, current_sharding,
                                        empty_shard, fetch, halo_rows,
                                        image_sharding, window_rows,
@@ -469,6 +472,37 @@ def conv3d_ncdhw(x: torch.Tensor, w: torch.Tensor,
                  padding: str = "SAME") -> torch.Tensor:
     """TF conv3d: x (N, C, D, H, W), w (O, I, kd, kh, kw)."""
     return _conv(x, w, b, stride, padding)
+
+
+def conv3d_k3_routes(x: torch.Tensor, w: torch.Tensor, stride: Strides,
+                     kernel_kc: Optional[torch.Tensor]) -> bool:
+    """Whether ``elu(conv3d_ncdhw(x, w, b, stride))`` launches the
+    hand-written kernel `kernels/conv3d_k3.py` (`conv3d_elu_ncdhw`): CUDA
+    bf16 x (N, C, D, H, W), a 3x3x3 kernel at stride 1 (TF-SAME) held in
+    the kernel's form ``kernel_kc``, grad required of neither operand, no
+    `sharded_axis` in force, C and K in `conv3d_k3.CHANNELS`."""
+    return (kernel_kc is not None and x.is_cuda
+            and x.dtype == torch.bfloat16 and x.dim() == 5
+            and _tuple(stride, 3) == (1, 1, 1)
+            and tuple(w.shape[2:]) == (3, 3, 3)
+            and x.shape[1] in _k3.CHANNELS and w.shape[0] in _k3.CHANNELS
+            and not needs_grad(x, w)
+            and current_sharding() is None)
+
+
+def conv3d_elu_ncdhw(x: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor, stride: Strides = 1,
+                     kernel_kc: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """``elu(conv3d_ncdhw(x, w, b, stride))``, a 3D encoder layer: one
+    launch of the kernel `conv3d_k3` where `conv3d_k3_routes` holds
+    (``kernel_kc`` is w in `conv3d_k3.kernel_weights`' form, made at load;
+    the result an (N, K, D, H, W) view of NDHWC memory), else the
+    round-once conv and the ELU."""
+    if conv3d_k3_routes(x, w, stride, kernel_kc):
+        return _k3.conv3d_k3(x.permute(0, 2, 3, 4, 1).contiguous(),
+                             kernel_kc, b).permute(0, 4, 1, 2, 3)
+    return elu(conv3d_ncdhw(x, w, b, stride))
 
 
 def conv2d_transpose_nchw(y: torch.Tensor, w: torch.Tensor,

@@ -265,7 +265,9 @@ def forward_cases(rank: int, world_size: int, cases: List[Dict],
     its head is the plain one (`plain_volume_head`). With ``unsharded``
     rank 0 runs the same net on the whole frames instead, under the same
     switches and ``lowering`` (under `plain_volume_head` where the case's
-    ``mode`` is ``"disparity"``), and the other ranks return None.
+    ``mode`` is ``"disparity"``) and on the same route: with no kernel form
+    for the 3D encoder's conv + ELU, which a sharded forward never takes
+    (`ops/convolution.py:conv3d_k3_routes`); the other ranks return None.
     Returns the disparity (gathered), the launches in this rank of the
     correlation kernel's soft-argmax (``corr``: all; ``grouped_corr``:
     the grouped ones of the H-packed head), concat, emission (``emit``:
@@ -306,6 +308,10 @@ def forward_cases(rank: int, world_size: int, cases: List[Dict],
         net = params_from_numpy(spec, c["params"], device=device,
                                 dtype=dtype)
         if c.get("unsharded"):
+            for layer in net.modules():
+                if getattr(layer, "kernel_kc", None) is not None:
+                    layer.kernel_kc = None
+
             def fn(_, left, right, net=net, disparity=mode == "disparity"):
                 with torch.no_grad(), (plain_volume_head() if disparity
                                        else contextlib.nullcontext()):

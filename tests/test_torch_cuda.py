@@ -1,13 +1,13 @@
 """The port on the card: each CUDA kernel (corr volume in its three
 epilogues, concat volume, fused cost-volume assembly in both layouts, the
-packed head's dense conv223) against its plain version, the wrappers'
-no-fallback rule and their refusal of autograd, small models served
-through the kernels, and TrailNet and the YOLO node (no kernel on their
-path) against the CPU, the serving runtime: frames in flight on the
-nodes' streams, microbatches through the kernels, the u16 wire; and the
-quantized rungs: the exact int8 conv and `quantize_act` bit-equal to the
-CPU, the round-once bf16 convs, quantized nodes through the corr kernel,
-a TRT blob's net bit-equal to its tree.
+packed head's dense conv223, the 3D encoder's conv + ELU) against its
+plain version, the wrappers' no-fallback rule and their refusal of
+autograd, small models served through the kernels, and TrailNet and the
+YOLO node (no kernel on their path) against the CPU, the serving runtime:
+frames in flight on the nodes' streams, microbatches through the kernels,
+the u16 wire; and the quantized rungs: the exact int8 conv and
+`quantize_act` bit-equal to the CPU, the round-once bf16 convs, quantized
+nodes through the corr kernel, a TRT blob's net bit-equal to its tree.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither JAX nor `redtail_tpu`, so it also runs on a machine without
@@ -18,13 +18,16 @@ them, with the JAX-importing `tests/conftest.py` left out:
 
 import contextlib
 import dataclasses
+import hashlib
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from redtail_tpu_torch.kernels import conv223 as c223
+from redtail_tpu_torch.kernels import conv3d_k3 as k3
 from redtail_tpu_torch.kernels import corr_cost_volume as corr
 from redtail_tpu_torch.kernels import cost_volume_concat as concat
 from redtail_tpu_torch.kernels import fused_cv_emit as emit
@@ -35,10 +38,12 @@ from redtail_tpu_torch.models import (
     emit_trailnet_prototxt,
     init_stereo_params,
     native_params_to_blobs,
+    params_from_numpy,
     params_from_w8_npz,
     yolo,
 )
 from redtail_tpu_torch.models import trailnet
+from redtail_tpu_torch.ops import convolution as conv_ops
 from redtail_tpu_torch.ops.convolution import packed3d_lowering, plain_lowering
 from redtail_tpu_torch.runtime import StereoNode, TrailNetNode, YoloNode
 
@@ -82,6 +87,28 @@ CONV223_EDGES = [((2, 4, 6, 20, 32), 32), ((1, 5, 7, 9, 16), 16),
                  ((1, 3, 6, 64, 64), 32), ((1, 3, 6, 65, 16), 64),
                  ((1, 3, 7, 257, 32), 128), ((2, 3, 9, 130, 64), 128),
                  ((1, 9, 42, 200, 32), 16)]
+
+# conv3d_k3 x (N, D, H, W, C), K: NVSmall's conv3D_2, conv3D_4, conv3D_7 and
+# ResNet-18 3D's conv3D_1b, conv3D_5a; then the edges: N = 4, D = 1 and 2,
+# W = 33, 63, 64, 65, 257, 513, H not a multiple of the tile's 4 rows (and
+# H = 1), every C and K in 16..128.
+K3_MODELS = [((1, 48, 161, 513, 32), 32), ((1, 24, 81, 257, 64), 64),
+             ((1, 12, 41, 129, 128), 128), ((1, 68, 161, 513, 32), 32),
+             ((1, 5, 11, 33, 128), 128)]
+K3_EDGES = [((4, 2, 7, 65, 16), 16), ((1, 1, 6, 63, 32), 64),
+            ((4, 2, 5, 64, 64), 32), ((1, 2, 9, 65, 128), 16),
+            ((1, 24, 10, 33, 16), 128), ((2, 3, 13, 257, 64), 128),
+            ((1, 2, 3, 513, 128), 64), ((1, 1, 1, 33, 32), 32),
+            ((4, 1, 6, 257, 32), 16)]
+# conv223 at phase 3's bf16 calls (NVSmall's conv3D_2, ResNet-18 3D's
+# conv3D_1b; inputs from the CPU generator, `_conv223_pinned_inputs`): the
+# SHA-256 of the output bytes the kernel gave before it shared its pipeline
+# with conv3d_k3 (the same kernel, on an NVIDIA H100 80GB HBM3).
+CONV223_PINNED = {
+    ((1, 25, 82, 513, 128), 128):
+        "50b39fab4f44e8e2adecc848cf861c4e5b933c6c093f36ba36805fbb0ea151c9",
+    ((1, 35, 82, 513, 128), 128):
+        "08f354c43599eed22aee3743b6b8ead6cb9eeb66ee1617153b08c06d1af17563"}
 
 pytestmark = pytest.mark.cuda
 
@@ -409,6 +436,112 @@ def test_conv223_kernel_form_matches_contract_form_on_card(
     assert torch.equal(got, want)
 
 
+def _k3_inputs(device, xshape, k_out, seed=3):
+    """x, the kernel-form weights (He-scaled: O(1) outputs, about half
+    through the ELU's negative branch) and an fp32 bias."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    c = xshape[-1]
+    x = torch.randn(xshape, generator=gen, device=device).bfloat16()
+    w = torch.randn((k_out, c, 3, 3, 3), generator=gen, device=device) \
+        * (27 * c) ** -0.5
+    bias = torch.randn(k_out, generator=gen, device=device) * 0.3
+    return x, k3.kernel_weights(w), bias
+
+
+@pytest.mark.parametrize("xshape,k_out", K3_EDGES + K3_MODELS, ids=str)
+def test_conv3d_k3_kernel_matches_plain_on_card(cuda_device, xshape, k_out):
+    """Every element, after the ELU, within one bf16 step of the plain
+    version (the round-once conv on fp32 carriers and the bf16 ELU;
+    `chip_smoke.k3_step_ok`): the fp32 sums differ in order only."""
+    x, kt, bias = _k3_inputs(cuda_device, xshape, k_out)
+    before = k3.conv3d_k3.launches
+    got = k3.conv3d_k3(x, kt, bias)
+    torch.cuda.synchronize()
+    assert k3.conv3d_k3.launches == before + 1
+    want = k3.conv3d_k3_plain(x, kt, bias)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape == (*xshape[:4], k_out)
+    assert chip_smoke.k3_step_ok(torch, k3, got, x, kt, bias)
+    assert (want < 0).float().mean() > 0.2
+    # a fault in the tiling (a tap, a pad, a tile's edge) moves most of the
+    # outputs it touches; the order of summation moves a few by one step
+    assert (got != want).float().mean() < 0.05
+
+
+@pytest.mark.parametrize("c", k3.CHANNELS)
+@pytest.mark.parametrize("k_out", k3.CHANNELS)
+def test_conv3d_k3_every_width_on_card(cuda_device, c, k_out):
+    x, kt, bias = _k3_inputs(cuda_device, (2, 3, 6, 70, c), k_out, seed=c)
+    assert chip_smoke.k3_step_ok(torch, k3, k3.conv3d_k3(x, kt, bias), x, kt,
+                                 bias)
+
+
+def test_conv3d_k3_repeats_bit_for_bit_on_card(cuda_device):
+    x, kt, bias = _k3_inputs(cuda_device, (1, 48, 161, 513, 32), 32)
+    first = k3.conv3d_k3(x, kt, bias)
+    assert torch.equal(k3.conv3d_k3(x, kt, bias), first)
+
+
+def _conv223_pinned_inputs(xshape, k_out):
+    gen = torch.Generator().manual_seed(11)
+    c = xshape[-1]
+    xp = torch.randn(xshape, generator=gen).bfloat16()
+    k = (torch.randn((2, 2, 3, k_out, c), generator=gen) * (12 * c) ** -0.5
+         ).bfloat16()
+    return xp, k, torch.randn(k_out, generator=gen)
+
+
+@pytest.mark.parametrize("xshape,k_out", sorted(CONV223_PINNED), ids=str)
+def test_conv223_bit_equal_to_its_pinned_output_on_card(cuda_device, xshape,
+                                                        k_out):
+    """conv223's (2, 2) instance of the shared pipeline gives, bit for bit,
+    the output it gave as a kernel of its own."""
+    xp, kt, bias = (t.to(cuda_device) for t in
+                    _conv223_pinned_inputs(xshape, k_out))
+    out = c223.conv223(xp, kt, bias, "kc").view(torch.int16).cpu().numpy()
+    assert hashlib.sha256(out.tobytes()).hexdigest() == \
+        CONV223_PINNED[(xshape, k_out)]
+
+
+def test_encoder_runs_the_conv3d_k3_kernel_on_card(cuda_device):
+    """A bf16 NVSmall forward launches the kernel once a stride-1 encoder
+    layer, within bf16 noise of the same forward on the cuDNN route; an
+    fp32 net and a bf16 forward that needs grad launch it never."""
+    hw = (65, 129)
+    spec = dataclasses.replace(STEREO_SPECS["nvsmall"], input_hw=hw,
+                               max_disp=16)
+    params = init_stereo_params(spec, seed=0)
+    net = params_from_numpy(spec, params, device=cuda_device,
+                            dtype=torch.bfloat16)
+    rs = np.random.RandomState(1)
+    left, right = (torch.from_numpy(rs.rand(1, *hw, 3).astype(np.float32))
+                   .to(cuda_device).bfloat16() for _ in range(2))
+    before = k3.conv3d_k3.launches
+    with torch.inference_mode():
+        got = net(left, right).float()
+    torch.cuda.synchronize()
+    assert k3.conv3d_k3.launches == before + 5
+    routes = conv_ops.conv3d_k3_routes
+    try:
+        conv_ops.conv3d_k3_routes = lambda *args: False
+        with torch.inference_mode():
+            want = net(left, right).float()
+    finally:
+        conv_ops.conv3d_k3_routes = routes
+    assert k3.conv3d_k3.launches == before + 5
+    assert (got - want).abs().mean().item() < 0.05  # px, of a 0..32 range
+    fp32 = params_from_numpy(spec, params, device=cuda_device)
+    with torch.inference_mode():
+        fp32(left.float(), right.float())
+    layer = net.encoder3D["conv3D_2"]
+    a = torch.randn((1, 8, 33, 65, 32), device=cuda_device).bfloat16()
+    a = a.permute(0, 4, 1, 2, 3).requires_grad_(True)
+    layer.conv_elu(a).float().sum().backward()
+    torch.cuda.synchronize()
+    assert k3.conv3d_k3.launches == before + 5 and a.grad is not None
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,d", EMIT_SHAPES + [NVSMALL, RESNET18_3D])
 def test_packed_emit_kernel_matches_plain_on_card(cuda_device, shape, d,
@@ -648,6 +781,7 @@ def _kernel_calls(device, requires_grad):
     left, right = t(1, 3, 40, 8), t(1, 3, 40, 8)
     la, rb, b = t(1, 3, 40, 6), t(1, 3, 40, 12), t(2)
     xp, k, kb = t(1, 3, 4, 9, 16), t(2, 2, 3, 16, 16), t(16)
+    x3, kt3 = t(1, 3, 4, 9, 16).bfloat16(), t(3, 3, 3, 16, 16)
     return {
         "corr_cost_volume": (corr.corr_cost_volume,
                              lambda: corr.corr_cost_volume(left, right, 5),
@@ -661,10 +795,12 @@ def _kernel_calls(device, requires_grad):
                                concat.cost_volume_concat_bwd),
         "fused_cv_emit": (emit.fused_cv_emit,
                           lambda: emit.fused_cv_emit(la, rb, b, 5), None),
-        "conv223": (c223.conv223, lambda: c223.conv223(xp, k, kb), None)}
+        "conv223": (c223.conv223, lambda: c223.conv223(xp, k, kb), None),
+        "conv3d_k3": (k3.conv3d_k3,
+                      lambda: k3.conv3d_k3(x3, kt3.bfloat16(), kb), None)}
 
 
-@pytest.mark.parametrize("name", ["fused_cv_emit", "conv223"])
+@pytest.mark.parametrize("name", ["fused_cv_emit", "conv223", "conv3d_k3"])
 def test_kernel_wrappers_refuse_autograd_on_card(cuda_device, name):
     counter, call, _ = _kernel_calls(cuda_device, True)[name]
     before = counter.launches

@@ -1,4 +1,4 @@
-"""The four forward kernels as `torch.library` custom ops (`kernels/_ops.py`)
+"""The five forward kernels as `torch.library` custom ops (`kernels/_ops.py`)
 and what `torch.export` makes of the serving configurations, on the CPU,
 without compiling (`tests/test_torch_engine_aoti.py` compiles).
 
@@ -31,6 +31,7 @@ import chip_smoke
 from redtail_tpu_torch.apps import stereo_app
 from redtail_tpu_torch.kernels import _ops
 from redtail_tpu_torch.kernels import conv223 as c223
+from redtail_tpu_torch.kernels import conv3d_k3 as k3
 from redtail_tpu_torch.kernels import corr_cost_volume as corr
 from redtail_tpu_torch.kernels import cost_volume_concat as concat
 from redtail_tpu_torch.kernels import fused_cv_emit as emit
@@ -143,7 +144,16 @@ def _conv223_args(case, dtype, device, k_layout):
             torch.randn((k_out,), device=device), k_layout)
 
 
+def _k3_args(case, dtype, device):
+    _, xshape, k_out = case
+    return (torch.randn(xshape, device=device).to(dtype),
+            torch.randn((3, 3, 3, k_out, xshape[-1]), device=device).to(dtype),
+            torch.randn((k_out,), device=device))
+
+
 def _plain(kernel, args):
+    if kernel == "conv3d_k3":
+        return k3.conv3d_k3_plain(*args)
     if kernel == "corr":
         left, right, d, mode = args
         if mode == "softargmax":
@@ -163,14 +173,16 @@ def _plain(kernel, args):
 OP = {"corr": torch.ops.redtail_torch.corr_cost_volume,
       "concat": torch.ops.redtail_torch.cost_volume_concat,
       "emit": torch.ops.redtail_torch.fused_cv_emit,
-      "conv223": torch.ops.redtail_torch.conv223}
+      "conv223": torch.ops.redtail_torch.conv223,
+      "conv3d_k3": torch.ops.redtail_torch.conv3d_k3}
 EDGES = ([("corr", case, form) for case in chip_smoke.CORR_CASES
           for form in corr.MODES]
          + [("concat", case, None) for case in chip_smoke.CONCAT_CASES]
          + [("emit", case, form) for case in chip_smoke.EMIT_CASES
             for form in emit.LAYOUTS]
          + [("conv223", case, form) for case in chip_smoke.CONV223_CASES
-            for form in c223.K_LAYOUTS])
+            for form in c223.K_LAYOUTS]
+         + [("conv3d_k3", case, None) for case in chip_smoke.K3_CASES])
 
 
 def _args(kernel, case, form, dtype, device):
@@ -182,6 +194,8 @@ def _args(kernel, case, form, dtype, device):
                 torch.randn(shape, device=device).to(dtype), d)
     if kernel == "emit":
         return _emit_args(case, dtype, device, form)
+    if kernel == "conv3d_k3":
+        return _k3_args(case, dtype, device)
     return _conv223_args(case, dtype, device, form)
 
 
@@ -215,12 +229,14 @@ def test_cpu_impl_is_the_plain_version(kernel, case, form):
     ("concat", chip_smoke.CONCAT_CASES[2], None),
     ("emit", chip_smoke.EMIT_CASES[3], "dh_shifted"),
     ("conv223", chip_smoke.CONV223_CASES[3], "ck"),
-    ("conv223", chip_smoke.CONV223_CASES[3], "kc")],
+    ("conv223", chip_smoke.CONV223_CASES[3], "kc"),
+    ("conv3d_k3", chip_smoke.K3_CASES[-1], None)],
     ids=lambda v: v if isinstance(v, str) else None)
 def test_flop_formula_is_the_bound_count(kernel, case, form):
     """The counts `chip_smoke.py` bounds each kernel with: 2 C per valid
     (x, d) pair, none for the concat copy, 4 per full-layout output of the
-    emission, 2 x 12 C per conv223 output."""
+    emission, 2 x 12 C per conv223 output, 2 x 27 C per conv3d_k3
+    output."""
     args = _args(kernel, case, form, torch.float32, "cpu")
     with FlopCounterMode(display=False) as counter:
         OP[kernel](*args)
@@ -232,6 +248,8 @@ def test_flop_formula_is_the_bound_count(kernel, case, form):
     elif kernel == "emit":
         n, h, w, k3 = args[0].shape
         want = 4 * n * args[3] * h * w * (k3 // 3)
+    elif kernel == "conv3d_k3":
+        want = 2 * 27 * args[0].numel() * case[2]
     else:
         n, dp, hp, w, c = args[0].shape
         want = 2 * 12 * c * n * (dp - 1) * (hp - 1) * w * case[2]
