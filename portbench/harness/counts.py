@@ -9,6 +9,12 @@ shapes, whatever form the program runs.
   channels x its output channels (every input meets the whole kernel).
 - conv3D_1 counts as the dense conv3d over the (N, 2C, D, H', W') concat
   volume, as the published network states it.
+- The correlation family: the correlation counts 2 x N x H' x W' x D x C
+  (a product and a sum a channel, a disparity and a pixel; the soft-argmax
+  after it is not counted); the bottleneck's convs (``bneck_encoder2D/*``)
+  are 2D convs on the left image only (N), each at its strided
+  half-resolution output size; its transposed convs (``bneck_decoder2D/*``)
+  count as above.
 - A kernel's bytes: each input read once and the output written once.
 
 Peaks: NVIDIA H100 SXM data sheet, dense: 989 TFLOP/s bf16, 3.35 TB/s HBM.
@@ -46,12 +52,31 @@ def layer_flops(config: dict, hw, n: int = 1) -> List[Tuple[str, int]]:
         spatial = tuple(_ceil(v, s) for v in spatial)
         sizes[f"encoder3D/{name}"] = spatial
     skips = {f"decoder3D/{name}": skip for name, _c, skip in config["dec3d"]}
+    flat, bsizes = (h2, w2), {}
+    for name, _c, s in config.get("bneck_channels", ()):
+        flat = tuple(_ceil(v, s) for v in flat)
+        bsizes[f"bneck_encoder2D/{name}"] = flat
+    bskips = {f"bneck_decoder2D/{name}": skip
+              for name, _c, skip in config.get("bneck_dec", ())}
     out = []
+    if config.get("corr"):
+        out.append(("corr_cost_volume+softargmax",
+                    2 * n * h2 * w2 * d * _feature_channels(config)))
     for path, k, _b in layer_table(config):
         taps = math.prod(k[:-2])
         if path.startswith("encoder2D/"):
             # both towers, 2n images, each layer writing H' x W'
             out.append((path, 2 * 2 * n * h2 * w2 * taps * k[-2] * k[-1]))
+        elif path.startswith("bneck_encoder2D/"):
+            out.append((path, 2 * n * math.prod(bsizes[path]) * taps
+                        * k[-2] * k[-1]))
+        elif path.startswith("bneck_decoder2D/"):
+            # a transposed conv: every input position meets the whole kernel
+            out.append((path, 2 * n * math.prod(flat) * taps
+                        * k[-1] * k[-2]))
+            skip = bskips[path]
+            flat = (h, w) if skip is None \
+                else bsizes[f"bneck_encoder2D/{skip}"]
         elif path.startswith("encoder3D/"):
             spatial = sizes[path]
             out.append((path, 2 * n * math.prod(spatial) * taps
@@ -85,6 +110,15 @@ def emission_bytes(config: dict, hw, n: int = 1, elem: int = BF16_BYTES
 def _feature_channels(config: dict) -> int:
     ch = config["enc2d_channels"]
     return ch[-1] if config["encoder2d"] == "plain" else ch[0]
+
+
+def corr_softargmax_bytes(config: dict, hw, n: int = 1,
+                          elem: int = BF16_BYTES) -> int:
+    """`redtail_torch::corr_cost_volume`'s soft-argmax epilogue: two (N,
+    H', W', C) maps read, the (N, H', W') fp32 map written."""
+    h2, w2 = half_hw(hw)
+    c = _feature_channels(config)
+    return 2 * n * h2 * w2 * c * elem + n * h2 * w2 * FP32_BYTES
 
 
 def concat_bytes(config: dict, hw, n: int, elem: int = BF16_BYTES) -> int:

@@ -7,7 +7,12 @@ Weights: He-init (std sqrt(2 / fan in), fan in the kernel's size over
 every axis but the last, as the program's own initializer counts it),
 conditioned as a trained network is: biases drawn at 0.1, the residual
 branches' second conv and the feature head scaled by 0.3, so the cost
-volume stays O(1) and the soft-argmin is not saturated.
+volume stays O(1) and the soft-argmin is not saturated. The correlation
+family's last transposed conv (its ``bneck_dec`` entry with no skip) is
+scaled by 0.1, so the sigmoid it feeds is not saturated either: at plain
+He-init 87-88% of a 321x1025 pair's pixels read under 0.01 or over 0.99
+there (the reference on an H100), so their disparity says little of the
+net; at 0.1, 1.4-3.2%.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from portbench.reference.stereo import layer_table
 BIAS_STD = 0.1
 DAMPED = ("res_conv2", "encoder2D_out")
 DAMPING = 0.3
+SIGMOID_DAMPING = 0.1
 SEED_MOD = 2 ** 63
 
 
@@ -37,10 +43,14 @@ def make_weights(config: dict, g: torch.Generator, device) -> Dict:
     network: one draw on the device, scaled per leaf, one copy to the
     host."""
     leaves: List[Tuple[str, tuple, float]] = []
+    last = {f"bneck_decoder2D/{name}"
+            for name, _c, skip in config.get("bneck_dec", ()) if skip is None}
     for path, kshape, bshape in layer_table(config):
         std = math.sqrt(2.0 / math.prod(kshape[:-1]))
         if path.endswith(DAMPED):
             std *= DAMPING
+        elif path in last:
+            std *= SIGMOID_DAMPING
         leaves.append((f"{path}/weights", kshape, std))
         leaves.append((f"{path}/biases", bshape, BIAS_STD))
     sizes = torch.tensor([math.prod(s) for _p, s, _ in leaves])

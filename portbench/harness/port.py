@@ -8,6 +8,7 @@ imports the program.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Dict
 
 import torch
@@ -28,18 +29,29 @@ BETA1 = 0.9  # Adam's first-moment decay, torch's default and optax's
 
 
 def port_spec(config: dict):
-    """The program's `StereoSpec` of the configuration; where the file
-    names a published spec (``port_spec``), the two must be equal."""
+    """The program's `StereoSpec` of the configuration (the correlation
+    family's ``corr``, ``bneck_channels`` and ``bneck_dec`` passed through
+    under `StereoSpec`'s own names); where the file names a published spec
+    (``port_spec``), the two networks must be equal at the file's input
+    size (a spec's ``input_hw`` is the size it shipped at; any works)."""
     spec = StereoSpec(
         name=config["model"], input_hw=tuple(config["input_hw"]),
         max_disp=config["max_disp"], encoder2d=config["encoder2d"],
         enc2d_channels=tuple(config["enc2d_channels"]),
         enc3d=tuple(Conv3dLayer(n, c, s) for n, c, s in config["enc3d"]),
-        dec3d=tuple((n, c, s) for n, c, s in config["dec3d"]))
+        dec3d=tuple((n, c, s) for n, c, s in config["dec3d"]),
+        corr=bool(config.get("corr", False)),
+        bneck_channels=tuple(tuple(layer) for layer
+                             in config.get("bneck_channels", ())),
+        bneck_dec=tuple(tuple(layer) for layer in config.get("bneck_dec",
+                                                             ())))
     published = config.get("port_spec")
-    if published is not None and STEREO_SPECS[published] != spec:
-        raise ValueError(f"the configuration's network differs from the "
-                         f"program's '{published}': {STEREO_SPECS[published]}")
+    if published is not None:
+        want = dataclasses.replace(STEREO_SPECS[published],
+                                   input_hw=spec.input_hw)
+        if want != spec:
+            raise ValueError(f"the configuration's network differs from "
+                             f"the program's '{published}': {want}")
     return spec
 
 

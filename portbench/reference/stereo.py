@@ -1,11 +1,30 @@
-"""Plain PyTorch reference of the concat-volume 3D stereo nets (NVSmall,
-NVTiny, ResNet-18 3D of NVIDIA-AI-IOT/redtail's stereoDNN), their
-smooth-L1 loss and an Adam update.
+"""Plain PyTorch reference of NVIDIA-AI-IOT/redtail's stereoDNN nets: the
+concat-volume 3D nets (NVSmall, NVTiny, ResNet-18 3D) and the correlation
+net ResNet18-2D; their smooth-L1 loss and an Adam update.
 
-Written from the published network description alone, in float32 with
-TF32 off: TF-SAME convolutions and transposed convolutions, ELU, the
-concat cost volume at half resolution, the 3D encoder / decoder with skip
-additions and the soft-argmin over the full-resolution disparity axis.
+Written from the published network descriptions alone, in float32 with
+TF32 off: TF-SAME convolutions and transposed convolutions, ELU, the 2D
+towers (plain, or ResNet-18's residual blocks), then one of two heads.
+
+- The 3D head (``enc3d`` / ``dec3d``): the concat cost volume at half
+  resolution, the 3D encoder / decoder with skip additions and the
+  soft-argmin over the full-resolution disparity axis.
+- The correlation head (``"corr": true``; `resnet18_2D_513x257_net.cpp`):
+  the correlation of the two towers' maps at half resolution, ``c[d](y,
+  x) = sum over channels of fl(y, x) fr(y, x - d)``, zero where x < d,
+  for d < max_disp; its soft-argmax over D (the softmax of +c, then the
+  expected index); that map joined after the left tower's conv1
+  activation; the 2D bottleneck (``bneck_channels``: TF-SAME 3x3 convs
+  with ELU; ``bneck_dec``: stride-2 transposed convs cropped as
+  `deconv` crops, ELU(deconv + skip) where there is a skip, the last to
+  (H, W) with no ELU); a sigmoid. Departures from the published net: the
+  sigmoid is multiplied by the configuration's input width, so the output
+  is in pixels as the 3D nets' is (the published net leaves it in [0, 1]
+  and its sample app multiplies it out); the correlation and soft-argmax
+  are written as one product-sum per disparity and a softmax in float32,
+  where the published net runs a cost-volume plugin and a separate
+  softmax layer.
+
 The layer table comes from the configuration file (`configs/*.json`), the
 weights from the nested HWIO / DHWIO numpy dict the benchmark made.
 
@@ -14,7 +33,8 @@ rounded to float8 e4m3 with a per-tensor scale (the tensor's largest
 magnitude mapped to e4m3's largest finite value), and the gradients
 through those points to e5m2: the step below bf16 that a faster serving
 or training path would take, at the points where the program rounds to
-bf16.
+bf16. The correlation, its soft-argmax and the sigmoid run in float32 on
+the rounded maps, as the program runs them.
 
 Imports nothing of the measured program.
 """
@@ -35,7 +55,7 @@ E5M2_MAX = 57344.0
 
 def layer_table(config: dict) -> List[Tuple[str, tuple, tuple]]:
     """(path, kernel shape HWIO / DHWIO, bias shape) of every layer; a
-    transposed conv's kernel is (kd, kh, kw, its output, its input)."""
+    transposed conv's kernel is ([kd,] kh, kw, its output, its input)."""
     out = []
     ch = config["enc2d_channels"]
     if config["encoder2d"] == "plain":
@@ -61,6 +81,16 @@ def layer_table(config: dict) -> List[Tuple[str, tuple, tuple]]:
     for name, c_out, _skip in config["dec3d"]:
         out.append((f"decoder3D/{name}", (3, 3, 3, c_out, c_in), (c_out,)))
         c_in = c_out
+    if config.get("corr"):
+        c_in = 1 + ch[0]  # the soft-argmax map and the left conv1 activation
+        for name, c_out, _stride in config["bneck_channels"]:
+            out.append((f"bneck_encoder2D/{name}", (3, 3, c_in, c_out),
+                        (c_out,)))
+            c_in = c_out
+        for name, c_out, _skip in config["bneck_dec"]:
+            out.append((f"bneck_decoder2D/{name}", (3, 3, c_out, c_in),
+                        (c_out,)))
+            c_in = c_out
     return out
 
 
@@ -130,10 +160,10 @@ def conv(x, w, b, stride: int, precision: str):
 
 
 def deconv(x, w, b, out_spatial: Sequence[int], precision: str):
-    """TF SAME ``conv3d_transpose``, stride 2: the transposed conv cropped
-    at the forward conv's low pad to ``out_spatial``."""
-    y = F.conv_transpose3d(_round(x, precision), _round(w, precision),
-                           stride=2)
+    """TF SAME ``conv{2,3}d_transpose``, stride 2: the transposed conv
+    cropped at the forward conv's low pad to ``out_spatial``."""
+    fn = F.conv_transpose3d if x.dim() == 5 else F.conv_transpose2d
+    y = fn(_round(x, precision), _round(w, precision), stride=2)
     crop = []
     for size, full, k in zip(out_spatial, y.shape[2:], w.shape[2:]):
         lo = same_pads(size, k, 2)[0]
@@ -142,7 +172,7 @@ def deconv(x, w, b, out_spatial: Sequence[int], precision: str):
                              f"{tuple(x.shape[2:])}")
         crop.append(slice(lo, lo + size))
     y = y[(slice(None), slice(None), *crop)]
-    return _round(y + b.reshape(-1, 1, 1, 1), precision)
+    return _round(y + b.reshape(-1, *[1] * (y.dim() - 2)), precision)
 
 
 def cost_volume(fl: torch.Tensor, fr: torch.Tensor, d: int) -> torch.Tensor:
@@ -154,6 +184,25 @@ def cost_volume(fl: torch.Tensor, fr: torch.Tensor, d: int) -> torch.Tensor:
         vol[:, :c, i] = fl
         vol[:, c:, i, :, i:] = fr[..., :w - i]
     return vol
+
+
+def correlation(fl: torch.Tensor, fr: torch.Tensor, d: int) -> torch.Tensor:
+    """(N, C, H, W) x2 -> (N, D, H, W): slice i holds the sum over channels
+    of the left map times the right map shifted right by i (zero where
+    x < i)."""
+    n, _c, h, w = fl.shape
+    vol = fl.new_zeros((n, d, h, w))
+    for i in range(min(d, w)):
+        vol[:, i, :, i:] = (fl[..., i:] * fr[..., :w - i]).sum(1)
+    return vol
+
+
+def soft_argmax(vol: torch.Tensor) -> torch.Tensor:
+    """(N, D, H, W) -> (N, H, W): the expected index under the softmax of
+    the volume over D."""
+    prob = torch.softmax(vol, dim=1)
+    idx = torch.arange(vol.shape[1], dtype=prob.dtype, device=prob.device)
+    return (prob * idx.reshape(1, -1, 1, 1)).sum(1)
 
 
 def forward(p: Dict[str, torch.Tensor], config: dict, left: torch.Tensor,
@@ -173,7 +222,7 @@ def _forward(p, config, left, right, precision):
         return conv(x, p[f"{path}/weights"], p[f"{path}/biases"], stride,
                     precision)
 
-    x = F.elu(c2(x, "encoder2D/conv1", 2))
+    x = stem = F.elu(c2(x, "encoder2D/conv1", 2))
     if config["encoder2d"] == "plain":
         for i in range(2, len(config["enc2d_channels"])):
             x = F.elu(c2(x, f"encoder2D/conv{i}"))
@@ -185,6 +234,9 @@ def _forward(p, config, left, right, precision):
                          f"{blk}/res_conv2") + x)
         x = c2(x, "encoder2D/encoder2D_out")
     d = config["max_disp"]
+    if config.get("corr"):
+        return _corr_head(p, c2, config, stem[:n], x[:n], x[n:], (h, w),
+                          precision)
     x = cost_volume(x[:n], x[n:], d)
     acts = {}
     for name, _c, stride in config["enc3d"]:
@@ -198,9 +250,29 @@ def _forward(p, config, left, right, precision):
         else:
             s = acts[skip]
             x = F.elu(deconv(x, wt, b, s.shape[2:], precision) + s)
-    prob = torch.softmax(-x[:, 0], dim=1)
-    idx = torch.arange(2 * d, dtype=prob.dtype, device=prob.device)
-    return (prob * idx.reshape(1, -1, 1, 1)).sum(1)
+    return soft_argmax(-x[:, 0])
+
+
+def _corr_head(p, c2, config, conv1_left, fl, fr, hw, precision):
+    """The correlation head: the left conv1 activation and the towers'
+    maps -> (N, H, W) disparity in pixels: the sigmoid times the width the
+    configuration states (a training crop's too, as the net is trained to
+    give a fraction of its deployed width)."""
+    disp = soft_argmax(correlation(fl, fr, config["max_disp"]))
+    x = torch.cat([conv1_left, disp[:, None]], dim=1)
+    acts = {}
+    for name, _c, stride in config["bneck_channels"]:
+        x = F.elu(c2(x, f"bneck_encoder2D/{name}", stride))
+        acts[name] = x
+    for name, _c, skip in config["bneck_dec"]:
+        path = f"bneck_decoder2D/{name}"
+        wt, b = p[f"{path}/weights"], p[f"{path}/biases"]
+        if skip is None:
+            x = deconv(x, wt, b, hw, precision)
+        else:
+            s = acts[skip]
+            x = F.elu(deconv(x, wt, b, s.shape[2:], precision) + s)
+    return torch.sigmoid(x[:, 0]) * config["input_hw"][1]
 
 
 def frames_to_rgb(x_u8: torch.Tensor) -> torch.Tensor:

@@ -51,6 +51,23 @@ def test_names_units_and_keys():
     assert "setup_s" in {m["name"] for m in BENCH["end_to_end"]}
 
 
+def test_entries_keep_their_limits():
+    """One-line texts of 1 to 200 characters; a (configuration, traffic)
+    pair once; a configuration file each; 1 or 4 chips."""
+    texts = [e["why"] for k in ("configs", "workloads") for e in BENCH[k]]
+    texts += [m["layer"] for m in BENCH["per_layer"]]
+    texts += [c["source"] for c in BENCH["configs"]]
+    assert all(1 <= len(t) <= 200 and "\n" not in t and "\t" not in t
+               for t in texts)
+    pairs = [(w["config"], w["traffic"]) for w in BENCH["workloads"]]
+    assert len(set(pairs)) == len(pairs)
+    files = [c["file"] for c in BENCH["configs"]]
+    assert len(set(files)) == len(files)
+    assert {w["config"] for w in BENCH["workloads"]} == \
+        {c["name"] for c in BENCH["configs"]}
+    assert all(w["chips"] in (1, 4) for w in BENCH["workloads"])
+
+
 @pytest.mark.parametrize("name", CELLS)
 def test_cell_loads_by_name(name):
     cell = C.load_cell(name)

@@ -20,9 +20,10 @@ def run(name, **hooks):
                       hooks=hooks)
 
 
-def test_sound_runs_are_correct():
-    for name in ("nvsmall.serve", "resnet18_3d.train"):
-        assert run(name)["correct"]
+@pytest.mark.parametrize("name", ["nvsmall.serve", "nvsmall.serve.packed",
+                                  "resnet18_3d.train"])
+def test_sound_runs_are_correct(name):
+    assert run(name)["correct"]
 
 
 def halved(out):
@@ -46,8 +47,11 @@ def stale_results():
     return results
 
 
+SERVED = ["nvsmall.serve", "resnet18_3d.serve", "nvsmall.serve.packed"]
+
+
 @pytest.mark.parametrize("fault", ["altered", "stale"])
-@pytest.mark.parametrize("name", ["nvsmall.serve", "resnet18_3d.serve"])
+@pytest.mark.parametrize("name", SERVED)
 def test_served_faults_fail(name, fault):
     results = halved if fault == "altered" else stale_results()
     r = run(name, results=results)
@@ -81,8 +85,7 @@ def test_train_faults_fail(fault):
         assert r["numbers"]["change_gap"] == pytest.approx(1.0)
 
 
-@pytest.mark.parametrize("name", ["nvsmall.serve", "resnet18_3d.serve",
-                                  "resnet18_3d.train"])
+@pytest.mark.parametrize("name", SERVED + ["resnet18_3d.train"])
 def test_control_reads_above_the_program(name):
     """At this size each of the cell's controls (`limits/<cell>.json`: the
     fp8 reference in the node's place and the program's int8 rung for
@@ -109,9 +112,7 @@ def test_control_reads_above_the_program(name):
                 1.5 * sound["mean_abs_px"], control
 
 
-CONTROLS = [(name, control) for name in ("nvsmall.serve",
-                                         "resnet18_3d.serve",
-                                         "resnet18_3d.train")
+CONTROLS = [(name, control) for name in SERVED + ["resnet18_3d.train"]
             for control in C.load_cell(name).limits["controls"]]
 
 

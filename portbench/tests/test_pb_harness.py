@@ -43,7 +43,8 @@ def drive(monkeypatch, capsys, name, trace):
     return rc, out.out.strip().splitlines()[-1], out.err
 
 
-@pytest.mark.parametrize("name", ["nvsmall.serve", "resnet18_3d.train"])
+@pytest.mark.parametrize("name", ["nvsmall.serve", "nvsmall.serve.packed",
+                                  "resnet18_3d.train"])
 @pytest.mark.parametrize("trace", [0, 1])
 def test_last_line(monkeypatch, capsys, name, trace):
     rc, last, err = drive(monkeypatch, capsys, name, trace)

@@ -1,7 +1,8 @@
 """The plain reference against the program's CPU path at a small size:
-both configurations' served forwards (uint8 frames in, as `StereoNode`
-takes them) and one train step, in float32 where the two must agree to
-rounding."""
+each serving cell's forward under its configuration's head, and the
+correlation family's (ResNet18-2D, which has no cell yet) through the same
+node (uint8 frames in, as `StereoNode` takes them), and one train step of
+each family, in float32 where the two must agree to rounding."""
 
 import numpy as np
 import pytest
@@ -9,13 +10,23 @@ import torch
 
 from portbench.harness import data, port
 from portbench.reference import stereo as ref
-from portbench.tests.tiny import TRAIN, tiny_cell
+from portbench.tests.tiny import TRAIN, tiny_cell, tiny_corr_config
 
-CELLS = ("nvsmall.serve", "resnet18_3d.serve")
+CORR = "resnet18_2d"  # the correlation family, served as NVSmall's cell is
+CELLS = ("nvsmall.serve", "resnet18_3d.serve", "nvsmall.serve.packed",
+         CORR)
+# bf16 against the fp32 reference, the mean gap of a frame in pixels: the
+# correlation net's output is its sigmoid carried in bf16, times the width
+# (0.25 px steps at the ~46 px it reads here; it reads 0.12-0.14 px)
+BF16_MEAN_GAP = {CORR: 0.5}
 
 
 def _setup(name, seed=2 ** 31 + 11):
-    cell = tiny_cell(name)
+    if name == CORR:
+        cell = tiny_cell("nvsmall.serve")
+        cell.config = tiny_corr_config()
+    else:
+        cell = tiny_cell(name)
     g = data.generator(seed, "cpu")
     tree = data.make_weights(cell.config, g, "cpu")
     return cell, g, tree
@@ -32,7 +43,8 @@ def test_served_forward_fp32(name):
     node = StereoNode(spec, tree, dtype=torch.float32, device="cpu")
     p = ref.to_torch(tree, cell.config, "cpu")
     for k in range(2):
-        got = node(left[k], right[k])
+        with port.head_context(cell.config):
+            got = node(left[k], right[k])
         want = ref.forward(p, cell.config,
                            ref.frames_to_rgb(torch.from_numpy(left[k:k + 1])),
                            ref.frames_to_rgb(torch.from_numpy(right[k:k + 1])))
@@ -49,16 +61,43 @@ def test_served_forward_bf16_near(name):
     node = port.make_node(port.port_spec(cell.config), cell.config,
                           dict(cell.traffic, overlap=0), tree, "cpu")
     p = ref.to_torch(tree, cell.config, "cpu")
-    got = node(left[0], right[0])
+    with port.head_context(cell.config):
+        got = node(left[0], right[0])
     want = ref.forward(p, cell.config,
                        ref.frames_to_rgb(torch.from_numpy(left[:1])),
                        ref.frames_to_rgb(torch.from_numpy(right[:1])))[0]
     gap = np.abs(got - want.numpy())
-    assert 0 < gap.mean() < 0.1
+    assert 0 < gap.mean() < BF16_MEAN_GAP.get(name, 0.1)
 
 
-def test_train_step_fp32():
+def test_packed_cell_runs_the_packed_head(monkeypatch):
+    """The packed configuration's node takes the program's packed 3D head
+    under `port.head_context`, and the fused one does not."""
+    from redtail_tpu_torch.models.stereo import StereoNet
+    calls = []
+    real = StereoNet._volume_head_packed
+
+    def spy(self, *args):
+        calls.append(self.spec.name)
+        return real(self, *args)
+    monkeypatch.setattr(StereoNet, "_volume_head_packed", spy)
+    for name, want in (("nvsmall.serve", 0), ("nvsmall.serve.packed", 1)):
+        cell, g, tree = _setup(name)
+        left, right, _ = data.make_frames(cell.config, cell.traffic, g,
+                                          "cpu")
+        node = port.make_node(port.port_spec(cell.config), cell.config,
+                              dict(cell.traffic, overlap=0), tree, "cpu")
+        calls.clear()
+        with port.head_context(cell.config):
+            node(left[0], right[0])
+        assert len(calls) == want, name
+
+
+@pytest.mark.parametrize("name", ["resnet18_3d.train", CORR])
+def test_train_step_fp32(name):
     cell = tiny_cell("resnet18_3d.train")
+    if name == CORR:
+        cell.config = dict(tiny_corr_config(), train=cell.config["train"])
     g = data.generator(5, "cpu")
     tree = data.make_weights(cell.config, g, "cpu")
     batches = data.make_batches(cell.config, cell.traffic, g, "cpu")
