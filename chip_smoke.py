@@ -44,6 +44,13 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
    its plain version, the route it replaces (fp32 carriers, cuDNN TF32,
    bias, rounding, ELU) and cuDNN's bf16 `F.conv3d` with the bias, with
    each route's device operations a call;
+   deconv3d_s2, the 3D decoder's transposed conv + skip + ELU, at every
+   decoder call of NVSmall, ResNet-18 3D (321x1025) and NVTiny and its
+   edges (every element within one bf16 step of the plain version's
+   transposed conv carried through the skip add and the ELU, two launches
+   bit-equal), timed at NVSmall's and ResNet-18 3D's calls beside its plain
+   version, the route it replaces and cuDNN's bf16 `F.conv_transpose3d`
+   with the bias, with each route's device operations a call;
    the corr kernel's grouped soft-argmax (groups = 2, the H-packed head's
    launch) against its plain version at ResNet18-2D's packed features at
    321x1025 ((1, 81, 513, 64), D = 48, 161 rows: a pad row; read as
@@ -442,6 +449,36 @@ K3_CASES = (("nvsmall conv3D_2", (1, 48, 161, 513, 32), 32),
 K3_TIMED = 5
 K3_LAYERS = 5  # NVSmall's stride-1 encoder layers, each one launch a frame
 R18_K3_LAYERS = 9  # ResNet-18 3D's
+# deconv3d_s2 (name, y (N, Dy, Hy, Wy, C), c_out, out (Xd, Xh, Xw)): every
+# decoder call of the served models, NVSmall's and ResNet-18 3D's at
+# 321x1025 (the first eight, timed) and NVTiny's at 161x513, then the
+# edges: batch 2, D = 1, H = 1, every output extent even (lo = 0) and odd,
+# W = 33, 40, 63, 64, 65, 70 (edge tiles alone, ragged, none), every C and
+# c_out.
+D2_CASES = (("nvsmall deconv3D_1", (1, 12, 41, 129, 128), 64, (24, 81, 257)),
+            ("nvsmall deconv3D_2", (1, 24, 81, 257, 64), 32, (48, 161, 513)),
+            ("nvsmall deconv3D_3", (1, 48, 161, 513, 32), 1, (96, 321, 1025)),
+            ("resnet18 deconv3D_1", (1, 5, 11, 33, 128), 64, (9, 21, 65)),
+            ("resnet18 deconv3D_2", (1, 9, 21, 65, 64), 64, (17, 41, 129)),
+            ("resnet18 deconv3D_3", (1, 17, 41, 129, 64), 64, (34, 81, 257)),
+            ("resnet18 deconv3D_4", (1, 34, 81, 257, 64), 32,
+             (68, 161, 513)),
+            ("resnet18 deconv3D_5", (1, 68, 161, 513, 32), 1,
+             (136, 321, 1025)),
+            ("nvtiny deconv3D_1", (1, 6, 21, 65, 64), 32, (12, 41, 129)),
+            ("nvtiny deconv3D_2", (1, 12, 41, 129, 32), 16, (24, 81, 257)),
+            ("nvtiny deconv3D_3", (1, 24, 81, 257, 16), 1, (48, 161, 513)),
+            ("N=2 even W=64", (2, 3, 5, 64, 32), 32, (6, 10, 128)),
+            ("D=1 W=63", (1, 1, 4, 63, 64), 16, (1, 7, 126)),
+            ("C=16 c_out=64", (1, 2, 6, 65, 16), 64, (4, 11, 129)),
+            ("C=128 c_out=16 N=2", (2, 2, 3, 33, 128), 16, (3, 6, 65)),
+            ("H=1 W=70", (1, 2, 1, 70, 32), 32, (3, 2, 139)),
+            ("c_out=1 C=64", (1, 3, 9, 65, 64), 1, (6, 17, 130)),
+            ("c_out=1 C=128 N=2", (2, 2, 5, 40, 128), 1, (4, 9, 79)),
+            ("c_out=1 C=16 even", (1, 4, 8, 64, 16), 1, (8, 16, 128)))
+D2_TIMED = 8
+D2_LAYERS = 3  # NVSmall's decoder layers, each one launch a frame
+R18_D2_LAYERS = 5  # ResNet-18 3D's
 # The corr kernel's grouped soft-argmax (name, (N, Hp, W, G * C) packed
 # features, D, original rows, read as channel slices): ResNet18-2D's
 # H-packed towers at 321x1025 first (161 rows in 81 slots, the last slot's
@@ -1329,6 +1366,131 @@ def phase_conv3d_k3(torch, k3, conv, gen):
     return entry
 
 
+def _d2_inputs(torch, gen, yshape, c_out, out, d2):
+    """y (bf16 NDHWC), the layer's fp32 carrier of bf16 weights (C, c_out,
+    3, 3, 3), its kernel form, an fp32 bias and a bf16 skip (None where
+    c_out = 1): outputs O(1), about half through the ELU's negative
+    branch."""
+    c = yshape[-1]
+    y = _randn(torch, gen, yshape, torch.bfloat16)
+    w = (torch.randn((c, c_out, 3, 3, 3), generator=gen, device="cuda")
+         * (8 * c) ** -0.5).bfloat16().float()
+    skip = None if c_out == 1 else (
+        0.5 * _randn(torch, gen, (yshape[0], *out, c_out), torch.float32)
+    ).bfloat16()
+    return y, w, d2.kernel_weights(w), 0.3 * _randn(
+        torch, gen, (c_out,), torch.float32), skip
+
+
+def d2_step_ok(torch, d2, got, y, kt, bias, skip, out) -> bool:
+    """Every element of the transposed conv kernel's output within one bf16
+    step of the plain version's, with one step of the rounded transposed
+    conv v (an fp32 sum that straddles a rounding boundary rounds one step
+    off) carried through the skip add (u = v + skip, rounded: that step
+    and one of u) and the ELU (times exp(u) where u < 0), plus the fp32
+    order's allowance (`k3_step_ok`, extended through the skip add)."""
+    v = d2.deconv3d_s2_plain(y, kt, bias, None, out).float()
+    u = v if skip is None else (v + skip.float()).bfloat16().float()
+    want = (u if skip is None else torch.nn.functional.elu(u)
+            ).bfloat16().float()
+
+    def step(a):
+        return torch.exp2(torch.floor(torch.log2(
+            a.abs().clamp_min(2.0 ** -126))) - 7)
+
+    g = got.float()
+    carried = torch.zeros_like(v) if skip is None else (
+        (step(v) + step(u)) * torch.where(u > 0, torch.ones_like(u),
+                                          torch.exp(u)))
+    tol = step(torch.maximum(g.abs(), want.abs())) + FP32_ATOL + carried
+    return bool(((g - want).abs() <= tol).all())
+
+
+def phase_deconv3d_s2(torch, d2, conv, gen):
+    """The 3D decoder's transposed conv kernel against its plain version at
+    every case; then timed at NVSmall's and ResNet-18 3D's decoder calls
+    beside its plain version, the route it replaces (``elu(
+    conv3d_transpose_ncdhw(...) + skip)`` on the layer's fp32 carriers, as
+    the decoder ran it) and cuDNN's bf16 `F.conv_transpose3d` with the bias
+    (the library yardstick), with the device operations one call of each
+    route launches."""
+    for name, yshape, c_out, out in D2_CASES:
+        y, _, kt, bias, skip = _d2_inputs(torch, gen, yshape, c_out, out, d2)
+        got = d2.deconv3d_s2(y, kt, bias, skip, out)
+        torch.cuda.synchronize()
+        want = d2.deconv3d_s2_plain(y, kt, bias, skip, out)
+        check(got.shape == want.shape == (yshape[0], *out, c_out)
+              and got.dtype == torch.bfloat16,
+              f"deconv3d_s2 {name}: {got.shape} {got.dtype}")
+        err = (got.float() - want.float()).abs().max().item()
+        differ = (got != want).float().mean().item()
+        check(d2_step_ok(torch, d2, got, y, kt, bias, skip, out),
+              f"deconv3d_s2 {name}: more than one bf16 step of the "
+              f"transposed conv, carried through the skip add and the ELU, "
+              f"+ {FP32_ATOL} off (max abs err {err})")
+        check(differ < 0.05, f"deconv3d_s2 {name}: {differ:.3f} of the "
+              f"outputs differ from the plain version")
+        check(torch.equal(d2.deconv3d_s2(y, kt, bias, skip, out), got),
+              f"deconv3d_s2 {name}: two launches differ")
+        neg = (want < 0).float().mean().item()
+        print(f"deconv3d_s2 {name:20s} {str(yshape):24s} c_out={c_out:<3d} "
+              f"out={out} max_abs_err={err:.3e} (tol 1 bf16 step of the "
+              f"transposed conv through the skip add and the ELU + "
+              f"{FP32_ATOL}), {differ:.4f} of outputs differ, {neg:.2f} "
+              f"negative, repeats bit for bit")
+        del got, want, y, kt, skip
+
+    entry = {"name": "deconv3d_s2", "route": "cuda",
+             "source": "redtail_tpu_torch/csrc/deconv3d_s2.cu",
+             "replaces": "none (JAX leaves the 3D transposed convs to XLA)",
+             "launches": None, "calls": {}}
+    ncdhw = (0, 4, 1, 2, 3)
+    for name, yshape, c_out, out in D2_CASES[:D2_TIMED]:
+        y, w, kt, bias, skip = _d2_inputs(torch, gen, yshape, c_out, out,
+                                          d2)
+        n, d, h, wd, c = yshape
+        yv = y.permute(*ncdhw)                  # the layer's NCDHW views
+        sv = None if skip is None else skip.permute(*ncdhw)
+        wl = w.bfloat16().contiguous(memory_format=torch.channels_last_3d)
+        bl = bias.bfloat16()
+        lo = tuple(2 * a - x for a, x in zip((d, h, wd), out))
+        routes = {
+            "kernel": lambda: d2.deconv3d_s2(y, kt, bias, skip, out),
+            "replaced": lambda: conv.deconv3d_s2_ncdhw(yv, w, bias, sv,
+                                                       out_spatial=out),
+            "library": lambda: torch.nn.functional.conv_transpose3d(
+                yv, wl, bl, stride=2, padding=lo)[
+                    ..., :out[0], :out[1], :out[2]]}
+        ops = {route: device_ops(torch, routes[route])
+               for route in ("replaced", "library")}
+        before = d2.deconv3d_s2.launches
+        routes["kernel"]()
+        ops["kernel"] = d2.deconv3d_s2.launches - before
+        outs = n * out[0] * out[1] * out[2] * c_out
+        nbytes = 2 * (y.numel() + kt.numel() + outs
+                      + (0 if skip is None else skip.numel())) + 4 * c_out
+        timed = time_kernel(
+            torch, f"deconv3d_s2 {name} at {yshape} c_out={c_out} bf16",
+            routes["kernel"],
+            lambda: d2.deconv3d_s2_plain(y, kt, bias, skip, out), nbytes,
+            2 * 27 * c * c_out * n * d * h * wd, library=routes["library"],
+            peak_flops=PEAK_BF16_FLOPS)
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        timed["replaced_ms"] = cuda_ms(torch, routes["replaced"], flush,
+                                       hold=PLAIN_HOLD_CYCLES,
+                                       label=f"deconv3d_s2 {name} replaced")
+        timed["device_ops"] = ops
+        print(f"deconv3d_s2 {name}: the route it replaces (fp32 carriers, "
+              f"cuDNN TF32 dgrad, crop, bias, rounding, skip add, ELU) "
+              f"{timed['replaced_ms']:.4f} ms; device operations a call: "
+              f"{ops}")
+        entry["calls"][name] = {key: timed[key] for key in (
+            "ms", "plain_ms", "replaced_ms", "library_ms", "bound_ms",
+            "bound_by", "bound_share", "device_ops")}
+        del y, w, kt, skip, yv, sv, wl, flush
+    return entry
+
+
 def phase_slice(np, torch, models, s2d, lowerings):
     """The models on the card against the same models on the CPU, under
     each lowering (``lowerings``: name -> context manager). Under the
@@ -1660,6 +1822,9 @@ def phase_serve_3d(np, torch, models, nodes, counters, plain_lowering,
     check(counts["conv3d_k3"] == K3_LAYERS * SERVE_FRAMES,
           f"the encoder's conv + ELU kernel launched {counts['conv3d_k3']} "
           f"times for {SERVE_FRAMES} frames")
+    check(counts["deconv3d_s2"] == D2_LAYERS * SERVE_FRAMES,
+          f"the decoder's transposed conv kernel launched "
+          f"{counts['deconv3d_s2']} times for {SERVE_FRAMES} frames")
     trace_frames(torch, node, frames[:3], med)
     layer_breakdown(torch, node, frames[0], "nvsmall fused")
 
@@ -1675,6 +1840,9 @@ def phase_serve_3d(np, torch, models, nodes, counters, plain_lowering,
     check(plain_counts["conv3d_k3"] == K3_LAYERS,
           f"the plain lowering launched the encoder's kernel "
           f"{plain_counts['conv3d_k3']} times for one frame")
+    check(plain_counts["deconv3d_s2"] == D2_LAYERS,
+          f"the plain lowering launched the decoder's kernel "
+          f"{plain_counts['deconv3d_s2']} times for one frame")
     diff = np.abs(plain_out[0] - fused_out[0])
     print(f"nvsmall plain vs fused lowering, same frame, bf16: mean abs diff "
           f"{diff.mean():.4e} px (gate {LOWERINGS_MEAN}), max "
@@ -1696,6 +1864,9 @@ def phase_serve_3d(np, torch, models, nodes, counters, plain_lowering,
               "the packed head launched the concat kernel")
         check(packed_counts["conv3d_k3"] == 0,
               "the packed head launched the encoder's conv + ELU kernel")
+        check(packed_counts["deconv3d_s2"] == 0,
+              "the packed head launched the decoder's transposed conv "
+              "kernel")
         trace_frames(torch, node, frames[:3], packed_med)
         layer_breakdown(torch, node, frames[0], "nvsmall packed")
     diff = np.abs(np.stack(packed_out) - np.stack(fused_out))
@@ -1713,7 +1884,9 @@ def phase_serve_3d(np, torch, models, nodes, counters, plain_lowering,
                                    plain_counts["cost_volume_concat"]},
             "conv223": {"5d nvsmall packed": packed_counts["conv223"]},
             "conv3d_k3": {"5b nvsmall fused": counts["conv3d_k3"],
-                          "5c nvsmall plain": plain_counts["conv3d_k3"]}}
+                          "5c nvsmall plain": plain_counts["conv3d_k3"]},
+            "deconv3d_s2": {"5b nvsmall fused": counts["deconv3d_s2"],
+                            "5c nvsmall plain": plain_counts["deconv3d_s2"]}}
 
 
 def layer_breakdown(torch, node, frame, label):
@@ -2383,11 +2556,12 @@ def rung_setup(np, models):
 
 
 RUNG_KERNELS = {"resnet18_2d": ("corr_softargmax",),
-                "nvsmall fused": ("fused_cv_emit", "conv3d_k3"),
+                "nvsmall fused": ("fused_cv_emit", "conv3d_k3",
+                                  "deconv3d_s2"),
                 "nvsmall packed": ("conv223", "fused_cv_emit.packed")}
 # a kernel's launches a frame where not one (the int8 rung quantizes the 2D
-# stacks alone, so every fused rung keeps the encoder's bf16 convs)
-RUNG_A_FRAME = {"conv3d_k3": K3_LAYERS}
+# stacks alone, so every fused rung keeps the 3D stack's bf16 convs)
+RUNG_A_FRAME = {"conv3d_k3": K3_LAYERS, "deconv3d_s2": D2_LAYERS}
 
 
 def rung_gate(np, label, rung, got, ref, top, m):
@@ -2471,7 +2645,7 @@ def rungs_child(np, torch, models, nodes, counters, packed3d_lowering,
                     "launches": {k: counts[k] for k in (
                         "corr_softargmax", "corr_cost_volume",
                         "fused_cv_emit", "fused_cv_emit.packed", "conv223",
-                        "conv3d_k3", "cost_volume_concat")}}
+                        "conv3d_k3", "deconv3d_s2", "cost_volume_concat")}}
                 served.append((name, node, lowering, med))
     print_clocks("the rung phase's serving")
     for name, node, lowering, med in served:  # traced last: see 7b
@@ -3330,7 +3504,7 @@ ENGINES = (
     ("resnet18_2d", "resnet18_2d", FULL_HW, "bf16", "default", None,
      "conditioned", ("corr_softargmax",)),
     ("nvsmall fused", "nvsmall", FULL_HW, "bf16", "default", None, "real",
-     ("fused_cv_emit", "conv3d_k3")),
+     ("fused_cv_emit", "conv3d_k3", "deconv3d_s2")),
     ("nvsmall packed", "nvsmall", FULL_HW, "bf16", "packed", None, "real",
      ("fused_cv_emit.packed", "conv223")),
     ("nvtiny plain", "nvtiny", SLICE_3D_HW, "fp32", "plain", None,
@@ -3350,7 +3524,8 @@ COUNTER_ENTRY = {"corr_softargmax": "corr_cost_volume",
                  "fused_cv_emit": "fused_cv_emit",
                  "fused_cv_emit.packed": "fused_cv_emit",
                  "conv223": "conv223",
-                 "conv3d_k3": "conv3d_k3"}
+                 "conv3d_k3": "conv3d_k3",
+                 "deconv3d_s2": "deconv3d_s2"}
 
 
 def write_pair(np, hw, tag, seed):
@@ -3476,13 +3651,14 @@ def engine_child(payload):
     from redtail_tpu_torch.kernels import conv3d_k3 as k3
     from redtail_tpu_torch.kernels import corr_cost_volume as corr
     from redtail_tpu_torch.kernels import cost_volume_concat as concat
+    from redtail_tpu_torch.kernels import deconv3d_s2 as d2
     from redtail_tpu_torch.kernels import fused_cv_emit as emit
     from redtail_tpu_torch.runtime import StageProfiler
     from redtail_tpu_torch.runtime.layer_profiler import device_time_fn
 
     counters = (corr.corr_cost_volume, corr.corr_softargmax,
                 concat.cost_volume_concat, emit.fused_cv_emit, c223.conv223,
-                k3.conv3d_k3)
+                k3.conv3d_k3, d2.deconv3d_s2)
     device = torch.device(payload["device"])
     args = stereo_app.build_argparser().parse_args(
         [payload["model"], "--engine", payload["engine"], "--left",
@@ -3815,6 +3991,9 @@ def par_forward_gates(np, fwd, results, backend, card="cuda"):
             top = PAR_2D_BF16_MAX if corr else PAR_3D_BF16_MAX
             check(fp32 or err.max() <= top, f"{c['tag']} rank {rank}: max "
                   f"{err.max()} off the unsharded forward (gate {top}{unit})")
+            check(corr or got["deconv_launches"] == 0, f"{c['tag']} rank "
+                  f"{rank}: the decoder's transposed conv kernel launched "
+                  f"{got['deconv_launches']} times in a sharded forward")
             launched = []
             path = f"{c['tag']} {c['mode']} {backend} rank {rank}"
             if corr:
@@ -4107,14 +4286,17 @@ def phase_synth_rungs(np, torch, models, kitti, counters, card="cuda",
         check(counts["fused_cv_emit.packed"] == 1 and counts["conv223"] == 1
               and counts["fused_cv_emit"] == 4
               and counts["conv3d_k3"] == R18_K3_LAYERS
+              and counts["deconv3d_s2"] == R18_D2_LAYERS
               and counts["cost_volume_concat"] == 0,
               f"13a: launches {counts}: want the emission once a fused "
               f"rung (3), the packed emission and conv223 once (the packed "
-              f"rung), the encoder's conv + ELU once a stride-1 layer of the "
-              f"bf16 rung, the concat kernel never")
+              f"rung), the encoder's conv + ELU once a stride-1 layer and "
+              f"the decoder's transposed conv once a layer of the bf16 "
+              f"rung, the concat kernel never")
     return {"fused_cv_emit": {"13a r18 rungs": counts["fused_cv_emit"]},
             "conv223": {"13a r18 rungs": counts["conv223"]},
-            "conv3d_k3": {"13a r18 rungs": counts["conv3d_k3"]}}
+            "conv3d_k3": {"13a r18 rungs": counts["conv3d_k3"]},
+            "deconv3d_s2": {"13a r18 rungs": counts["deconv3d_s2"]}}
 
 
 def phase_synth_tools(np, torch, models, nodes, kitti, ptrain, tstereo,
@@ -4354,6 +4536,7 @@ def main() -> int:
         from redtail_tpu_torch.kernels import cost_volume_concat as concat
         from redtail_tpu_torch.kernels import conv223 as c223
         from redtail_tpu_torch.kernels import conv3d_k3 as k3
+        from redtail_tpu_torch.kernels import deconv3d_s2 as d2
         from redtail_tpu_torch.kernels import fused_cv_emit as emit
         from redtail_tpu_torch.models import trailnet
         from redtail_tpu_torch.ops import convolution as conv
@@ -4374,7 +4557,7 @@ def main() -> int:
                            f"({e})") from e
     counters = (corr.corr_cost_volume, corr.corr_softargmax,
                 concat.cost_volume_concat, emit.fused_cv_emit, c223.conv223,
-                k3.conv3d_k3)
+                k3.conv3d_k3, d2.deconv3d_s2)
     if sys.argv[1:] == [OVERLAP_CHILD]:
         overlap_child(np, torch, models, nodes, counters)
         return 0
@@ -4452,7 +4635,8 @@ def main() -> int:
                "cost_volume_concat": phase_concat(torch, concat, gen),
                "fused_cv_emit": phase_emit(torch, emit, gen),
                "conv223": phase_conv223(torch, c223, gen),
-               "conv3d_k3": phase_conv3d_k3(torch, k3, conv, gen)}
+               "conv3d_k3": phase_conv3d_k3(torch, k3, conv, gen),
+               "deconv3d_s2": phase_deconv3d_s2(torch, d2, conv, gen)}
     phase_slice(np, torch, models, space_to_depth2_np,
                 {"fused": contextlib.nullcontext, "plain": plain_lowering,
                  "packed": packed3d_lowering})
@@ -4501,7 +4685,8 @@ def main() -> int:
                               ("fused_cv_emit", "fused_cv_emit"),
                               ("fused_cv_emit.packed", "fused_cv_emit"),
                               ("conv223", "conv223"),
-                              ("conv3d_k3", "conv3d_k3")):
+                              ("conv3d_k3", "conv3d_k3"),
+                              ("deconv3d_s2", "deconv3d_s2")):
             if kernel in RUNG_KERNELS[model]:
                 by_path[entry][f"8b {name}"] = f["launches"][kernel]
     phase_quant_card_vs_cpu(np, torch, models, ptq, stereo_int8, conv, c223,

@@ -1,8 +1,10 @@
 // The bf16 implicit-GEMM pipeline shared by the stride-1 3D conv kernels
 // for Hopper (sm_90a): conv223 (`conv223.cu`, the packed head's dense
 // (2, 2, 3) conv) and conv3d_k3 (`conv3d_k3.cu`, the 3D encoder's TF-SAME
-// 3x3x3 conv with the ELU in its epilogue). One algorithm, instantiated per
-// shape class:
+// 3x3x3 conv with the ELU in its epilogue). Its pieces (the tile plan and
+// `decode`, TMA, the mbarrier ring, `ldmatrix`, the `wgmma` products) also
+// build `deconv3d_s2.cu`, the 3D decoder's transposed conv, a kernel of its
+// own. One algorithm, instantiated per shape class:
 //
 //   out[n, d, h, x, :] = epi(b + sum over td, th < T, tw < 3 of
 //                        xp[n, d + td - P, h + th - P, x + tw - 1, :]
@@ -299,6 +301,39 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16],
       "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
       "}\n"
       : F8(0), F8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d (64 x 16) += a (64 x 16) . b (16 x 16) (the transposed conv's
+// `deconv3d_s2.cu`).
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
+      "}\n"
+      : F8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d (64 x 8) += a (64 x 16) . b (16 x 8).
+__device__ __forceinline__ void wgmma_rs(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 

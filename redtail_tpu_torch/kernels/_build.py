@@ -5,18 +5,18 @@ Each `csrc/<name>.cu` exposes a plain C interface and compiles with `nvcc`
 for `sm_90a` into its own shared library under `redtail_tpu_torch/build/`
 (listed in `.gitignore`), which the kernel's wrapper loads with `ctypes`.
 The library's file name carries a hash of its source and of the headers it
-includes from `csrc/` (conv223 and conv3d_k3 share `conv_wgmma.cuh`), so an
-edited source is rebuilt and a stale library is never loaded. `build()`
-starts one `nvcc` per missing library, all at once, and waits for them
-together.
+includes from `csrc/` (conv223, conv3d_k3 and deconv3d_s2 share
+`conv_wgmma.cuh`), so an edited source is rebuilt and a stale library is
+never loaded. `build()` starts one `nvcc` per missing library, all at once,
+and waits for them together.
 
 The forward kernels are also `torch.library` custom ops (`_ops.py`), so
 `torch.export` can trace a model through them. The correlation and concat
 volumes have backward kernels of their own (`csrc/*_bwd.cu`), bound into
-`torch.autograd.Function`s by their wrappers. The emission, conv223 and
-conv3d_k3 kernels have none: `refuse_autograd` makes their wrappers raise,
-before they launch, where autograd would otherwise lose the gradients of
-everything upstream.
+`torch.autograd.Function`s by their wrappers. The emission, conv223,
+conv3d_k3 and deconv3d_s2 kernels have none: `refuse_autograd` makes their
+wrappers raise, before they launch, where autograd would otherwise lose the
+gradients of everything upstream.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
 KERNELS = ("corr_cost_volume", "cost_volume_concat", "fused_cv_emit",
-           "conv223", "conv3d_k3", "corr_cost_volume_bwd",
+           "conv223", "conv3d_k3", "deconv3d_s2", "corr_cost_volume_bwd",
            "cost_volume_concat_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

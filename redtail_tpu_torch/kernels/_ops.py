@@ -1,4 +1,4 @@
-"""The five forward kernels as `torch.library` custom ops, so `torch.export`
+"""The six forward kernels as `torch.library` custom ops, so `torch.export`
 can trace a model through them and an AOTInductor engine can call them.
 
 | op | wrapper | kernel |
@@ -8,6 +8,7 @@ can trace a model through them and an AOTInductor engine can call them.
 | `redtail_torch::fused_cv_emit(la, rb, bias, max_disp, elu, layout)` | `fused_cv_emit.fused_cv_emit` | `csrc/fused_cv_emit.cu` (``layout``: `full`, `dh_shifted`) |
 | `redtail_torch::conv223(xp, k, bias, k_layout)` | `conv223.conv223` | `csrc/conv223.cu` |
 | `redtail_torch::conv3d_k3(x, kt, bias)` | `conv3d_k3.conv3d_k3` | `csrc/conv3d_k3.cu` |
+| `redtail_torch::deconv3d_s2(y, kt, bias, skip, out_spatial)` | `deconv3d_s2.deconv3d_s2` | `csrc/deconv3d_s2.cu` |
 
 Each op has three implementations:
 
@@ -31,7 +32,8 @@ Each op also has a flop formula for `torch.utils.flop_counter`, the
 operation counts `chip_smoke.py` bounds each kernel with: the corr volume
 2 C per valid (x, d) pair (any epilogue), the concat volume none (a copy),
 the emission 4 per output of the full layout, conv223 2 x 12 C per output,
-conv3d_k3 2 x 27 C per output (its ELU not counted).
+conv3d_k3 2 x 27 C per output (its ELU not counted), deconv3d_s2 2 x 27 C
+c_out per input position (its skip add and ELU not counted).
 
 This module imports only the kernel wrappers: a process that loads an
 engine imports it (the package's `kernels/__init__.py` does) and nothing
@@ -40,7 +42,7 @@ of the models.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
@@ -49,6 +51,7 @@ from redtail_tpu_torch.kernels import conv223 as _c223
 from redtail_tpu_torch.kernels import conv3d_k3 as _k3
 from redtail_tpu_torch.kernels import corr_cost_volume as _corr
 from redtail_tpu_torch.kernels import cost_volume_concat as _concat
+from redtail_tpu_torch.kernels import deconv3d_s2 as _d2
 from redtail_tpu_torch.kernels import fused_cv_emit as _emit
 
 NAMESPACE = "redtail_torch"
@@ -129,6 +132,19 @@ def _(x, kt, bias):
     return x.new_empty((*x.shape[:4], kt.shape[3]))
 
 
+@torch.library.custom_op(f"{NAMESPACE}::deconv3d_s2", mutates_args=(),
+                         device_types=DEVICES)
+def deconv3d_s2(y: torch.Tensor, kt: torch.Tensor, bias: torch.Tensor,
+                skip: Optional[torch.Tensor],
+                out_spatial: List[int]) -> torch.Tensor:
+    return _d2._forward(y, kt, bias, skip, out_spatial)
+
+
+@deconv3d_s2.register_fake
+def _(y, kt, bias, skip, out_spatial):
+    return y.new_empty((y.shape[0], *out_spatial, bias.shape[0]))
+
+
 # ------------------------------------------------------------ flop formulas
 # Tensor arguments arrive as their shapes (`register_flop_formula`).
 
@@ -160,6 +176,13 @@ def conv3d_k3_flops(x_shape, kt_shape) -> int:
     return 2 * 27 * c * n * d * h * w * kt_shape[3]
 
 
+def deconv3d_s2_flops(y_shape, bias_shape) -> int:
+    """2 x 27 C c_out an input position: each of the 27 taps' products and
+    sums, once per input position (the transposed conv's work)."""
+    n, d, h, w, c = y_shape
+    return 2 * 27 * c * bias_shape[0] * n * d * h * w
+
+
 @register_flop_formula(torch.ops.redtail_torch.corr_cost_volume)
 def _(left_shape, right_shape, max_disp, mode, *args, out_shape=None,
       **kwargs):
@@ -186,3 +209,8 @@ def _(xp_shape, k_shape, bias_shape, k_layout, *args, out_shape=None,
 @register_flop_formula(torch.ops.redtail_torch.conv3d_k3)
 def _(x_shape, kt_shape, bias_shape, *args, out_shape=None, **kwargs):
     return conv3d_k3_flops(x_shape, kt_shape)
+
+
+@register_flop_formula(torch.ops.redtail_torch.deconv3d_s2)
+def _(y_shape, kt_shape, bias_shape, *args, out_shape=None, **kwargs):
+    return deconv3d_s2_flops(y_shape, bias_shape)

@@ -75,6 +75,8 @@ class TilePlan:
     taps: int = 2     # taps along D and along H
     chunk: int = CHUNK  # channels of a reduction chunk: 32 or 64
     rows: int = TH    # rows of a main tile: 4 or 8
+    halo_cols: int = 2  # columns staged past a tile's: 2 (3 taps along W)
+    halo_rows: int = 0  # rows staged past a tile's, once for every tap
 
     @property
     def per_plane(self) -> int:
@@ -101,24 +103,31 @@ class TilePlan:
 
 
 def plan(planes: int, hout: int, w: int, c: int, k: int, *, bn: int,
-         taps: int = 2, chunk: int = CHUNK, rows: int = TH) -> TilePlan:
+         taps: int = 2, chunk: int = CHUNK, rows: int = TH,
+         halo_cols: int = 2, halo_rows: int = 0) -> TilePlan:
     """The shared pipeline's tiling (`csrc/conv_wgmma.cuh`) of ``planes``
     output planes of ``hout`` x ``w`` pixels, C = c, K = k; a main tile is
-    ``rows`` x TW pixels (rows / 2 m64 blocks a consumer warpgroup).
+    ``rows`` x TW pixels, staged as ``rows + halo_rows`` rows of ``TW +
+    halo_cols`` columns (conv223 and conv3d_k3: rows / 2 m64 blocks a
+    consumer warpgroup, 2 halo columns, no halo row).
 
-    An edge tile stages ``edge_rows * (rem + 2)`` pixels (at most the
-    ``rows * (TW + 2)`` a main tile stages) and computes ``edge_rows *
-    rem`` outputs (at most ``rows * TW``), so at W % 64 = 1 (W = 513, 257)
-    a plane's last column is one tile of its own rather than a row of
-    64-column tiles holding one column each."""
+    An edge tile stages ``(edge_rows + halo_rows) * (rem + halo_cols)``
+    pixels (at most what a main tile stages, and at most 256 rows, TMA's
+    largest box) and computes ``edge_rows * rem`` outputs (at most ``rows
+    * TW``), so at W % 64 = 1 (W = 513, 257) a plane's last column is one
+    tile of its own rather than a row of 64-column tiles holding one
+    column each."""
     rem = w % TW
-    edge_rows = (min(rows * (TW + 2) // (rem + 2), rows * TW // rem, hout)
+    staged = (rows + halo_rows) * (TW + halo_cols)
+    edge_rows = (min(staged // (rem + halo_cols) - halo_rows,
+                     rows * TW // rem, hout, 256 - halo_rows)
                  if rem else 1)
     return TilePlan(bn=bn, n_tiles=-(-k // bn), chunks=-(-c // chunk),
                     hout=hout, row_tiles=-(-hout // rows), col_tiles=w // TW,
                     rem=rem, edge_rows=edge_rows,
                     edge_tiles=-(-hout // edge_rows) if rem else 0,
-                    planes=planes, taps=taps, chunk=chunk, rows=rows)
+                    planes=planes, taps=taps, chunk=chunk, rows=rows,
+                    halo_cols=halo_cols, halo_rows=halo_rows)
 
 
 def tile_plan(n: int, dp: int, hp: int, w: int, c: int, k: int) -> TilePlan:

@@ -109,6 +109,7 @@ from torch import nn
 from redtail_tpu_torch import resolve_device
 from redtail_tpu_torch.io.tf_checkpoint import load_checkpoint
 from redtail_tpu_torch.kernels import conv3d_k3 as K3
+from redtail_tpu_torch.kernels import deconv3d_s2 as D2
 from redtail_tpu_torch.ops.activations import elu, sigmoid
 from redtail_tpu_torch.ops import packed2d as P2
 from redtail_tpu_torch.ops import packed3d as P
@@ -118,7 +119,7 @@ from redtail_tpu_torch.ops.convolution import (
     conv3d_elu_ncdhw,
     conv3d_ncdhw,
     conv3d_transpose_dfold,
-    conv3d_transpose_ncdhw,
+    deconv3d_s2_ncdhw,
     dfold_weights,
     empty_conv_shard,
     plain_lowering,
@@ -649,16 +650,34 @@ class _FusedConv3D1(_Conv):
 
 class _ConvTranspose(_Weights):
     """TF conv{2,3}d_transpose layer, stride 2: the HWIO / DHWIO kernel
-    (I = output channels) held as PyTorch's (in, out, *k)."""
+    (I = output channels) held as PyTorch's (in, out, *k). A 3D decoder
+    layer of a frozen bf16 net (``s2``) also holds it in the form of the
+    hand-written transposed conv kernel
+    (`kernels/deconv3d_s2.py:kernel_weights`), made once at load, which
+    `forward` and `deconv_elu` pass on."""
 
-    def __init__(self, w, b, device, dtype, trainable: bool = False):
+    def __init__(self, w, b, device, dtype, trainable: bool = False,
+                 s2: bool = False):
         super().__init__(_torch_layout(w), b, device, dtype, trainable)
+        self.register_buffer(
+            "kernel_s2", D2.kernel_weights(self.weight) if s2 else None,
+            persistent=False)
 
     def forward(self, x, out_spatial):
-        conv = (conv3d_transpose_ncdhw if self.weight.dim() == 5
-                else conv2d_transpose_nchw)
-        return conv(x, self.weight, self.bias, out_spatial=out_spatial,
-                    stride=2)
+        if self.weight.dim() == 5:
+            return deconv3d_s2_ncdhw(x, self.weight, self.bias,
+                                     out_spatial=out_spatial,
+                                     kernel_s2=self.kernel_s2)
+        return conv2d_transpose_nchw(x, self.weight, self.bias,
+                                     out_spatial=out_spatial, stride=2)
+
+    def deconv_elu(self, x, out_spatial, skip):
+        """``elu(self(x, out_spatial) + skip)`` of a 3D decoder layer,
+        through the kernel where `ops.convolution.deconv3d_s2_routes`
+        holds."""
+        return deconv3d_s2_ncdhw(x, self.weight, self.bias, skip,
+                                 out_spatial=out_spatial,
+                                 kernel_s2=self.kernel_s2)
 
 
 # --------------------------------------------------------- the packed head
@@ -914,7 +933,12 @@ class StereoNet(nn.Module):
                 raise ValueError(f"{path}: kernel shape {tuple(w.shape)}, "
                                  f"spec wants {kshape}")
             if path.startswith(("bneck_decoder2D/", "decoder3D/")):
-                layer = _ConvTranspose(w, b, device, dtype, trainable)
+                # a frozen bf16 net's 3D decoder layers: their form for the
+                # transposed conv kernel, made at load
+                layer = _ConvTranspose(
+                    w, b, device, dtype, trainable,
+                    s2=path.startswith("decoder3D/") and not trainable
+                    and dtype == torch.bfloat16)
             elif path in fused and strides[path] == 1 and not trainable:
                 layer = _FusedConv3D1(w, b, device, dtype)
             else:
@@ -1223,8 +1247,8 @@ class StereoNet(nn.Module):
             with sharded_extent(extent):
                 if skip is not None:
                     sk, extent = acts[skip]
-                    x = run(name, lambda a, s_, c=layer, o=extent: elu(
-                        c(a, o) + s_), x, sk)
+                    x = run(name, lambda a, s_, c=layer, o=extent:
+                            c.deconv_elu(a, o, s_), x, sk)
                 else:
                     extent = (spec.full_max_disp, *full_hw)
                     x = run(name, lambda a, c=layer, o=extent: c(a, o), x)

@@ -79,6 +79,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from redtail_tpu_torch.kernels import conv3d_k3 as _k3
+from redtail_tpu_torch.kernels import deconv3d_s2 as _d2
 from redtail_tpu_torch.kernels._build import needs_grad
 from redtail_tpu_torch.ops.activations import elu
 from redtail_tpu_torch.ops.halo import (ShardedAxis, current_sharding,
@@ -522,6 +523,55 @@ def conv3d_transpose_ncdhw(y: torch.Tensor, w: torch.Tensor,
     """TF ``conv3d_transpose``: y (N, K, *Y), w (K, C, kd, kh, kw) ->
     (N, C, *out_spatial)."""
     return _conv_transpose(y, w, b, out_spatial, stride, padding)
+
+
+def deconv3d_s2_routes(y: torch.Tensor, w: torch.Tensor,
+                       skip: Optional[torch.Tensor], out_spatial: Sequence[int],
+                       stride: Strides, kernel_s2: Optional[torch.Tensor],
+                       padding: str = "SAME") -> bool:
+    """Whether a decoder layer's transposed conv (with ``skip``: ``elu(
+    conv3d_transpose_ncdhw(y, w, b) + skip)``) launches the hand-written
+    kernel `kernels/deconv3d_s2.py` (`deconv3d_s2_ncdhw`): CUDA bf16 y (N,
+    C, D, H, W), a 3x3x3 kernel at stride 2, TF-SAME, held in the kernel's
+    form ``kernel_s2``, each extent of y ceil(out / 2), grad required of no
+    operand, no `sharded_axis` in force, C in `deconv3d_s2.CHANNELS`, c_out
+    in `deconv3d_s2.OUT_CHANNELS`, a bf16 skip exactly where c_out > 1."""
+    c_out = w.shape[1]
+    return (kernel_s2 is not None and y.is_cuda
+            and y.dtype == torch.bfloat16 and y.dim() == 5
+            and _tuple(stride, 3) == (2, 2, 2)
+            and tuple(w.shape[2:]) == (3, 3, 3)
+            and _padding(padding) == "SAME"
+            and len(out_spatial) == 3
+            and all(-(-x // 2) == v for x, v in zip(out_spatial,
+                                                     y.shape[2:]))
+            and y.shape[1] in _d2.CHANNELS and c_out in _d2.OUT_CHANNELS
+            and (skip is None) == (c_out == 1)
+            and (skip is None or (skip.dtype == torch.bfloat16
+                                  and skip.device == y.device))
+            and not needs_grad(y, w, skip)
+            and current_sharding() is None)
+
+
+def deconv3d_s2_ncdhw(y: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                      skip: Optional[torch.Tensor] = None, *,
+                      out_spatial: Sequence[int],
+                      kernel_s2: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """A 3D decoder layer, stride 2, TF-SAME: ``elu(conv3d_transpose_ncdhw(
+    y, w, b) + skip)``, or without ``skip`` the transposed conv alone. One
+    launch of the kernel `deconv3d_s2` where `deconv3d_s2_routes` holds
+    (``kernel_s2`` is w in `deconv3d_s2.kernel_weights`' form, made at
+    load; the result an (N, c_out, *out_spatial) view of NDHWC memory),
+    else the round-once transposed conv, then the skip add and the ELU."""
+    if deconv3d_s2_routes(y, w, skip, out_spatial, 2, kernel_s2):
+        ndhwc = (0, 2, 3, 4, 1)
+        return _d2.deconv3d_s2(
+            y.permute(*ndhwc).contiguous(), kernel_s2, b,
+            None if skip is None else skip.permute(*ndhwc).contiguous(),
+            out_spatial).permute(0, 4, 1, 2, 3)
+    out = conv3d_transpose_ncdhw(y, w, b, out_spatial=out_spatial, stride=2)
+    return out if skip is None else elu(out + skip)
 
 
 def _square(strides) -> int:

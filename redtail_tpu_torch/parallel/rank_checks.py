@@ -266,18 +266,21 @@ def forward_cases(rank: int, world_size: int, cases: List[Dict],
     rank 0 runs the same net on the whole frames instead, under the same
     switches and ``lowering`` (under `plain_volume_head` where the case's
     ``mode`` is ``"disparity"``) and on the same route: with no kernel form
-    for the 3D encoder's conv + ELU, which a sharded forward never takes
-    (`ops/convolution.py:conv3d_k3_routes`); the other ranks return None.
+    for the 3D encoder's conv + ELU or the 3D decoder's transposed conv,
+    which a sharded forward never takes (`ops/convolution.py:
+    conv3d_k3_routes`, `deconv3d_s2_routes`); the other ranks return None.
     Returns the disparity (gathered), the launches in this rank of the
     correlation kernel's soft-argmax (``corr``: all; ``grouped_corr``:
     the grouped ones of the H-packed head), concat, emission (``emit``:
-    both layouts; ``packed_emit``: the dh-shifted one) and conv223
+    both layouts; ``packed_emit``: the dh-shifted one), conv223 and
+    transposed conv (``deconv``: none, a sharded forward never takes it)
     kernels, the bytes its halo exchanges received and the bytes of the
     activations they were called on, peak device memory, and the device
     time of one forward on the card (CUDA events; 0 on the CPU)."""
     from redtail_tpu_torch.kernels import conv223
     from redtail_tpu_torch.kernels import corr_cost_volume as corr
     from redtail_tpu_torch.kernels import cost_volume_concat as concat
+    from redtail_tpu_torch.kernels import deconv3d_s2
     from redtail_tpu_torch.kernels import fused_cv_emit as emit
     from redtail_tpu_torch.models.stereo import (params_from_numpy,
                                                  plain_volume_head)
@@ -292,6 +295,7 @@ def forward_cases(rank: int, world_size: int, cases: List[Dict],
                 "packed_emit_launches": (emit.fused_cv_emit,
                                          "packed_launches"),
                 "conv223_launches": (conv223.conv223, "launches"),
+                "deconv_launches": (deconv3d_s2.deconv3d_s2, "launches"),
                 "moved_bytes": (exchange, "moved"),
                 "held_bytes": (exchange, "held")}
     device = _device(device_type)
@@ -309,8 +313,9 @@ def forward_cases(rank: int, world_size: int, cases: List[Dict],
                                 dtype=dtype)
         if c.get("unsharded"):
             for layer in net.modules():
-                if getattr(layer, "kernel_kc", None) is not None:
-                    layer.kernel_kc = None
+                for form in ("kernel_kc", "kernel_s2"):
+                    if getattr(layer, form, None) is not None:
+                        setattr(layer, form, None)
 
             def fn(_, left, right, net=net, disparity=mode == "disparity"):
                 with torch.no_grad(), (plain_volume_head() if disparity

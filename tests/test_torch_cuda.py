@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel (corr volume in its three
 epilogues, concat volume, fused cost-volume assembly in both layouts, the
-packed head's dense conv223, the 3D encoder's conv + ELU) against its
+packed head's dense conv223, the 3D encoder's conv + ELU, the 3D decoder's
+transposed conv + skip + ELU) against its
 plain version, the wrappers' no-fallback rule and their refusal of
 autograd, small models served through the kernels, and TrailNet and the
 YOLO node (no kernel on their path) against the CPU, the serving runtime:
@@ -30,6 +31,7 @@ from redtail_tpu_torch.kernels import conv223 as c223
 from redtail_tpu_torch.kernels import conv3d_k3 as k3
 from redtail_tpu_torch.kernels import corr_cost_volume as corr
 from redtail_tpu_torch.kernels import cost_volume_concat as concat
+from redtail_tpu_torch.kernels import deconv3d_s2 as d2
 from redtail_tpu_torch.kernels import fused_cv_emit as emit
 from redtail_tpu_torch.io import parse_prototxt
 from redtail_tpu_torch.models import (
@@ -483,6 +485,119 @@ def test_conv3d_k3_repeats_bit_for_bit_on_card(cuda_device):
     assert torch.equal(k3.conv3d_k3(x, kt, bias), first)
 
 
+def _d2_inputs(device, yshape, c_out, out, seed=3):
+    """y, the kernel-form weights (scaled: O(1) outputs, about half
+    through the ELU's negative branch), an fp32 bias and a bf16 skip (None
+    where c_out = 1)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    c = yshape[-1]
+    y = torch.randn(yshape, generator=gen, device=device).bfloat16()
+    w = torch.randn((c, c_out, 3, 3, 3), generator=gen, device=device) \
+        * (8 * c) ** -0.5
+    bias = torch.randn(c_out, generator=gen, device=device) * 0.3
+    skip = None if c_out == 1 else (0.5 * torch.randn(
+        (yshape[0], *out, c_out), generator=gen, device=device)).bfloat16()
+    return y, d2.kernel_weights(w), bias, skip
+
+
+@pytest.mark.parametrize("name,yshape,c_out,out", chip_smoke.D2_CASES,
+                         ids=[case[0] for case in chip_smoke.D2_CASES])
+def test_deconv3d_s2_kernel_matches_plain_on_card(cuda_device, name, yshape,
+                                                  c_out, out):
+    """Every element within one bf16 step of the plain version (the
+    round-once transposed conv on fp32 carriers, the bf16 skip add and
+    ELU), that step carried through the skip add and the ELU
+    (`chip_smoke.d2_step_ok`): the fp32 sums differ in order only."""
+    y, kt, bias, skip = _d2_inputs(cuda_device, yshape, c_out, out)
+    before = d2.deconv3d_s2.launches
+    got = d2.deconv3d_s2(y, kt, bias, skip, out)
+    torch.cuda.synchronize()
+    assert d2.deconv3d_s2.launches == before + 1
+    want = d2.deconv3d_s2_plain(y, kt, bias, skip, out)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape == (yshape[0], *out, c_out)
+    assert chip_smoke.d2_step_ok(torch, d2, got, y, kt, bias, skip, out)
+    if skip is not None:
+        assert (want < 0).float().mean() > 0.2
+    # a fault in the tiling (a tap, a class's voxel, a pad, a tile's edge)
+    # moves most of the outputs it touches; the order of summation moves a
+    # few by one step
+    assert (got != want).float().mean() < 0.05
+
+
+@pytest.mark.parametrize("c", d2.CHANNELS)
+@pytest.mark.parametrize("c_out", d2.OUT_CHANNELS)
+def test_deconv3d_s2_every_width_on_card(cuda_device, c, c_out):
+    out = (5, 12, 139)
+    y, kt, bias, skip = _d2_inputs(cuda_device, (2, 3, 6, 70, c), c_out, out,
+                                   seed=c + c_out)
+    assert chip_smoke.d2_step_ok(torch, d2, d2.deconv3d_s2(
+        y, kt, bias, skip, out), y, kt, bias, skip, out)
+
+
+@pytest.mark.parametrize("case", [0, 1, 2, 6, 7], ids=lambda i:
+                         chip_smoke.D2_CASES[i][0])
+def test_deconv3d_s2_repeats_bit_for_bit_on_card(cuda_device, case):
+    _, yshape, c_out, out = chip_smoke.D2_CASES[case]
+    y, kt, bias, skip = _d2_inputs(cuda_device, yshape, c_out, out)
+    first = d2.deconv3d_s2(y, kt, bias, skip, out)
+    assert torch.equal(d2.deconv3d_s2(y, kt, bias, skip, out), first)
+
+
+def test_decoder_runs_the_deconv3d_s2_kernel_on_card(cuda_device):
+    """A bf16 NVSmall forward launches the kernel once a decoder layer,
+    within bf16 noise of the same forward on the cuDNN route; an fp32 net,
+    the packed head, a forward that needs grad and a layer under
+    `sharded_axis` launch it never."""
+    hw = (65, 129)
+    spec = dataclasses.replace(STEREO_SPECS["nvsmall"], input_hw=hw,
+                               max_disp=16)
+    params = init_stereo_params(spec, seed=0)
+    net = params_from_numpy(spec, params, device=cuda_device,
+                            dtype=torch.bfloat16)
+    rs = np.random.RandomState(1)
+    left, right = (torch.from_numpy(rs.rand(1, *hw, 3).astype(np.float32))
+                   .to(cuda_device).bfloat16() for _ in range(2))
+    before = d2.deconv3d_s2.launches
+    with torch.inference_mode():
+        got = net(left, right).float()
+    torch.cuda.synchronize()
+    assert d2.deconv3d_s2.launches == before + 3
+    routes = conv_ops.deconv3d_s2_routes
+    try:
+        conv_ops.deconv3d_s2_routes = lambda *args: False
+        with torch.inference_mode():
+            want = net(left, right).float()
+    finally:
+        conv_ops.deconv3d_s2_routes = routes
+    assert d2.deconv3d_s2.launches == before + 3
+    assert (got - want).abs().mean().item() < 0.05  # px, of a 0..32 range
+    fp32 = params_from_numpy(spec, params, device=cuda_device)
+    with torch.inference_mode():
+        fp32(left.float(), right.float())
+        with packed3d_lowering():
+            net(left, right)
+    layer = net.decoder3D["deconv3D_2"]
+    a = torch.randn((1, 8, 17, 33, 64), device=cuda_device).bfloat16()
+    a = a.permute(0, 4, 1, 2, 3).requires_grad_(True)
+    skip = torch.randn((1, 16, 33, 65, 32), device=cuda_device).bfloat16()
+    skip = skip.permute(0, 4, 1, 2, 3)
+    layer.deconv_elu(a, (16, 33, 65), skip).float().sum().backward()
+    torch.cuda.synchronize()
+    assert d2.deconv3d_s2.launches == before + 3 and a.grad is not None
+    sharding = conv_ops.current_sharding
+    try:
+        conv_ops.current_sharding = lambda: object()
+        assert not conv_ops.deconv3d_s2_routes(
+            a.detach(), layer.weight, skip, (16, 33, 65), 2,
+            layer.kernel_s2)
+    finally:
+        conv_ops.current_sharding = sharding
+    assert conv_ops.deconv3d_s2_routes(a.detach(), layer.weight, skip,
+                                       (16, 33, 65), 2, layer.kernel_s2)
+
+
 def _conv223_pinned_inputs(xshape, k_out):
     gen = torch.Generator().manual_seed(11)
     c = xshape[-1]
@@ -769,7 +884,7 @@ def test_bwd_kernels_repeat_bit_for_bit_on_card(cuda_device, form, dtype):
 
 
 def _kernel_calls(device, requires_grad):
-    """(counter, call, backward counter) of each of the five wrapper entry
+    """(counter, call, backward counter) of each of the six wrapper entry
     points on CUDA inputs that require grad (or not)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(5)
@@ -782,6 +897,8 @@ def _kernel_calls(device, requires_grad):
     la, rb, b = t(1, 3, 40, 6), t(1, 3, 40, 12), t(2)
     xp, k, kb = t(1, 3, 4, 9, 16), t(2, 2, 3, 16, 16), t(16)
     x3, kt3 = t(1, 3, 4, 9, 16).bfloat16(), t(3, 3, 3, 16, 16)
+    y2, kt2, s2 = (t(1, 2, 3, 9, 16).bfloat16(), t(27, 16, 16),
+                   t(1, 4, 6, 18, 16).bfloat16())
     return {
         "corr_cost_volume": (corr.corr_cost_volume,
                              lambda: corr.corr_cost_volume(left, right, 5),
@@ -797,10 +914,14 @@ def _kernel_calls(device, requires_grad):
                           lambda: emit.fused_cv_emit(la, rb, b, 5), None),
         "conv223": (c223.conv223, lambda: c223.conv223(xp, k, kb), None),
         "conv3d_k3": (k3.conv3d_k3,
-                      lambda: k3.conv3d_k3(x3, kt3.bfloat16(), kb), None)}
+                      lambda: k3.conv3d_k3(x3, kt3.bfloat16(), kb), None),
+        "deconv3d_s2": (d2.deconv3d_s2,
+                        lambda: d2.deconv3d_s2(y2, kt2.bfloat16(), kb, s2,
+                                               (4, 6, 18)), None)}
 
 
-@pytest.mark.parametrize("name", ["fused_cv_emit", "conv223", "conv3d_k3"])
+@pytest.mark.parametrize("name", ["fused_cv_emit", "conv223", "conv3d_k3",
+                                  "deconv3d_s2"])
 def test_kernel_wrappers_refuse_autograd_on_card(cuda_device, name):
     counter, call, _ = _kernel_calls(cuda_device, True)[name]
     before = counter.launches

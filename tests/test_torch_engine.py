@@ -1,4 +1,4 @@
-"""The five forward kernels as `torch.library` custom ops (`kernels/_ops.py`)
+"""The six forward kernels as `torch.library` custom ops (`kernels/_ops.py`)
 and what `torch.export` makes of the serving configurations, on the CPU,
 without compiling (`tests/test_torch_engine_aoti.py` compiles).
 
@@ -34,6 +34,7 @@ from redtail_tpu_torch.kernels import conv223 as c223
 from redtail_tpu_torch.kernels import conv3d_k3 as k3
 from redtail_tpu_torch.kernels import corr_cost_volume as corr
 from redtail_tpu_torch.kernels import cost_volume_concat as concat
+from redtail_tpu_torch.kernels import deconv3d_s2 as d2
 from redtail_tpu_torch.kernels import fused_cv_emit as emit
 from redtail_tpu_torch.models import (STEREO_SPECS, init_stereo_params,
                                       params_from_numpy)
@@ -151,9 +152,22 @@ def _k3_args(case, dtype, device):
             torch.randn((k_out,), device=device))
 
 
+def _d2_args(case, dtype, device):
+    _, yshape, c_out, out = case
+    n, c = yshape[0], yshape[-1]
+    kshape = (8, 8, c) if c_out == 1 else (27, c_out, c)
+    return (torch.randn(yshape, device=device).to(dtype),
+            torch.randn(kshape, device=device).to(dtype),
+            torch.randn((c_out,), device=device),
+            None if c_out == 1 else torch.randn(
+                (n, *out, c_out), device=device).to(dtype), list(out))
+
+
 def _plain(kernel, args):
     if kernel == "conv3d_k3":
         return k3.conv3d_k3_plain(*args)
+    if kernel == "deconv3d_s2":
+        return d2.deconv3d_s2_plain(*args)
     if kernel == "corr":
         left, right, d, mode = args
         if mode == "softargmax":
@@ -174,7 +188,8 @@ OP = {"corr": torch.ops.redtail_torch.corr_cost_volume,
       "concat": torch.ops.redtail_torch.cost_volume_concat,
       "emit": torch.ops.redtail_torch.fused_cv_emit,
       "conv223": torch.ops.redtail_torch.conv223,
-      "conv3d_k3": torch.ops.redtail_torch.conv3d_k3}
+      "conv3d_k3": torch.ops.redtail_torch.conv3d_k3,
+      "deconv3d_s2": torch.ops.redtail_torch.deconv3d_s2}
 EDGES = ([("corr", case, form) for case in chip_smoke.CORR_CASES
           for form in corr.MODES]
          + [("concat", case, None) for case in chip_smoke.CONCAT_CASES]
@@ -182,7 +197,8 @@ EDGES = ([("corr", case, form) for case in chip_smoke.CORR_CASES
             for form in emit.LAYOUTS]
          + [("conv223", case, form) for case in chip_smoke.CONV223_CASES
             for form in c223.K_LAYOUTS]
-         + [("conv3d_k3", case, None) for case in chip_smoke.K3_CASES])
+         + [("conv3d_k3", case, None) for case in chip_smoke.K3_CASES]
+         + [("deconv3d_s2", case, None) for case in chip_smoke.D2_CASES])
 
 
 def _args(kernel, case, form, dtype, device):
@@ -196,6 +212,8 @@ def _args(kernel, case, form, dtype, device):
         return _emit_args(case, dtype, device, form)
     if kernel == "conv3d_k3":
         return _k3_args(case, dtype, device)
+    if kernel == "deconv3d_s2":
+        return _d2_args(case, dtype, device)
     return _conv223_args(case, dtype, device, form)
 
 
@@ -230,13 +248,15 @@ def test_cpu_impl_is_the_plain_version(kernel, case, form):
     ("emit", chip_smoke.EMIT_CASES[3], "dh_shifted"),
     ("conv223", chip_smoke.CONV223_CASES[3], "ck"),
     ("conv223", chip_smoke.CONV223_CASES[3], "kc"),
-    ("conv3d_k3", chip_smoke.K3_CASES[-1], None)],
+    ("conv3d_k3", chip_smoke.K3_CASES[-1], None),
+    ("deconv3d_s2", chip_smoke.D2_CASES[-1], None),
+    ("deconv3d_s2", chip_smoke.D2_CASES[13], None)],
     ids=lambda v: v if isinstance(v, str) else None)
 def test_flop_formula_is_the_bound_count(kernel, case, form):
     """The counts `chip_smoke.py` bounds each kernel with: 2 C per valid
     (x, d) pair, none for the concat copy, 4 per full-layout output of the
     emission, 2 x 12 C per conv223 output, 2 x 27 C per conv3d_k3
-    output."""
+    output, 2 x 27 C c_out per deconv3d_s2 input position."""
     args = _args(kernel, case, form, torch.float32, "cpu")
     with FlopCounterMode(display=False) as counter:
         OP[kernel](*args)
@@ -249,6 +269,8 @@ def test_flop_formula_is_the_bound_count(kernel, case, form):
         n, h, w, k3 = args[0].shape
         want = 4 * n * args[3] * h * w * (k3 // 3)
     elif kernel == "conv3d_k3":
+        want = 2 * 27 * args[0].numel() * case[2]
+    elif kernel == "deconv3d_s2":
         want = 2 * 27 * args[0].numel() * case[2]
     else:
         n, dp, hp, w, c = args[0].shape
