@@ -51,12 +51,13 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
    bit-equal), timed at NVSmall's and ResNet-18 3D's calls beside its plain
    version, the route it replaces and cuDNN's bf16 `F.conv_transpose3d`
    with the bias, with each route's device operations a call;
-   the corr kernel's grouped soft-argmax (groups = 2, the H-packed head's
-   launch) against its plain version at ResNet18-2D's packed features at
+   the corr kernel's grouped soft-argmax (groups = 2, the launch of the
+   JAX package's H-packed head, which no model path of the port takes)
+   against its plain version at ResNet18-2D's packed features at
    321x1025 ((1, 81, 513, 64), D = 48, 161 rows: a pad row; read as
-   channel slices of the towers' map, as the head passes them) and at its
+   channel slices of the towers' map, as that head passes them) and at its
    edges (even rows, odd rows at batch 2, W = 63, 65, 513 with D = 47, 49,
-   1, C = 3) and phase 11a's two shards of the first ((1, 40, 513, 64),
+   1, C = 3) and the two-rank shards of the first ((1, 40, 513, 64),
    rows 161; (1, 41, 513, 64), rows 81), fp32 and bf16, its pad rows
    exactly 0 and each group bit for bit the ungrouped launch on that
    group's rows; timed at the main call
@@ -67,11 +68,9 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
    packed lowerings, the packed one with the D-folded final deconv on the
    card and the unpack branch on the CPU), seeded weights: card fp32
    (TF32 off) against the CPU within a stated tolerance, card bf16
-   against CPU fp32 under a stated mean; then the layout forms with the
-   same gates: ResNet18-2D at 129x257 on s2d frames under block-diagonal
-   towers, H-packed towers and H-packed towers with the H-packed head (the
-   grouped corr launch there and nowhere else), NVSmall's packed head at
-   65x129 under ``REDTAIL_TPU_MASK_FORM=mul`` and ``where``; and the 2D and
+   against CPU fp32 under a stated mean; then NVSmall's packed head at
+   65x129 under ``REDTAIL_TPU_MASK_FORM=mul`` and ``where`` with the same
+   gates; and the 2D and
    3D shuffle transposes against the dilated form on the card at
    deconv2D_3's (y (1, 161, 513, 32)) and deconv3D_3's (y (1, 48, 161,
    513, 32)) shapes, fp32 within 1e-4 and bf16 within one bf16 step;
@@ -232,13 +231,8 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
        80 / 81, conditioned random weights: mean within 1e-2 sigmoid units
        of the unsharded forward (phase 4's gate) and max within one bf16
        step at 1 (2^-8; a fault in the rows beside the shards' boundary
-       passes a mean gate); fp32 at 129x257 within 1e-4; each under the
-       default towers, the H-packed towers (``REDTAIL_TPU_HPACK2D``: 81
-       slots split 40 / 41, the shifted convs' 82 split 41 / 41) and the
-       H-packed head (``+ REDTAIL_TPU_HPACK_CORR``), beside rank 0's
-       unsharded forward under the same switches; a rank makes, a frame,
-       exactly one corr soft-argmax launch: the ungrouped one, or under
-       the H-packed head the grouped one on its own slots. NVSmall at
+       passes a mean gate); fp32 at 129x257 within 1e-4; a rank makes, a
+       frame, exactly one corr soft-argmax launch. NVSmall at
        321x1025 with the real weights, bf16 and fp32, under the fused
        head (161 feature rows split 80 / 81: the emission's full layout
        on each rank's rows) and the packed head (82 dh-shifted slots
@@ -271,24 +265,16 @@ repository, it exits non-zero and prints no result. Phases, each fatal:
     corr, concat, emission and conv223 kernels and 11 alone and ends with a
     `{"partial": true, ...}` line, not the `ok` line.
 
-12. the layout forms served (the JAX package's switches, set in this
-    process around each path), at 321x1025 in bf16 on s2d frames, 10
-    frames each, every count set to 0 just before and read just after:
-    `StereoNode` ResNet18-2D (random conditioned weights) under the
-    default towers, ``REDTAIL_TPU_FUSED_TOWERS=1`` (block-diagonal),
-    ``+ REDTAIL_TPU_HPACK2D=1`` (H-packed) and ``+ REDTAIL_TPU_HPACK_CORR=1``
-    (the H-packed head): the corr kernel's grouped soft-argmax once a frame
-    under the H-packed head and never otherwise, each form's disparity
-    within phase 4's bf16 mean (1e-2 sigmoid units) of the default path's
-    on the same frames; NVSmall's packed head (real weights) under mask
-    forms auto, mul and where, each against auto within 5d's gates (and
-    whether bit-equal); each with its median latency, device busy and idle
-    share, launches a frame and peak memory beside the card's name and
-    power limit; then deconv2D_3 at its shape timed in its dilated and
-    shuffle forms (dilated, shuffle, shuffle, dilated).
-    `python3 chip_smoke.py --forms-only` runs phases 1-2, 3's grouped corr
-    kernel, 4's layout forms and 12 alone and ends with a `{"partial":
-    true, ...}` line.
+12. the packed head's mask forms served (``REDTAIL_TPU_MASK_FORM``, the
+    JAX package's switch, set in this process around each path), at
+    321x1025 in bf16 on s2d frames, 10 frames each, every count set to 0
+    just before and read just after: `StereoNode` NVSmall (real weights)
+    under `packed3d_lowering()` with mask forms auto, mul and where, each
+    against auto within 5d's gates (and whether bit-equal), with its median
+    latency, device busy and idle share, launches a frame and peak memory
+    beside the card's name and power limit; then deconv2D_3 at its shape
+    timed in its dilated and shuffle forms (dilated, shuffle, shuffle,
+    dilated).
 
 13. the synthetic-training tools (`apps/train_r18_synth.py`,
     `apps/train_trailnet_synth.py`), each path driven with every count set
@@ -480,17 +466,17 @@ D2_TIMED = 8
 D2_LAYERS = 3  # NVSmall's decoder layers, each one launch a frame
 R18_D2_LAYERS = 5  # ResNet-18 3D's
 # The corr kernel's grouped soft-argmax (name, (N, Hp, W, G * C) packed
-# features, D, original rows, read as channel slices): ResNet18-2D's
-# H-packed towers at 321x1025 first (161 rows in 81 slots, the last slot's
-# second group a pad row; each tower's half read where it lies in the
-# towers' (1, 81, 513, 128) map, as the head passes it), then its two
-# ranks' slots under phase 11a's image sharding (slots 0-39, no pad row;
-# 40-80, rows counted from slot 40), an even row count, odd rows at batch
+# features, D, original rows, read as channel slices): the JAX package's
+# H-packed towers of ResNet18-2D at 321x1025 first (161 rows in 81 slots,
+# the last slot's second group a pad row; each tower's half read where it
+# lies in the towers' (1, 81, 513, 128) map, as its head passes it), then
+# two ranks' slots under image sharding (slots 0-39, no pad row; 40-80,
+# rows counted from slot 40), an even row count, odd rows at batch
 # 2, the warp edges W = 63, 65, 513 with D = 47, 49, 1, and C = 3 (loaded
 # element by element).
 CORR_GROUPED_CASES = (("resnet18_2d hp", (1, 81, 513, 64), 48, 161, True),
-                      ("11a rank 0", (1, 40, 513, 64), 48, 161, True),
-                      ("11a rank 1", (1, 41, 513, 64), 48, 81, True),
+                      ("rank 0 of 2", (1, 40, 513, 64), 48, 161, True),
+                      ("rank 1 of 2", (1, 41, 513, 64), 48, 81, True),
                       ("even rows", (1, 8, 65, 64), 48, 16, False),
                       ("odd rows b2", (2, 5, 37, 16), 9, 9, True),
                       ("W=63 D=47", (1, 3, 63, 64), 47, 5, True),
@@ -499,21 +485,9 @@ CORR_GROUPED_CASES = (("resnet18_2d hp", (1, 81, 513, 64), 48, 161, True),
                       ("C=3", (1, 3, 9, 6), 5, 5, False))
 GROUPS = 2
 GROUPED_ENTRY = "corr_cost_volume[softargmax, groups=2]"  # its kernels entry
-# The tower and head forms of ResNet-18 (the JAX package's switches, read
-# by the port at each call), and the packed head's mask forms.
-FORM_ENVS = {"default": {},
-             "bd": {"REDTAIL_TPU_FUSED_TOWERS": "1"},
-             "hp": {"REDTAIL_TPU_FUSED_TOWERS": "1",
-                    "REDTAIL_TPU_HPACK2D": "1"},
-             "hp+corr": {"REDTAIL_TPU_FUSED_TOWERS": "1",
-                         "REDTAIL_TPU_HPACK2D": "1",
-                         "REDTAIL_TPU_HPACK_CORR": "1"}}
+# The packed head's mask forms (``REDTAIL_TPU_MASK_FORM``, the JAX
+# package's switch, read by the port at each call).
 MASK_FORMS = ("mul", "where")
-# 12: each form's disparity against the default path's on the same bf16
-# frames, sigmoid units (px / 1025): the forms round in other places (the
-# packed convs add bias and ELU before their one rounding, as JAX's do),
-# gated at phase 4's bf16 mean for ResNet18-2D
-FORMS_2D_MEAN = 1e-2
 # deconv2D_3 of ResNet18-2D at 321x1025 (y (1, 161, 513, 32), w (3, 3, 1,
 # 32)) and deconv3D_3 of NVSmall (y (1, 48, 161, 513, 32), w (3, 3, 3, 1,
 # 32)): the shuffle transposes against the dilated one on the card
@@ -521,7 +495,6 @@ SHUFFLE_CASES = (("deconv2D_3", (1, 161, 513, 32), (3, 3, 1, 32),
                   (321, 1025)),
                  ("deconv3D_3", (1, 48, 161, 513, 32), (3, 3, 3, 1, 32),
                   (96, 321, 1025)))
-FORMS_ONLY = "--forms-only"   # phases 1-2, 3's grouped corr, 4's forms, 12
 CORR_PARENT = "--corr-parent"  # DIR: the corr kernel of an earlier tree
 FULL_HW = (321, 1025)
 SLICE_3D_HW, SLICE_3D_DISP = (65, 129), 8
@@ -871,8 +844,9 @@ def _grouped_inputs(torch, gen, shape, dtype, slices):
 
 
 def phase_corr_grouped(torch, corr, gen):
-    """The corr kernel's grouped soft-argmax (G = 2, the H-packed head's)
-    against its plain version at every grouped case, fp32 and bf16, on
+    """The corr kernel's grouped soft-argmax (G = 2, the JAX package's
+    H-packed head's launch, which no model path of the port takes) against
+    its plain version at every grouped case, fp32 and bf16, on
     inputs scaled by 1/sqrt(C); its pad rows exactly 0; each group bit for
     bit the ungrouped kernel's launch on that group's rows alone (the same
     arithmetic in the same order); then timed at the main path's call.
@@ -1531,56 +1505,58 @@ def phase_slice(np, torch, models, s2d, lowerings):
               f"CPU fp32 by mean {err16.mean()}")
 
 
-def phase_slice_forms(np, torch, models, s2d, packed3d_lowering, corr, gen):
-    """4, the layout forms, card against CPU: ResNet18-2D at 129x257 (max
-    disparity 16) on s2d frames under each tower form and NVSmall's packed
-    head at 65x129 under each mask form, seeded conditioned weights, with
-    phase 4's gates (the CPU runs the same form: its plain versions);
-    then the shuffle transposes against the dilated form on the card at
+@contextlib.contextmanager
+def mask_env(form):
+    """``REDTAIL_TPU_MASK_FORM`` set to ``form`` for the block, restored
+    after."""
+    import os
+    saved = os.environ.get("REDTAIL_TPU_MASK_FORM")
+    os.environ["REDTAIL_TPU_MASK_FORM"] = form
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("REDTAIL_TPU_MASK_FORM", None)
+        else:
+            os.environ["REDTAIL_TPU_MASK_FORM"] = saved
+
+
+def phase_slice_masks(np, torch, models, s2d, packed3d_lowering, gen):
+    """4, the packed head's mask forms and the shuffle transposes, card
+    against CPU: NVSmall's packed head at 65x129 (max disparity 8) on s2d
+    frames under each mask form, seeded conditioned weights, with phase
+    4's gates (the CPU runs the same form: its plain versions); then the
+    shuffle transposes against the dilated form on the card at
     deconv2D_3's and deconv3D_3's shapes."""
-    from redtail_tpu_torch.parallel.rank_checks import environ
-    cases = [("resnet18_2d", (129, 257), 16, form, FORM_ENVS[form], None,
-              1e-3, 1e-2, "") for form in ("bd", "hp", "hp+corr")]
-    cases += [("nvsmall", SLICE_3D_HW, SLICE_3D_DISP, f"packed {form}",
-               {"REDTAIL_TPU_MASK_FORM": form}, packed3d_lowering,
-               SLICE_3D_FP32_ATOL, SLICE_3D_BF16_MEAN, " px")
-              for form in MASK_FORMS]
-    for name, hw, max_disp, label, env, head, atol, mean_gate, unit in cases:
-        spec = dataclasses.replace(models.STEREO_SPECS[name], input_hw=hw,
-                                   max_disp=max_disp)
-        tree = conditioned_params(np, models.init_stereo_params(spec, seed=1),
-                                  2)
-        rs = np.random.RandomState(3)
-        left, right = (torch.from_numpy(s2d(rs.rand(1, *hw, 3)
-                                            .astype(np.float32)))
-                       for _ in range(2))
+    spec = dataclasses.replace(models.STEREO_SPECS["nvsmall"],
+                               input_hw=SLICE_3D_HW, max_disp=SLICE_3D_DISP)
+    tree = conditioned_params(np, models.init_stereo_params(spec, seed=1), 2)
+    rs = np.random.RandomState(3)
+    left, right = (torch.from_numpy(s2d(rs.rand(1, *SLICE_3D_HW, 3)
+                                        .astype(np.float32)))
+                   for _ in range(2))
+    for form in MASK_FORMS:
         got = {}
-        with torch.inference_mode(), environ(env), \
-                (head or contextlib.nullcontext)():
+        with torch.inference_mode(), mask_env(form), packed3d_lowering():
             ref = models.stereo_forward(spec, tree, left, right).numpy()
             for dtype in (torch.float32, torch.bfloat16):
                 net = models.params_from_numpy(spec, tree, dtype=dtype)
-                if name == "resnet18_2d":
-                    check(net._tower_form(True) == label.split("+")[0],
-                          f"{label}: the net took {net._tower_form(True)}")
-                before = corr.corr_softargmax.grouped_launches
                 got[dtype] = net(left.cuda(), right.cuda()).float().cpu() \
                     .numpy()
-                grouped = corr.corr_softargmax.grouped_launches - before
-                check(grouped == (label == "hp+corr"),
-                      f"{label}: {grouped} grouped corr launches")
         err32 = np.abs(got[torch.float32] - ref)
         err16 = np.abs(got[torch.bfloat16] - ref)
-        print(f"slice {name} {hw[0]}x{hw[1]} D={max_disp} {label}: card "
-              f"fp32 vs CPU fp32 max abs err {err32.max():.3e}{unit} (tol "
-              f"{atol}); card bf16 vs CPU fp32 mean {err16.mean():.3e}{unit} "
-              f"(gate {mean_gate}) max {err16.max():.3e}")
-        check(err32.max() <= atol, f"{name} {label}: card fp32 off CPU "
-              f"by {err32.max()}")
-        check(err16.mean() < mean_gate, f"{name} {label}: card bf16 off "
-              f"CPU fp32 by mean {err16.mean()}")
+        print(f"slice nvsmall {SLICE_3D_HW[0]}x{SLICE_3D_HW[1]} "
+              f"D={SLICE_3D_DISP} packed {form}: card fp32 vs CPU fp32 max "
+              f"abs err {err32.max():.3e} px (tol {SLICE_3D_FP32_ATOL}); "
+              f"card bf16 vs CPU fp32 mean {err16.mean():.3e} px (gate "
+              f"{SLICE_3D_BF16_MEAN}) max {err16.max():.3e}")
+        check(err32.max() <= SLICE_3D_FP32_ATOL, f"nvsmall packed {form}: "
+              f"card fp32 off CPU by {err32.max()}")
+        check(err16.mean() < SLICE_3D_BF16_MEAN, f"nvsmall packed {form}: "
+              f"card bf16 off CPU fp32 by mean {err16.mean()}")
 
     from redtail_tpu_torch.ops import convolution as conv
+    for name, yshape, wshape, out in SHUFFLE_CASES:    from redtail_tpu_torch.ops import convolution as conv
     for name, yshape, wshape, out in SHUFFLE_CASES:
         transpose = conv.conv2d_transpose if len(out) == 2 \
             else conv.conv3d_transpose
@@ -1607,61 +1583,15 @@ def phase_slice_forms(np, torch, models, s2d, packed3d_lowering, corr, gen):
             del want, got
 
 
-def forms_setup(np, models):
-    """12's ResNet18-2D (full width, random conditioned weights) and
-    frames."""
-    spec = dataclasses.replace(models.STEREO_SPECS["resnet18_2d"],
-                               input_hw=FULL_HW)
-    return (spec, conditioned_params(
-        np, models.init_stereo_params(spec, seed=0), 4),
-        stereo_frames(np, 12, SERVE_FRAMES))
-
-
-def phase_forms(np, torch, models, nodes, counters, packed3d_lowering, gen):
-    """12: the layout forms served at full width in bf16 on s2d frames,
-    each driven with every count set to 0 just before and read just after:
-    `StereoNode` ResNet18-2D under the default, block-diagonal, H-packed
-    and H-packed + H-packed head forms, NVSmall's packed head (real
-    weights) under each mask form; each form's median latency, device busy
-    and idle share, launches a frame, peak memory and its disparity's
-    distance from the default path's on the same frames; then
-    deconv2D_3 timed in its dilated and shuffle forms. Returns (the
-    grouped corr launches by path, the figures)."""
-    from redtail_tpu_torch.parallel.rank_checks import environ
+def phase_masks(np, torch, models, nodes, counters, packed3d_lowering, gen):
+    """12: NVSmall's packed head (real weights) served at full width in
+    bf16 on s2d frames under each mask form, driven with every count set to
+    0 just before and read just after: each form's median latency, device
+    busy and idle share, launches a frame, peak memory and whether its
+    disparity is bit-equal to auto's on the same frames; then deconv2D_3
+    timed in its dilated and shuffle forms. Returns the figures."""
     card = nvidia_smi("name,power.limit")
-    spec, tree, frames = forms_setup(np, models)
-    node = nodes.StereoNode(spec, tree, dtype=torch.bfloat16)
-    figures, outs, by_path = {}, {}, {}
-    for form, env in FORM_ENVS.items():
-        with environ(env):
-            label = f"12 resnet18_2d {form} 321x1025 bf16"
-            outs[form], counts, med = serve(np, torch, node, frames, counters,
-                                            FULL_HW[1], label)
-            traced = trace_frames(torch, node, frames[:3], med, table=False)
-            peak = torch.cuda.max_memory_allocated()
-        grouped = counts["corr_softargmax.grouped"]
-        want = SERVE_FRAMES if form == "hp+corr" else 0
-        check(counts["corr_softargmax"] == SERVE_FRAMES and grouped == want,
-              f"{label}: corr launches {counts['corr_softargmax']}, grouped "
-              f"{grouped}, for {SERVE_FRAMES} frames")
-        if grouped:
-            by_path[f"12 resnet18_2d {form}"] = grouped
-        diff = np.abs(np.stack(outs[form]) - np.stack(outs["default"])) \
-            / FULL_HW[1]
-        figures[form] = {"median_ms": med, "busy_ms": traced and traced[0],
-                         "launches_per_frame": traced and traced[1],
-                         "idle_share": traced and 1 - traced[0] / med,
-                         "corr_per_frame": counts["corr_softargmax"]
-                         / SERVE_FRAMES, "grouped_per_frame": grouped
-                         / SERVE_FRAMES, "peak_gib": peak / 2 ** 30,
-                         "mean_vs_default": float(diff.mean()),
-                         "max_vs_default": float(diff.max())}
-        print(f"{label} vs the default path, the same frames: mean abs "
-              f"diff {diff.mean():.4e} (gate {FORMS_2D_MEAN}), max "
-              f"{diff.max():.4e} (sigmoid units)")
-        check(diff.mean() < FORMS_2D_MEAN, f"{label}: off the default "
-              f"path by mean {diff.mean()}")
-
+    figures = {}
     spec3d = models.STEREO_SPECS["nvsmall"]
     node3d = nodes.StereoNode(spec3d, models.params_from_npz(
         ROOT / NVSMALL_NPZ), dtype=torch.bfloat16)
@@ -1669,7 +1599,7 @@ def phase_forms(np, torch, models, nodes, counters, packed3d_lowering, gen):
     masks = {}
     with packed3d_lowering():
         for form in ("auto",) + MASK_FORMS:
-            with environ({"REDTAIL_TPU_MASK_FORM": form}):
+            with mask_env(form):
                 label = f"12 nvsmall packed mask {form} 321x1025 bf16"
                 masks[form], counts, med = serve(
                     np, torch, node3d, frames3d, counters,
@@ -1709,7 +1639,7 @@ def phase_forms(np, torch, models, nodes, counters, packed3d_lowering, gen):
           f"{json.dumps({k: [round(v, 4) for v in t] for k, t in times.items()})}"
           f" ms")
     print(f"12 figures ({card}): {json.dumps(figures)}")
-    return by_path, figures
+    return figures
 
 
 def stereo_frames(np, seed, count):
@@ -3882,12 +3812,6 @@ PAR_MESHES = ((2, 1), (1, 2))
 # 11a's 3D heads (`rank_checks.lowering`): the fused one and the packed
 # one, on the card with the D-folded final deconv
 PAR_3D_LOWERINGS = ("fused", "packed")
-# 11a's ResNet18-2D forms (`FORM_ENVS`, through `rank_checks.
-# forward_cases`' ``env``): the default 2N batch, the H-packed towers and
-# the H-packed head (the corr kernel's grouped soft-argmax), the last two on
-# every rank's slots; the corr soft-argmax launches a rank makes for a frame
-# under each, (ungrouped, grouped), exactly
-PAR_CORR_LAUNCHES = {"default": (1, 0), "hp": (1, 0), "hp+corr": (0, 1)}
 # the kernels a sharded forward must launch in each rank, by its case
 PAR_KERNELS = {"disparity": (("concat_launches", "cost_volume_concat"),),
                "fused": (("emit_launches", "fused_cv_emit"),),
@@ -3917,15 +3841,11 @@ def par_cases(np, models, s2d):
             dataclasses.replace(models.STEREO_SPECS["resnet18_2d"],
                                 input_hw=hw, max_disp=max_disp), seed=0), 2)
         left, right = par_frames(np, s2d, hw, 11)
-        for form in PAR_CORR_LAUNCHES:
-            env = FORM_ENVS[form]
-            for extra in ({"mesh": (1, PAR_RANKS), "mode": "image"},
-                          {"unsharded": True}):
-                fwd.append(dict(spec=spec, params=tree, left=left,
-                                right=right, dtype=dtype, env=env, form=form,
-                                tag=f"11a resnet18_2d {form} {dtype}"
-                                if env else f"11a resnet18_2d {dtype}",
-                                **extra))
+        for extra in ({"mesh": (1, PAR_RANKS), "mode": "image"},
+                      {"unsharded": True}):
+            fwd.append(dict(spec=spec, params=tree, left=left, right=right,
+                            dtype=dtype, tag=f"11a resnet18_2d {dtype}",
+                            **extra))
     tree = models.params_from_npz(ROOT / NVSMALL_NPZ)
     left, right = par_frames(np, s2d, FULL_HW, 12)
     nvsmall = dict(spec={"name": "nvsmall", "input_hw": FULL_HW},
@@ -3997,20 +3917,13 @@ def par_forward_gates(np, fwd, results, backend, card="cuda"):
             launched = []
             path = f"{c['tag']} {c['mode']} {backend} rank {rank}"
             if corr:
-                # one soft-argmax launch a frame, grouped under the H-packed
-                # head only
-                grouped = got["grouped_corr_launches"]
-                pair = (got["corr_launches"] - grouped, grouped)
-                check(pair == PAR_CORR_LAUNCHES[c["form"]] or card == "cpu",
-                      f"{c['tag']} rank {rank}: (ungrouped, grouped) corr "
-                      f"launches {pair}, not "
-                      f"{PAR_CORR_LAUNCHES[c['form']]}")
-                for n, entry in zip(pair, ("corr_cost_volume",
-                                           GROUPED_ENTRY)):
-                    if n:
-                        by_path.setdefault(entry, {})[path] = n
-                launched.append(f"corr launches (ungrouped, grouped) "
-                                f"{pair}")
+                # one soft-argmax launch a frame
+                n = got["corr_launches"]
+                check(n == 1 or card == "cpu", f"{c['tag']} rank {rank}: "
+                      f"{n} corr launches, not 1")
+                if n:
+                    by_path.setdefault("corr_cost_volume", {})[path] = n
+                launched.append(f"corr launches {n}")
             for key, entry in () if corr else PAR_KERNELS[
                     "disparity" if c["mode"] == "disparity"
                     else c["lowering"]]:
@@ -4589,17 +4502,6 @@ def main() -> int:
         print(json.dumps({"partial": True, "phases": "1-2, corr groups = 1 "
                           "against an earlier tree's kernel"}))
         return 0
-    if sys.argv[1:] == [FORMS_ONLY]:
-        entry = phase_corr_grouped(torch, corr, gen)
-        phase_slice_forms(np, torch, models, space_to_depth2_np,
-                          packed3d_lowering, corr, gen)
-        entry["launches_by_path"], _ = phase_forms(
-            np, torch, models, nodes, counters, packed3d_lowering, gen)
-        entry["launches"] = sum(entry["launches_by_path"].values())
-        print(json.dumps({"kernels": [entry]}))
-        print(json.dumps({"partial": True, "phases": "1-2, 3 grouped corr, "
-                          "4 forms, 12"}))
-        return 0
     all_counters = counters + (corr.corr_cost_volume_bwd,
                                corr.corr_softargmax_bwd,
                                concat.cost_volume_concat_bwd)
@@ -4640,8 +4542,8 @@ def main() -> int:
     phase_slice(np, torch, models, space_to_depth2_np,
                 {"fused": contextlib.nullcontext, "plain": plain_lowering,
                  "packed": packed3d_lowering})
-    phase_slice_forms(np, torch, models, space_to_depth2_np,
-                      packed3d_lowering, corr, gen)
+    phase_slice_masks(np, torch, models, space_to_depth2_np,
+                      packed3d_lowering, gen)
     fused, volume = phase_serve_2d(np, torch, models, nodes, counters)
     by_path = {"corr_cost_volume": {"5a resnet18_2d": fused}}
     for mode in entries["corr_cost_volume"]["modes"]:
@@ -4727,11 +4629,8 @@ def main() -> int:
                                            counters).items():
         by_path.setdefault(entry, {}).update(paths)
 
-    # the layout forms served: the grouped corr launch under the H-packed
-    # head, and never on another path
-    paths, _ = phase_forms(np, torch, models, nodes, counters,
-                           packed3d_lowering, gen)
-    by_path.setdefault(GROUPED_ENTRY, {}).update(paths)
+    # the packed head's mask forms served
+    phase_masks(np, torch, models, nodes, counters, packed3d_lowering, gen)
 
     # the synthetic-training tools: the committed ResNet-18 3D checkpoint's
     # rungs (the emission, the packed emission and conv223), each tool

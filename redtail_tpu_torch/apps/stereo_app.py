@@ -22,17 +22,17 @@ the pair in every serving rung, ``fp32``, ``bf16``, ``bf16+packed``,
 ``w8``, ``int8``, and prints a D1 / EPE table against the golden
 disparity (times ``--golden-scale``; a ``resnet18_2d`` golden in [0, 1]
 is scaled by the width) and one JSON line of rows. "packed" is
-`packed3d_lowering()`, the 3D models' packed head, with the block-diagonal
-towers (`fused_towers_lowering()`, ResNet-18's towers), as the JAX app
-sets ``REDTAIL_TPU_PACKED3D=1`` and ``REDTAIL_TPU_FUSED_TOWERS=1``; the w8
-and int8 rows run under both too (int8 towers fall back to the batched
-form, as in JAX).
+`packed3d_lowering()`, the 3D models' packed head, as the JAX app sets
+``REDTAIL_TPU_PACKED3D=1``; the w8 and int8 rows run under it too. The
+towers run as one batch of 2N in every rung: an exact re-expression of
+the block-diagonal towers that the JAX app's packed rungs also select, so
+this rung no longer mirrors that part of them.
 
 ``--profile-layers`` prints the per-layer device-time table
 (`runtime/layer_profiler.py`) to stderr, on the frames in the form
 `StereoNode` serves them: space-to-depth packed for the 3x3 stem unless
-``REDTAIL_TPU_S2D=0`` (`use_s2d_stem`), raw for an int8 stem; the tower
-and head switches in the environment select the layers it times. ``--save-engine PATH`` builds an AOTInductor engine of the
+``REDTAIL_TPU_S2D=0`` (`use_s2d_stem`), raw for an int8 stem; the head
+switches in the environment select the layers it times. ``--save-engine PATH`` builds an AOTInductor engine of the
 configuration (dtype, rung, head) for that same input form in a pristine
 subprocess (`runtime/engine_builder.py`); ``--engine PATH`` runs one on the
 pair with no weights and no model code (`runtime/cache.load_engine`) and
@@ -59,7 +59,7 @@ import numpy as np
 import torch
 
 RUNGS = (
-    # (name, dtype, packed head and block-diagonal towers, quantize)
+    # (name, dtype, packed head, quantize)
     ("fp32", torch.float32, False, None),
     ("bf16", torch.bfloat16, False, None),
     ("bf16+packed", torch.bfloat16, True, None),
@@ -94,7 +94,7 @@ def build_argparser():
                    "/ w8 / int8) on the pair and print a D1 / EPE table "
                    "against this golden disparity (.npy, .npz 'disp' or "
                    ".bin); bf16+packed, w8 and int8 run the 3D models' "
-                   "packed head and ResNet-18's block-diagonal towers")
+                   "packed head")
     p.add_argument("--golden-scale", type=float, default=1.0,
                    help="multiply the golden by this to get pixels "
                    "(resnet18_2d goldens are [0, 1] and scale by the width "
@@ -202,8 +202,7 @@ def run_accuracy_table(spec, tree, left_f32, right_f32, golden_px,
     """D1 / EPE (px, dense: every pixel counts) of each serving rung on one
     pair against a golden disparity map; ``left_f32`` / ``right_f32`` are
     (1, H, W, 3) float32 numpy."""
-    from redtail_tpu_torch.ops.convolution import (fused_towers_lowering,
-                                                   packed3d_lowering)
+    from redtail_tpu_torch.ops.convolution import packed3d_lowering
     from redtail_tpu_torch.utils.metrics import disparity_errors
 
     dense = np.ones_like(golden_px, bool)
@@ -218,7 +217,6 @@ def run_accuracy_table(spec, tree, left_f32, right_f32, golden_px,
             stack.enter_context(torch.inference_mode())
             if packed:
                 stack.enter_context(packed3d_lowering())
-                stack.enter_context(fused_towers_lowering())
             disp = net(l, r).float().cpu().numpy()[0]
         disp_px = disp * w if spec.corr else disp
         m = disparity_errors(disp_px, golden_px, dense)

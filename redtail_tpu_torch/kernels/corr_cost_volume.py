@@ -16,10 +16,13 @@ epilogues:
   volume (`ops/softargmax.py`, scale 1; the masked zeros take part), the
   ResNet18-2D model's use of it, without the volume in device memory.
   With ``groups=G`` each pixel holds G independent groups of C channels
-  and the result is (N, H, W, G): the H-packed correlation head
-  (`ops/packed2d.py`, G = 2), whose pad rows (original row G h + g at or
-  past ``rows``) come out 0. The features may be a channel slice of a wider
-  NHWC map (pixel stride > G C): the kernel reads them where they lie.
+  and the result is (N, H, W, G): the JAX package's H-packed correlation
+  head (`ops/packed2d.py:corr_softargmax_hpacked`, G = 2), whose pad rows
+  (original row G h + g at or past ``rows``) come out 0. The features may
+  be a channel slice of a wider NHWC map (pixel stride > G C): the kernel
+  reads them where they lie. No model path of the port launches the
+  grouped form (its towers run as one batch of 2N); the tests hold it
+  against the plain version and JAX op by op.
 
 Each wrapper runs its plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; nothing falls back. Without grad

@@ -45,30 +45,8 @@ band-composed kernels are derived from the same DHWIO weights once, at
 load, for each boundary parity an input size can give. The fused unpacked
 head stays the default.
 
-By default the two siamese towers run as one batch-2N chain of convs,
-which is exact. ResNet-18's towers (ResNet18-2D and ResNet-18 3D) have the
-JAX package's two TPU layouts too, behind its switches
-(`ops/convolution.py`):
-
-- **block-diagonal** (`use_fused_towers`, ``REDTAIL_TPU_FUSED_TOWERS=1``):
-  one chain of convs over the channel-concatenated pair, each kernel the
-  block diagonal of the tower's (twice the channels; the stem the block
-  diagonal of its s2d 3x3 form on s2d frames, of the 5x5 stride-2 one on
-  raw frames), built once at load;
-- **H-packed** (`use_hpack2d`, ``REDTAIL_TPU_HPACK2D=1``, on s2d frames
-  under block-diagonal towers): the same chain with row pairs folded into
-  channels too (`ops/packed2d.py`), its packed kernels built at load, then
-  unpacked; and for ResNet18-2D under ``REDTAIL_TPU_HPACK_CORR=1`` the
-  H-packed correlation head (`_bneck_head_hpacked`): the corr kernel's
-  grouped soft-argmax reads the packed features where they lie, and the
-  bottleneck's leading stride-1 convs run packed before one unpack.
-
-Both fall back to the batched towers where the JAX package does: int8
-leaves in the towers, a calibration tap (`conv_tap`), a trainable net.
-Every form runs image-sharded: the block-diagonal towers like any conv,
-the H-packed towers and head on each rank's slots (`ops/packed2d.py`:
-halo slots, pad rows masked on the rank that holds them, the unpacks to
-each rank's rows, the grouped corr launch on each rank's slots).
+The two siamese towers run as one batch-2N chain of convs, which is
+exact.
 
 `StereoNet.forward` is `StereoNet.layers(left, right, run)`, the network
 one named layer at a time with each layer computed as ``run(name, fn,
@@ -87,10 +65,9 @@ the global extent of their inputs (`sharded_extent`), so every TF-SAME pad
 and every transposed conv's target is the global one. Image mode runs the
 head the lowering in force selects (the fused one, the packed one on its
 slots, the plain one) and int8 leaves (the float input's halo rows
-exchanged before it is quantized), under any tower form; disparity mode
-runs the towers whole under the caller's tower switches, as the JAX
-package's `_encode_pair` does, and the concat volume and the 3D stack
-under `plain_lowering()` (`plain_volume_head`).
+exchanged before it is quantized); disparity mode runs the towers whole,
+as the JAX package's `_encode_pair` does, and the concat volume and the
+3D stack under `plain_lowering()` (`plain_volume_head`).
 """
 
 from __future__ import annotations
@@ -111,7 +88,6 @@ from redtail_tpu_torch.io.tf_checkpoint import load_checkpoint
 from redtail_tpu_torch.kernels import conv3d_k3 as K3
 from redtail_tpu_torch.kernels import deconv3d_s2 as D2
 from redtail_tpu_torch.ops.activations import elu, sigmoid
-from redtail_tpu_torch.ops import packed2d as P2
 from redtail_tpu_torch.ops import packed3d as P
 from redtail_tpu_torch.ops.convolution import (
     conv2d_nchw,
@@ -124,9 +100,6 @@ from redtail_tpu_torch.ops.convolution import (
     empty_conv_shard,
     plain_lowering,
     sharded_conv_input,
-    use_fused_towers,
-    use_hpack2d,
-    use_hpack_corr,
     use_packed3d,
     use_plain_lowering,
 )
@@ -302,30 +275,6 @@ def _spec_layer_shapes(spec: StereoSpec):
     return out
 
 
-def bneck_lead_count(spec: StereoSpec) -> int:
-    """How many leading stride-1 bottleneck layers the H-packed head runs
-    packed (`redtail_tpu/models/stereo.py:bneck_lead_count`): an even count
-    (the chain returns to the aligned convention) whose interior layers
-    serve no decoder skip (skips are read unpacked)."""
-    layers = list(spec.bneck_channels)
-    n_lead = 0
-    while n_lead < len(layers) and layers[n_lead][2] == 1:
-        n_lead += 1
-    n_lead -= n_lead % 2
-    skip_names = {s for _, _, s in spec.bneck_dec if s is not None}
-    while n_lead > 0 and any(layers[i][0] in skip_names
-                             for i in range(n_lead - 1)):
-        n_lead -= 2
-    return n_lead
-
-
-def _has_quantized(node) -> bool:
-    if isinstance(node, dict):
-        return "weights_q" in node or any(
-            _has_quantized(v) for v in node.values() if isinstance(v, dict))
-    return False
-
-
 # ------------------------------------------------------------- params
 
 
@@ -471,30 +420,6 @@ def _carrier(a, device, dtype) -> torch.Tensor:
     return _tensor(a, device, dtype).float()
 
 
-def _blockdiag(w: np.ndarray) -> np.ndarray:
-    """(kh, kw, ci, co) -> (kh, kw, 2 ci, 2 co): two copies of w on the
-    diagonal, so one conv computes both towers (`redtail_tpu/models/
-    stereo.py:_blockdiag`)."""
-    z = np.zeros_like(w)
-    return np.concatenate([np.concatenate([w, z], axis=3),
-                           np.concatenate([z, w], axis=3)], axis=2)
-
-
-_CONV_TAP = contextvars.ContextVar("redtail_torch_conv_tap", default=False)
-
-
-@contextlib.contextmanager
-def conv_tap():
-    """A calibration tap is recording the towers' conv inputs inside the
-    block (`quant/stereo_int8.py`): the towers run as the 2N batch, per
-    layer, as the JAX package's `_conv_tap` makes them."""
-    token = _CONV_TAP.set(True)
-    try:
-        yield
-    finally:
-        _CONV_TAP.reset(token)
-
-
 _PLAIN_HEAD = contextvars.ContextVar("redtail_torch_plain_head",
                                      default=False)
 
@@ -502,27 +427,14 @@ _PLAIN_HEAD = contextvars.ContextVar("redtail_torch_plain_head",
 @contextlib.contextmanager
 def plain_volume_head():
     """The 3D models' cost volume and 3D stack under `plain_lowering()`
-    inside the block, the towers under the caller's switches: disparity
-    mode's forward (`parallel/sharding.py`), as the JAX package's builds
+    inside the block, the towers as in any forward: disparity mode's
+    forward (`parallel/sharding.py`), as the JAX package's builds
     the concat volume and runs `_volume_head` after `_encode_pair`."""
     token = _PLAIN_HEAD.set(True)
     try:
         yield
     finally:
         _PLAIN_HEAD.reset(token)
-
-
-class _HPackedConv(nn.Module):
-    """One H-packed conv of `ops/packed2d.py`: its packed kernel in
-    `F.conv2d`'s layout and its bias, fp32 carriers of the net's dtype
-    derived at load (every packed entry is a weight or zero, so exact)."""
-
-    def __init__(self, kernel_hwio: torch.Tensor, bias, device, dtype):
-        super().__init__()
-        self.register_buffer("kernel", P2.prepare(kernel_hwio).to(
-            device=device, dtype=dtype).float(), persistent=False)
-        self.register_buffer("bias", _carrier(bias, device, dtype),
-                             persistent=False)
 
 
 class _Weights(nn.Module):
@@ -972,66 +884,6 @@ class StereoNet(nn.Module):
             conv5s2_kernel_to_s2d(np.asarray(stem["weights"], np.float32),
                                   spec.input_hw),
             stem["biases"], 1, device, dtype)
-        self.towers_bd = self.towers_hp = self.bneck_hp = None
-        if (spec.encoder2d == "resnet18" and not trainable
-                and not _has_quantized(params["encoder2D"])):
-            self._build_fused_towers(params, device, dtype)
-
-    def _build_fused_towers(self, params: Params, device, dtype) -> None:
-        """The block-diagonal towers' convs (`towers_bd`), their H-packed
-        kernels (`towers_hp`) and, for the correlation model, the H-packed
-        head's bottleneck convs (`bneck_hp`), derived once from the float
-        weights."""
-        spec = self.spec
-        enc = params["encoder2D"]
-        f = spec.enc2d_channels[0]
-
-        def leaf(node):
-            return (np.asarray(node["weights"], np.float32),
-                    np.asarray(node["biases"], np.float32))
-
-        names = [f"resblock{i}/res_conv{j}" for i in range(1, 9)
-                 for j in (1, 2)] + ["encoder2D_out"]
-        w5, b1 = leaf(enc["conv1"])
-        k3 = conv5s2_kernel_to_s2d(w5, spec.input_hw)
-        bd = {"conv1": _Conv(_blockdiag(w5), np.tile(b1, 2), 2, device,
-                             dtype),
-              "conv1_s2d": _Conv(_blockdiag(k3), np.tile(b1, 2), 1, device,
-                                 dtype)}
-        hp = {"conv1": _HPackedConv(P2.stem_kernel(torch.from_numpy(
-            _blockdiag(k3))), np.tile(b1, 2), device, dtype)}
-        for name in names:
-            node = enc
-            for part in name.split("/"):
-                node = node[part]
-            w, b = leaf(node)
-            key = name.replace("/", "_")
-            bd[key] = _Conv(_blockdiag(w), np.tile(b, 2), 1, device, dtype)
-            wt = torch.from_numpy(_blockdiag(w))
-            hp[key] = _HPackedConv(
-                P2.keep_kernel(wt) if name == "encoder2D_out"
-                else P2.flip_kernel(wt), np.tile(b, 2), device, dtype)
-        self.towers_bd = nn.ModuleDict(bd)
-        self.towers_hp = nn.ModuleDict(hp)
-        bneck = params.get("bneck_encoder2D", {})
-        lead = [name for name, _, _ in spec.bneck_channels[
-            :bneck_lead_count(spec)]]
-        if not spec.corr or _has_quantized(bneck):
-            return
-        # the H-packed head reads the towers' last conv with its output
-        # channels as (tower, parity, f), each tower's half one channel
-        # slice: the kernel's and the (fully tiled) bias's channels moved
-        # from (parity, tower, f)
-        w, b = leaf(enc["encoder2D_out"])
-        perm = torch.arange(4 * f).reshape(2, 2, f).transpose(0, 1) \
-            .reshape(-1)
-        k = P2.keep_kernel(torch.from_numpy(_blockdiag(w)))[..., perm]
-        self.towers_hp["encoder2D_out_corr"] = _HPackedConv(
-            k, np.tile(b, 4)[perm.numpy()], device, dtype)
-        self.bneck_hp = nn.ModuleDict({
-            name: _HPackedConv(P2.flip_kernel(torch.from_numpy(
-                leaf(bneck[name])[0])), leaf(bneck[name])[1], device, dtype)
-            for name in lead})
 
     def _add(self, path: str, layer: nn.Module) -> None:
         *scopes, name = path.split("/")
@@ -1068,68 +920,6 @@ class StereoNet(nn.Module):
         return self._conv1(torch.cat([left, right]).to(self.dtype)
                            .permute(0, 3, 1, 2))
 
-    def _tower_form(self, s2d: bool) -> str:
-        """The towers' form for this forward: ``"batch"`` (2N), ``"bd"``
-        (block-diagonal) or ``"hp"`` (H-packed, s2d frames only)."""
-        if (self.towers_bd is None or not use_fused_towers()
-                or _CONV_TAP.get()):
-            return "batch"
-        return "hp" if s2d and use_hpack2d() else "bd"
-
-    def _bd_conv1(self, left, right):
-        """Both towers' stem as one block-diagonal conv over the
-        channel-concatenated pair (s2d: 24 channels, raw: 6)."""
-        x = torch.cat([left, right], dim=-1).to(self.dtype) \
-            .permute(0, 3, 1, 2)
-        stem = self.towers_bd.conv1_s2d if x.shape[1] == 24 \
-            else self.towers_bd.conv1
-        return elu(stem(x))
-
-    def _bd_encoder(self, x, run):
-        """The block-diagonal resblocks and encoder2D_out after the stem."""
-        bd = self.towers_bd
-        for i in range(1, 9):
-            x = run(f"towers_resblock{i}[bd]", lambda a, c1=bd[
-                f"resblock{i}_res_conv1"], c2=bd[f"resblock{i}_res_conv2"]:
-                    elu(c2(elu(c1(a))) + a), x)
-        return run("towers_out[bd]", bd.encoder2D_out, x)
-
-    def _hp_towers(self, left, right, h_half: int, run, keep: bool):
-        """The H-packed towers on s2d frames: (stem output, towers' output),
-        NHWC packed, the stem's channels (parity, tower, f); the output's
-        (parity, tower, f), or with ``keep`` (tower, parity, f) for the
-        H-packed head. Each op derives its global slot counts from
-        ``h_half`` (`packed2d.slots`): the stem reads ``h_half`` s2d rows,
-        a resblock's first conv ``ceil(h_half / 2)`` aligned slots, its
-        second one more, shifted."""
-        hp = self.towers_hp
-
-        def conv(c, a, **kw):
-            return P2.conv2d_hpacked(a, None, c.bias, h=h_half,
-                                     kernel=c.kernel, **kw)
-
-        def resblock(a, c1, c2):
-            y = conv(c2, conv(c1, a, in_shifted=False, act=elu),
-                     in_shifted=True)
-            # both aligned, ceil(h_half / 2) slots, so one ownership
-            if y.shape != a.shape:
-                raise ValueError(f"H-packed skip add: {tuple(y.shape)} + "
-                                 f"{tuple(a.shape)}")
-            return elu(y + a)
-        stem = run("towers_conv1[hp]", lambda a, b: P2.conv1_s2d_hpacked(
-            torch.cat([a, b], dim=-1).to(self.dtype), None, hp.conv1.bias,
-            h_half=h_half, act=elu, kernel=hp.conv1.kernel), left, right)
-        x = stem
-        for i in range(1, 9):
-            x = run(f"towers_resblock{i}[hp]", lambda a, c1=hp[
-                f"resblock{i}_res_conv1"], c2=hp[f"resblock{i}_res_conv2"]:
-                    resblock(a, c1, c2), x)
-        out = hp.encoder2D_out_corr if keep else hp.encoder2D_out
-        x = run("towers_out[hp]", lambda a, c=out: P2.conv2d_hpacked_keep(
-            a, None, c.bias, h=h_half, kernel=c.kernel,
-            blocks=2 if keep else 1), x)
-        return stem, x
-
     def _plain_encoder(self, x, run):
         """NVTiny/NVSmall towers: conv2..4 + conv5 (no activation on
         conv5) after the stem."""
@@ -1147,52 +937,16 @@ class StereoNet(nn.Module):
                     elu(blk.res_conv2(elu(blk.res_conv1(a))) + a), x)
         return run("towers_encoder2D_out", enc.encoder2D_out, x)
 
-    def _bneck_head(self, d, conv1_act, left_of, full_hw, run):
-        """Feature concat + 2D bottleneck over the soft-argmax map ``d``
-        (N, H', W'), ``conv1_act`` the stem's output (``left_of`` takes the
-        left tower's features from it) -> (N, H, W) in [0, 1]."""
+    def _bneck_head(self, d, conv1_act, full_hw, run):
+        """Feature concat + 2D bottleneck encoder/decoder + sigmoid over the
+        soft-argmax map ``d`` (N, H', W'), ``conv1_act`` both towers' stem
+        output (the left tower's first N) -> (N, H, W) in [0, 1]."""
+        n = d.shape[0]
         x = run("concat_conv1", lambda c, dd: torch.cat(
-            [left_of(c), dd.to(c.dtype).unsqueeze(1)], dim=1), conv1_act, d)
-        return self._bneck_layers(x, 0, {}, full_hw, run)
-
-    def _bneck_head_hpacked(self, stem, out, full_hw, run):
-        """The H-packed correlation head (`redtail_tpu/models/stereo.py:
-        _bneck_head_hpacked`): the corr kernel's grouped soft-argmax on the
-        towers' packed (tower, parity, f) map, each tower's half read where
-        it lies; the packed concat with the left stem features; the leading
-        stride-1 bottleneck convs packed (`bneck_lead_count`); one unpack;
-        the rest of the bottleneck as `_bneck_head`'s. Image-sharded, each
-        rank runs the grouped corr on its own slots, the concat on them
-        (slot-local), the packed convs with their halo slots and the
-        unpack to its own rows, then the rest under `sharded_extent`."""
-        spec = self.spec
-        h2 = -(-full_hw[0] // 2)
-        f = out.shape[-1] // 4
-        d = run("corr_cost_volume[hp]+softargmax[hp]", lambda o: (
-            P2.corr_softargmax_hpacked(o[..., :2 * f], o[..., 2 * f:],
-                                       spec.max_disp, h2)), out)
-        # (parity, [left stem f, d]) from the stem's (parity, tower, f)
-        x = run("concat_conv1[hp]", lambda c, dd: torch.cat(
-            [c[..., :f], dd.to(c.dtype)[..., :1], c[..., 2 * f:3 * f],
-             dd.to(c.dtype)[..., 1:]], dim=-1), stem, d)
-        lead = [name for name, _, _ in spec.bneck_channels[
-            :bneck_lead_count(spec)]]
-        for i, name in enumerate(lead):
-            x = run(f"{name}[hp]", lambda a, c=self.bneck_hp[name], i=i: (
-                P2.conv2d_hpacked(a, None, c.bias, h=h2,
-                                  in_shifted=i % 2 == 1, act=elu,
-                                  kernel=c.kernel)), x)
-        x = run("bneck_unpack[hp]", lambda a: P2.unpack_h2d(a, h2)
-                .permute(0, 3, 1, 2), x)
-        acts = {lead[-1]: (x, _half(full_hw))} if lead else {}
-        return self._bneck_layers(x, len(lead), acts, full_hw, run)
-
-    def _bneck_layers(self, x, start: int, acts, full_hw, run):
-        """The bottleneck from its layer ``start`` on (``acts``: the
-        activations earlier layers left for the decoder's skips), the
-        decoder and the sigmoid."""
+            [c[:n], dd.to(c.dtype).unsqueeze(1)], dim=1), conv1_act, d)
         extent = _half(full_hw)
-        for name, _out_ch, stride in self.spec.bneck_channels[start:]:
+        acts = {}
+        for name, _out_ch, stride in self.spec.bneck_channels:
             with sharded_extent(extent):
                 x = run(name, lambda a, c=self.bneck_encoder2D[name]:
                         elu(c(a)), x)
@@ -1345,41 +1099,14 @@ class StereoNet(nn.Module):
         else:
             full_hw = in_hw = (rows, left.shape[2])
         n = left.shape[0]
-        form = self._tower_form(left.shape[-1] == 12)
-        if form == "hp":
-            h_half = _half(full_hw)[0]
-            keep = spec.corr and self.bneck_hp is not None \
-                and use_hpack_corr()
-            stem, out = self._hp_towers(left, right, h_half, run, keep)
-            if keep:
-                return self._bneck_head_hpacked(stem, out, full_hw, run)
-            f = out.shape[-1] // 4
-            conv1_act = run("conv1_left_unpack[hp]", lambda a: _left_rows(
-                a, h_half).permute(0, 3, 1, 2), stem)
-            feats = run("towers_unpack[hp]", lambda a: P2.unpack_h2d(
-                a, h_half).permute(0, 3, 1, 2), out)
-            sides = (lambda t: t[:, :f], lambda t: t[:, f:])
-            left_of = _identity
-        elif form == "bd":
-            with sharded_extent(in_hw):
-                conv1_act = run("towers_conv1[bd]", self._bd_conv1, left,
-                                right)
-            with sharded_extent(_half(full_hw)):
-                feats = self._bd_encoder(conv1_act, run)
-            f = feats.shape[1] // 2
-            sides = (lambda t: t[:, :f], lambda t: t[:, f:])
-            left_of = sides[0]
-        else:
-            with sharded_extent(in_hw):
-                conv1_act = run("towers_conv1", self._towers_conv1, left,
-                                right)
-            with sharded_extent(_half(full_hw)):
-                if spec.encoder2d == "plain":
-                    feats = self._plain_encoder(conv1_act, run)
-                else:
-                    feats = self._resnet_encoder(conv1_act, run)
-            sides = (lambda t: t[:n], lambda t: t[n:])
-            left_of = sides[0]
+        with sharded_extent(in_hw):
+            conv1_act = run("towers_conv1", self._towers_conv1, left, right)
+        with sharded_extent(_half(full_hw)):
+            if spec.encoder2d == "plain":
+                feats = self._plain_encoder(conv1_act, run)
+            else:
+                feats = self._resnet_encoder(conv1_act, run)
+        sides = (lambda t: t[:n], lambda t: t[n:])
         if not spec.corr:
             with (plain_lowering() if _PLAIN_HEAD.get()
                   else contextlib.nullcontext()):
@@ -1390,7 +1117,7 @@ class StereoNet(nn.Module):
         d = run("corr_cost_volume+softargmax", lambda t: corr_softargmax_dlast(
             fl(t).permute(0, 2, 3, 1).contiguous(),
             fr(t).permute(0, 2, 3, 1).contiguous(), spec.max_disp), feats)
-        return self._bneck_head(d, conv1_act, left_of, full_hw, run)
+        return self._bneck_head(d, conv1_act, full_hw, run)
 
     def _check_sharded(self, sh) -> None:
         """Raise for a sharded forward this net cannot run."""
@@ -1431,14 +1158,14 @@ def _call(_name: str, fn: Callable, *args):
 
 def layer_stage(spec: StereoSpec, name: str) -> str:
     """The span of the forward's stage that the layer ``name`` of
-    `StereoNet.layers` belongs to: ``stereo/towers`` (the 2D towers, every
-    form, and their unpacks), ``stereo/volume`` (the cost volume and what
+    `StereoNet.layers` belongs to: ``stereo/towers`` (the 2D towers),
+    ``stereo/volume`` (the cost volume and what
     is fused with it: the emission's conv3D_1, the corr soft-argmax),
     ``stereo/enc3d`` and ``stereo/dec3d`` (the 3D stack's layers, packed
     or not, the packed head's unpack before the last deconv in dec3d),
     ``stereo/head`` (the soft-argmin and what is fused with it, or the
     correlation model's bottleneck head)."""
-    if name.startswith(("towers_", "conv1_left_unpack")):
+    if name.startswith("towers_"):
         return "stereo/towers"
     if "cost_volume" in name:
         return "stereo/volume"
@@ -1477,21 +1204,6 @@ class _StageSpans:
             self._stack.enter_context(span(stage))
             self._stage = stage
         return fn(*args)
-
-
-def _identity(x):
-    return x
-
-
-def _left_rows(stem: torch.Tensor, h: int) -> torch.Tensor:
-    """The left tower's rows of the H-packed stem output (N, hp, W,
-    (parity, tower, f)) unpacked: (N, h, W, f), one copy; inside an image
-    `sharded_axis` this rank's own rows (`packed2d.row_slots`)."""
-    stem, lo, n_rows = P2.row_slots(stem, h)
-    n, hp, w, c4 = stem.shape
-    f = c4 // 4
-    return stem.unflatten(-1, (2, 2, f))[..., 0, :].permute(0, 1, 3, 2, 4) \
-        .reshape(n, 2 * hp, w, f).narrow(1, lo, n_rows)
 
 
 def params_from_numpy(spec: StereoSpec, params: Params, *, device=None,

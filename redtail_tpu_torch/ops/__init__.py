@@ -10,9 +10,6 @@ from redtail_tpu_torch.ops.convolution import (
     conv3d_transpose,
     conv3d_transpose_dfold,
     conv3d_transpose_shuffle,
-    fused_towers_lowering,
-    hpack2d_lowering,
-    hpack_corr_lowering,
     linear_fp32,
     packed3d_lowering,
     plain_lowering,
@@ -31,8 +28,7 @@ __all__ = ["conv2d", "conv2d_round_once", "conv2d_transpose",
            "conv2d_transpose_shuffle", "conv3d", "conv3d_transpose",
            "conv3d_transpose_dfold", "conv3d_transpose_shuffle",
            "corr_cost_volume_dlast", "corr_softargmax_dlast", "cost_volume",
-           "cost_volume_conv3d", "elu", "fused_towers_lowering",
-           "hpack2d_lowering", "hpack_corr_lowering", "linear_fp32",
+           "cost_volume_conv3d", "elu", "linear_fp32",
            "packed3d_lowering", "plain_lowering", "preprocess_caffe_host",
            "sigmoid", "softargmax", "softargmin", "srelu",
            "tf_same_padding"]

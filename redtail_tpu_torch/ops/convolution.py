@@ -109,9 +109,14 @@ def use_plain_lowering() -> bool:
     return _PLAIN_LOWERING.get()
 
 
+@contextlib.contextmanager
 def packed3d_lowering():
     """Run the 3D models' packed head inside the block (`use_packed3d`)."""
-    return _switched_on(_PACKED3D)
+    token = _PACKED3D.set(True)
+    try:
+        yield
+    finally:
+        _PACKED3D.reset(token)
 
 
 def use_packed3d() -> bool:
@@ -119,69 +124,9 @@ def use_packed3d() -> bool:
     `packed3d_lowering()`, or where ``REDTAIL_TPU_PACKED3D=1`` (the JAX
     package's switch; ``0`` or unset is off: the fused unpacked head is the
     port's default). `plain_lowering()` wins over both."""
-    return _switch(_PACKED3D, "REDTAIL_TPU_PACKED3D")
-
-
-def _switch(var: contextvars.ContextVar, env: str) -> bool:
-    """A layout switch: on inside its context manager or where ``env`` is
-    ``1`` (the JAX package's variable; ``0`` or unset is off, the port's
-    default), off under `plain_lowering()` whatever either says."""
     if use_plain_lowering():
         return False
-    return var.get() or os.environ.get(env) == "1"
-
-
-@contextlib.contextmanager
-def _switched_on(var: contextvars.ContextVar):
-    token = var.set(True)
-    try:
-        yield
-    finally:
-        var.reset(token)
-
-
-_FUSED_TOWERS = contextvars.ContextVar("redtail_torch_fused_towers",
-                                       default=False)
-_HPACK2D = contextvars.ContextVar("redtail_torch_hpack2d", default=False)
-_HPACK_CORR = contextvars.ContextVar("redtail_torch_hpack_corr",
-                                     default=False)
-
-
-def fused_towers_lowering():
-    """Run ResNet-18's siamese towers as one chain of block-diagonal convs
-    over the channel-concatenated pair inside the block (`use_fused_towers`;
-    `models/stereo.py`)."""
-    return _switched_on(_FUSED_TOWERS)
-
-
-def use_fused_towers() -> bool:
-    """Block-diagonal siamese towers: inside `fused_towers_lowering()` or
-    where ``REDTAIL_TPU_FUSED_TOWERS=1``."""
-    return _switch(_FUSED_TOWERS, "REDTAIL_TPU_FUSED_TOWERS")
-
-
-def hpack2d_lowering():
-    """Fold the block-diagonal towers' row pairs into channels inside the
-    block (`use_hpack2d`; `ops/packed2d.py`)."""
-    return _switched_on(_HPACK2D)
-
-
-def use_hpack2d() -> bool:
-    """H-packed towers (under block-diagonal towers, on s2d frames): inside
-    `hpack2d_lowering()` or where ``REDTAIL_TPU_HPACK2D=1``."""
-    return _switch(_HPACK2D, "REDTAIL_TPU_HPACK2D")
-
-
-def hpack_corr_lowering():
-    """Let ResNet18-2D's correlation head read the H-packed features where
-    they lie inside the block (`use_hpack_corr`)."""
-    return _switched_on(_HPACK_CORR)
-
-
-def use_hpack_corr() -> bool:
-    """The H-packed correlation head (under H-packed towers): inside
-    `hpack_corr_lowering()` or where ``REDTAIL_TPU_HPACK_CORR=1``."""
-    return _switch(_HPACK_CORR, "REDTAIL_TPU_HPACK_CORR")
+    return _PACKED3D.get() or os.environ.get("REDTAIL_TPU_PACKED3D") == "1"
 
 
 def _sharded_dim(x: torch.Tensor) -> Tuple[Optional[ShardedAxis], int]:

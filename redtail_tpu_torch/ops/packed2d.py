@@ -1,12 +1,14 @@
 """H-packed 2D convolutions (`redtail_tpu/ops/packed2d.py`): row pairs
 folded into channels.
 
-The 1-axis form of `ops/packed3d.py`'s band algebra, for ResNet18-2D's
-towers under ``REDTAIL_TPU_HPACK2D`` (`models/stereo.py`): the
-block-diagonal towers' 64-channel convs run at 128 channels, for 4/3 of
-the dense FLOPs (kh 3 -> 2 taps x 2 parities). Every op is exact against
-its unpacked counterpart (`tests/test_torch_packed2d.py` holds each against
-its JAX twin).
+The 1-axis form of `ops/packed3d.py`'s band algebra, which the JAX
+package uses for ResNet-18's towers on a TPU (block-diagonal 64-channel
+convs run at 128 channels, for 4/3 of the dense FLOPs: kh 3 -> 2 taps x 2
+parities). No model path of the port calls these ops: its towers run as
+one batch of 2N, which beat this layout on the H100. They are held against
+the JAX package op by op (`tests/test_torch_packed2d.py`, each against its
+JAX twin; `tests/test_torch_sharding_hpacked.py` on each rank's slots).
+Every op is exact against its unpacked counterpart.
 
 - **Layouts.** *Aligned*: slot b, parity q holds row 2b + q (ceil(h/2)
   slots); *shifted*: slot a, parity r holds row 2a - 1 + r (one slot more,
@@ -21,8 +23,8 @@ its JAX twin).
   ingest.
 - **Unpack** (`unpack_h2d`): a reshape and permute here, which computes
   what the JAX package's identity-weight lhs-dilated conv computes.
-- **Correlation** rows are independent, so the head reads the packed
-  features per parity group: `corr_softargmax_hpacked` is the corr
+- **Correlation** rows are independent, so the JAX package's H-packed
+  head reads the packed features per parity group: `corr_softargmax_hpacked` is the corr
   kernel's grouped soft-argmax (`kernels/corr_cost_volume.py`, one launch
   on the card); `corr_cost_volume_hpacked` and `softargmax_hpacked` are the
   JAX functions, the plain version of that launch.
@@ -34,7 +36,7 @@ packed ops do. Pad rows are re-zeroed **after** bias and activation (elu of
 a bias in a pad row would corrupt every consumer's band algebra), in place.
 Each op takes the JAX function's arguments (NHWC activations, HWIO
 weights) and, as ``kernel=``, optionally its packed kernel already in
-`F.conv2d`'s layout (`prepare`): the model derives those once, at load.
+`F.conv2d`'s layout (`prepare`), derived once by the caller.
 
 **Image sharding.** Inside an image `ops.halo.sharded_axis` each op runs
 on this rank's slots of axis 1 (`ops/packed3d.py`'s rule on axis 2): a

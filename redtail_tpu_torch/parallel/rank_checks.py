@@ -14,9 +14,8 @@ results are numpy.
   inside `sharded_axis`), its output shard and the gradients of a fixed
   linear loss through it;
 - `op_cases`: one op of the 3D heads (the packed ops, dfold, the
-  emission) or of the H-packed towers and head (`ops/packed2d.py`) on
-  this rank's rows or slots inside an image `sharded_axis`: its output
-  shard;
+  emission) or of `ops/packed2d.py` (no model path calls those) on this
+  rank's rows or slots inside an image `sharded_axis`: its output shard;
 - `forward_cases`: `sharding.shard_stereo_forward` on global frames under
   a given lowering;
 - `train_cases`: one `make_train_step(mesh=)` step on a global batch: the
@@ -87,22 +86,6 @@ def mesh_cases(rank: int, world_size: int, cases: List[Dict],
                                mesh.get_local_rank(1)),
                     "names": mesh.mesh_dim_names})
     return out
-
-
-@contextlib.contextmanager
-def environ(env: Dict[str, str]):
-    """The variables of ``env`` set in this rank for the block (the JAX
-    package's switches, which the port reads too), restored after."""
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        yield
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
 
 
 def refused_cases(rank: int, world_size: int, cases: List[Dict],
@@ -259,19 +242,16 @@ def forward_cases(rank: int, world_size: int, cases: List[Dict],
     """Each case: ``spec`` (a `STEREO_SPECS` name and replaced fields),
     ``params`` (numpy tree), ``left`` / ``right`` (global frames),
     ``mesh`` (data, spatial), ``mode``, ``dtype``, ``lowering`` (see
-    `lowering`; default ``"fused"``), ``env`` (`environ`: the tower
-    switches; returned ``tower_form``, the towers' form the forward took,
-    `StereoNet._tower_form`); a disparity-mode case ignores ``lowering``:
-    its head is the plain one (`plain_volume_head`). With ``unsharded``
-    rank 0 runs the same net on the whole frames instead, under the same
-    switches and ``lowering`` (under `plain_volume_head` where the case's
+    `lowering`; default ``"fused"``); a disparity-mode case ignores
+    ``lowering``: its head is the plain one (`plain_volume_head`). With
+    ``unsharded`` rank 0 runs the same net on the whole frames instead,
+    under the same ``lowering`` (under `plain_volume_head` where the case's
     ``mode`` is ``"disparity"``) and on the same route: with no kernel form
     for the 3D encoder's conv + ELU or the 3D decoder's transposed conv,
     which a sharded forward never takes (`ops/convolution.py:
     conv3d_k3_routes`, `deconv3d_s2_routes`); the other ranks return None.
     Returns the disparity (gathered), the launches in this rank of the
-    correlation kernel's soft-argmax (``corr``: all; ``grouped_corr``:
-    the grouped ones of the H-packed head), concat, emission (``emit``:
+    correlation kernel's soft-argmax (``corr``), concat, emission (``emit``:
     both layouts; ``packed_emit``: the dh-shifted one), conv223 and
     transposed conv (``deconv``: none, a sharded forward never takes it)
     kernels, the bytes its halo exchanges received and the bytes of the
@@ -288,8 +268,6 @@ def forward_cases(rank: int, world_size: int, cases: List[Dict],
     from redtail_tpu_torch.parallel.sharding import shard_stereo_forward
 
     counters = {"corr_launches": (corr.corr_softargmax, "launches"),
-                "grouped_corr_launches": (corr.corr_softargmax,
-                                          "grouped_launches"),
                 "concat_launches": (concat.cost_volume_concat, "launches"),
                 "emit_launches": (emit.fused_cv_emit, "launches"),
                 "packed_emit_launches": (emit.fused_cv_emit,
@@ -327,7 +305,7 @@ def forward_cases(rank: int, world_size: int, cases: List[Dict],
                                       mode=mode)
         left, right = (torch.from_numpy(c[k]).to(device, dtype)
                        for k in ("left", "right"))
-        with lowering(head), environ(c.get("env", {})):
+        with lowering(head):
             if device.type == "cuda":
                 fn(None, left, right)  # warm-up: kernels loaded, caches
                 torch.cuda.synchronize(device)
@@ -335,8 +313,7 @@ def forward_cases(rank: int, world_size: int, cases: List[Dict],
             before = {k: getattr(*v) for k, v in counters.items()}
             disp = fn(None, left, right)
             res = {k: getattr(*v) - before[k] for k, v in counters.items()}
-            res.update(disp=_numpy(disp), ms=0.0, tower_form=(
-                net._tower_form(left.shape[-1] == 12)), peak_bytes=(
+            res.update(disp=_numpy(disp), ms=0.0, peak_bytes=(
                 torch.cuda.max_memory_allocated(device)
                 if device.type == "cuda" else 0))
             if device.type == "cuda":

@@ -147,12 +147,9 @@ def shard_stereo_forward(spec: StereoSpec, params, mesh: DeviceMesh, *,
 
     - ``mode='image'``: N over data, H over spatial, params replicated;
       each rank computes its own rows of H plus the halos its convs
-      fetch. The towers take the form the caller's switches select
-      (`StereoNet._tower_form`: the 2N batch, block-diagonal, or H-packed
-      on each rank's slots). ResNet18-2D runs the head those select: the
-      correlation kernel's fused soft-argmax on each rank's rows, or
-      under ``REDTAIL_TPU_HPACK_CORR`` its grouped soft-argmax on each
-      rank's slots (both row-local); the 3D models run the head the
+      fetch. The towers run as one batch of 2N. ResNet18-2D runs the
+      correlation kernel's fused soft-argmax on each rank's rows
+      (row-local); the 3D models run the head the
       lowering in force selects, as the unsharded `StereoNet` does: the
       fused cost volume + conv3D_1 (the emission kernel on each rank's
       rows) by default, the packed head on each rank's slots (the
@@ -161,10 +158,9 @@ def shard_stereo_forward(spec: StereoSpec, params, mesh: DeviceMesh, *,
       `packed3d_lowering()` / ``REDTAIL_TPU_PACKED3D=1``, the explicit
       concat volume under `plain_lowering()`. Int8 leaves run sharded.
     - ``mode='disparity'`` (3D models only): the images split over data
-      only; each spatial rank runs the towers on the whole frames under
-      the caller's tower switches (a 2D map has no D axis: they run
-      unsharded, and the packed ops read `image_sharding()`, which is
-      None here), as the JAX package's `_encode_pair` does; then, under
+      only; each spatial rank runs the towers on the whole frames (a 2D
+      map has no D axis: they run unsharded), as the JAX package's
+      `_encode_pair` does; then, under
       `plain_lowering()` whatever the caller's (`plain_volume_head`), it
       builds its own disparities of the concat volume
       (`cost_volume_concat(d_offset=...)`) and runs the unpacked 3D stack

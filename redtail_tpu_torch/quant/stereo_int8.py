@@ -14,9 +14,7 @@ Usage:
     net = params_from_numpy(spec, qparams, device="cpu")
 
 Calibration runs the model itself: a forward pre-hook on each eligible
-conv module records its input, as the JAX package's `_c2d` tap does, and
-the forward runs inside `models.stereo.conv_tap()`, so the towers take
-their per-layer batched form under any tower switch, as JAX's do. The
+conv module records its input, as the JAX package's `_c2d` tap does. The
 two towers run as one batch of two and share their modules, so a hook sees
 both and both count, the left first, as in JAX. Each input is subsampled
 exactly as JAX does: |x| flattened in NHWC order (the port's activations
@@ -84,7 +82,6 @@ def calibrate_stereo(spec, params,
     random weights; ``"entropy"`` for trained ones)."""
     from redtail_tpu_torch.models.stereo import (StereoNet,
                                                  _spec_layer_shapes,
-                                                 conv_tap,
                                                  params_from_numpy)
 
     net = params if isinstance(params, StereoNet) else params_from_numpy(
@@ -114,8 +111,7 @@ def calibrate_stereo(spec, params,
             if left.dim() == 3:
                 left, right = left[None], right[None]
             recorded.clear()
-            with conv_tap():   # the towers per layer, as JAX's tap has them
-                net(left, right)
+            net(left, right)
             for path, acts in recorded.items():
                 for act in acts:
                     collector.observe(path, act)

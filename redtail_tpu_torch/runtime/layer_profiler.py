@@ -99,10 +99,7 @@ def stereo_layer_plan(net, left, right):
     reproduces the forward (`StereoNet.layers`). The names follow the JAX
     plan's, with both towers as one batch (``towers_*`` for JAX's
     ``left_*`` and ``right_*``) and the corr volume and its soft-argmax as
-    one kernel (``corr_cost_volume+softargmax``, and under the H-packed
-    head ``corr_cost_volume[hp]+softargmax[hp]``); the block-diagonal and
-    H-packed towers' rows carry JAX's own names (``towers_conv1[bd]``,
-    ``towers_out[hp]``, ``towers_unpack[hp]``, ...)."""
+    one kernel (``corr_cost_volume+softargmax``)."""
     entries: List[Tuple[str, Callable, tuple, Tuple[int, ...]]] = []
 
     def run(name, fn, *args):

@@ -223,9 +223,10 @@ def test_stereo_node_serves_through_the_kernel(cuda_device):
 
 
 # The grouped soft-argmax (N, Hp, W, 2 C), D, original rows, channel
-# slices: ResNet18-2D's H-packed head at 321x1025 (161 rows: a pad row,
-# the towers' map halves), even rows, odd rows at batch 2, the warp and
-# chunk edges, C = 3.
+# slices: the JAX package's H-packed head at ResNet18-2D's 321x1025 (161
+# rows: a pad row, the towers' map halves; no model path of the port
+# launches it), even rows, odd rows at batch 2, the warp and chunk edges,
+# C = 3.
 GROUPED = [((1, 81, 513, 64), 48, 161, True), ((1, 8, 65, 64), 48, 16, False),
            ((2, 5, 37, 16), 9, 9, True), ((1, 3, 63, 64), 47, 5, True),
            ((1, 3, 65, 64), 49, 6, False), ((1, 2, 513, 64), 1, 3, True),
@@ -276,31 +277,6 @@ def test_grouped_softargmax_refuses_autograd_on_card(cuda_device):
     with pytest.raises(RuntimeError, match="no backward"):
         corr.corr_softargmax(left, right, 5, groups=2, rows=6)
     assert corr.corr_softargmax.launches == before
-
-
-def test_stereo_node_serves_the_hpacked_head_on_card(cuda_device,
-                                                     monkeypatch):
-    """Under the H-packed head the grouped launch once a frame; the
-    disparity within phase 4's fp32 gate of the default path's."""
-    hw = (65, 129)
-    spec = dataclasses.replace(STEREO_SPECS["resnet18_2d"], input_hw=hw,
-                               max_disp=8)
-    node = StereoNode(spec, init_stereo_params(spec, seed=0),
-                      dtype=torch.float32)
-    rs = np.random.RandomState(0)
-    left, right = (rs.randint(0, 256, hw + (3,)).astype(np.uint8)
-                   for _ in range(2))
-    ref = node(left, right)
-    for var in ("REDTAIL_TPU_FUSED_TOWERS", "REDTAIL_TPU_HPACK2D",
-                "REDTAIL_TPU_HPACK_CORR"):
-        monkeypatch.setenv(var, "1")
-    before = (corr.corr_softargmax.launches,
-              corr.corr_softargmax.grouped_launches)
-    disp = node(left, right)
-    assert (corr.corr_softargmax.launches,
-            corr.corr_softargmax.grouped_launches) == (before[0] + 1,
-                                                       before[1] + 1)
-    assert np.abs(disp - ref).max() / hw[1] < 1e-3
 
 
 def _ulp_ok(got, want, atol):

@@ -65,9 +65,8 @@ def few_threads():
 @pytest.fixture(autouse=True)
 def _clean_env(monkeypatch):
     for var in ("REDTAIL_TPU_PACKED3D", "REDTAIL_TPU_DFOLD",
-                "REDTAIL_TPU_FUSED_TOWERS", "REDTAIL_TPU_HPACK2D",
-                "REDTAIL_TPU_HPACK_CORR", "REDTAIL_TPU_PALLAS_CONV3D",
-                "REDTAIL_TPU_MASK_FORM", "REDTAIL_TPU_MASK_MUL"):
+                "REDTAIL_TPU_PALLAS_CONV3D", "REDTAIL_TPU_MASK_FORM",
+                "REDTAIL_TPU_MASK_MUL"):
         monkeypatch.delenv(var, raising=False)
 
 

@@ -24,6 +24,10 @@ ranks run the programs of `parallel/rank_checks.py` and hand back numpy.
 - disparity mode, NVTiny max_disp 8 on mesh (1, 4) (D = 8 over 4 ranks,
   halved to 4 and 2 by the strided layers: shards of 1 and 0), against
   JAX at 2e-4;
+- ResNet-18's towers at 33x65 on s2d frames, max_disp 8, on 2 and 4
+  spatial ranks (meshes (2, 2) and (1, 4)): ResNet18-2D in image mode,
+  ResNet-18 3D in image mode under the fused head and in disparity mode,
+  against JAX at 2e-4;
 - the correlation model under disparity sharding raises.
 """
 
@@ -261,6 +265,15 @@ FORWARDS = [
                            ((33, 64), True, (2, 2)),
                            ((33, 64), False, (1, 4)),
                            ((32, 64), True, (1, 4)))]
+# ResNet-18's towers (the 2N batch) on s2d frames at 33x65 on 2 and 4
+# spatial ranks: ResNet18-2D in image mode, ResNet-18 3D in image mode
+# under the fused head and in disparity mode
+FORWARDS += [(name, (33, 65), 8, True, mesh, mode, lowering)
+             for name, mode, lowering in (
+                 ("resnet18_2d", "image", "fused"),
+                 ("resnet18", "image", "fused"),
+                 ("resnet18", "disparity", "plain"))
+             for mesh in ((2, 2), (1, 4))]
 FORWARD_IDS = [f"{m}-{hw[0]}x{hw[1]}-d{d}-{'s2d' if s else 'raw'}-"
                f"{mesh[0]}x{mesh[1]}-{mode}"
                + ("" if (m, low, d) in (("resnet18_2d", "fused", 4),

@@ -3,10 +3,9 @@ profiler collecting they enter no `record_function`; under
 `torch.profiler` the serving node's stages (pack, dispatch with its upload
 and enqueue, fetch), the stereo net's five stages and the train step's
 three phases appear as ``user_annotation`` events, each inside its parent.
-The net's stages are checked in every tower form (the 2N batch,
-block-diagonal, H-packed, the int8 stem), under the packed head and in the
-correlation model, each form yielding its stages once a forward, in
-forward order."""
+The net's stages are checked on every path a node serves (ResNet-18 3D's
+and NVSmall's fused and packed heads, the int8 stem, the correlation
+model), each path yielding its stages once a forward, in forward order."""
 
 import contextlib
 import dataclasses
@@ -20,10 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 from redtail_tpu_torch.models import STEREO_SPECS, init_stereo_params
 from redtail_tpu_torch.models import stereo as pstereo
 from redtail_tpu_torch.models.stereo import layer_stage
-from redtail_tpu_torch.ops.convolution import (fused_towers_lowering,
-                                               hpack2d_lowering,
-                                               hpack_corr_lowering,
-                                               packed3d_lowering)
+from redtail_tpu_torch.ops.convolution import packed3d_lowering
 from redtail_tpu_torch.parallel.training import make_train_step
 from redtail_tpu_torch.runtime import StageProfiler, StereoNode
 from redtail_tpu_torch.runtime import profiler as rprof
@@ -43,22 +39,19 @@ def _dfold():
         yield
 
 
-# form -> (model, the lowerings that select it, quantize, a layer that
-# shows the form ran)
+# path -> (model, the lowerings that select it, quantize, a layer that
+# shows the path ran)
 FORMS = {
     "batch": ("resnet18", (), None, "towers_conv1"),
-    "bd": ("resnet18", (fused_towers_lowering,), None, "towers_conv1[bd]"),
-    "hp": ("resnet18", (fused_towers_lowering, hpack2d_lowering), None,
-           "towers_conv1[hp]"),
+    "nvsmall": ("nvsmall", (), None, "cost_volume+conv3D_1"),
+    "nvsmall+packed": ("nvsmall", (packed3d_lowering, _dfold), None,
+                       "deconv3D_3+softargmin[pk]"),
     "packed": ("resnet18", (packed3d_lowering,), None,
                "cost_volume+conv3D_1a[pk]"),
     "packed+dfold": ("resnet18", (packed3d_lowering, _dfold), None,
                      "deconv3D_5+softargmin[pk]"),
     "int8": ("resnet18", (), "int8", "towers_conv1"),
     "corr": ("resnet18_2d", (), None, "corr_cost_volume+softargmax"),
-    "hp+corr": ("resnet18_2d", (fused_towers_lowering, hpack2d_lowering,
-                                hpack_corr_lowering), None,
-                "corr_cost_volume[hp]+softargmax[hp]"),
 }
 
 
@@ -74,9 +67,8 @@ def few_threads():
 
 @pytest.fixture(autouse=True)
 def _clean_env(monkeypatch):
-    for var in ("REDTAIL_TPU_FUSED_TOWERS", "REDTAIL_TPU_HPACK2D",
-                "REDTAIL_TPU_HPACK_CORR", "REDTAIL_TPU_PACKED3D",
-                "REDTAIL_TPU_DFOLD", "REDTAIL_TPU_S2D"):
+    for var in ("REDTAIL_TPU_PACKED3D", "REDTAIL_TPU_DFOLD",
+                "REDTAIL_TPU_S2D"):
         monkeypatch.delenv(var, raising=False)
 
 
